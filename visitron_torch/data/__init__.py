@@ -1,0 +1,25 @@
+from visitron_torch.data.tokenization import WordPieceTokenizer, build_wordpiece_vocab
+from visitron_torch.data.dialog import truncate_dialogs, build_dialog_sequence, SEGMENT_IDS
+from visitron_torch.data.datasets import load_split, NavInstance, build_nav_instances
+from visitron_torch.data.features import SceneFeatureTable, read_tsv_img_features
+from visitron_torch.data.candidates import (
+    ScanCandidateTable,
+    build_candidate_table,
+    build_candidate_tables,
+)
+
+__all__ = [
+    "WordPieceTokenizer",
+    "build_wordpiece_vocab",
+    "truncate_dialogs",
+    "build_dialog_sequence",
+    "SEGMENT_IDS",
+    "load_split",
+    "NavInstance",
+    "build_nav_instances",
+    "SceneFeatureTable",
+    "read_tsv_img_features",
+    "ScanCandidateTable",
+    "build_candidate_table",
+    "build_candidate_tables",
+]

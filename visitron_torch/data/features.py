@@ -1,0 +1,92 @@
+"""Scene-feature stores: the reference TSV reader + the packed feature table.
+
+Reference format (tasks/viewpoint_select/utils_data.py:331-373): one TSV row
+per (scan, viewpoint) with base64 (36, 2048) float32 features.
+
+`SceneFeatureTable` packs all scans into a single (total_viewpoints, 36, D)
+array with an id->row index, so the rollout hot loop is a device gather
+instead of a host dict lookup + copy per step.  Host-side numpy; the runtime
+(agents/runtime.py) moves the table onto the device.
+"""
+
+from __future__ import annotations
+
+import base64
+import csv
+import sys
+from dataclasses import dataclass
+
+import numpy as np
+
+from visitron_torch import geometry as geo
+
+csv.field_size_limit(sys.maxsize)
+
+TSV_FIELDNAMES = ["scanId", "viewpointId", "image_w", "image_h", "vfov", "features"]
+
+
+def read_tsv_img_features(path: str | None = None, feature_size: int = 2048, blind: bool = False) -> dict:
+    """Parity: utils_data.py:331-373. Returns {"features": {scan_vp: (36,D)},
+    "image_w", "image_h", "vfov"}."""
+    if not path:
+        return {"features": None, "image_w": 640, "image_h": 480, "vfov": 60}
+    features = {}
+    image_w, image_h, vfov = 640, 480, 60
+    with open(path, "rt") as f:
+        reader = csv.DictReader(f, delimiter="\t", fieldnames=TSV_FIELDNAMES)
+        for item in reader:
+            image_w, image_h = int(item["image_w"]), int(item["image_h"])
+            vfov = int(item["vfov"])
+            long_id = item["scanId"] + "_" + item["viewpointId"]
+            if blind:
+                features[long_id] = np.zeros((geo.NUM_VIEWS, feature_size), dtype=np.float32)
+            else:
+                features[long_id] = np.frombuffer(
+                    base64.b64decode(item["features"]), dtype=np.float32
+                ).reshape((geo.NUM_VIEWS, feature_size))
+    return {"features": features, "image_w": image_w, "image_h": image_h, "vfov": vfov}
+
+
+@dataclass
+class SceneFeatureTable:
+    """Packed per-viewpoint scene features for gather-based rollouts.
+
+    ``table[row(scan, vp)] -> (36, D)``; rows are contiguous per scan so a
+    whole batch's panorama features are one integer-gather on device.
+    """
+
+    table: np.ndarray  # (total_vps, 36, D) float32
+    row_index: dict[str, int]  # "scan_vp" -> row
+    scan_offsets: dict[str, int]  # scan -> first row
+    image_w: int = 640
+    image_h: int = 480
+    vfov: int = 60
+
+    def row(self, scan: str, viewpoint: str) -> int:
+        return self.row_index[f"{scan}_{viewpoint}"]
+
+    @classmethod
+    def pack(cls, graphs: dict, features: dict[str, np.ndarray],
+             image_w: int = 640, image_h: int = 480, vfov: int = 60,
+             dtype=np.float32) -> "SceneFeatureTable":
+        """Pack a {scan_vp: (36, D)} dict scan-contiguously (graph index order)."""
+        rows: list[np.ndarray] = []
+        row_index: dict[str, int] = {}
+        scan_offsets: dict[str, int] = {}
+        r = 0
+        for scan in sorted(graphs):
+            g = graphs[scan]
+            scan_offsets[scan] = r
+            for vp in g.viewpoints:
+                key = f"{scan}_{vp}"
+                rows.append(np.asarray(features[key], dtype=dtype))
+                row_index[key] = r
+                r += 1
+        return cls(
+            table=np.stack(rows, axis=0),
+            row_index=row_index,
+            scan_offsets=scan_offsets,
+            image_w=image_w,
+            image_h=image_h,
+            vfov=vfov,
+        )
