@@ -84,3 +84,68 @@ def test_kernels_refuse_unsupported_cuda_tensors(cuda):
     q = base[..., 1:]  # one head of 128, rows 2 bytes off a 16-byte boundary
     with pytest.raises(ValueError, match="aligned"):
         tatt.fused_attention_packed(q, q, q, torch.zeros(1, 128, device=cuda), 1)
+
+
+def _grad_tol(dtype):
+    # bf16: the kernels round a_eff and ds to bf16 where the twin does and
+    # sum in another order, so an output may differ by about one bf16 ulp;
+    # the limit is chip_smoke.py's GRAD_TOL, about twice the largest error
+    # seen on an H100.
+    return (1e-4, 1e-4) if dtype == torch.float32 else (8e-3, 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1b_kernel_matches_twin_on_card(cuda, dtype, d):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, s, h = 4, 200, 4
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    q, k, v = qkv.split(h * d, dim=-1)
+    dout = torch.randn(b, s, h * d, generator=g, device=cuda).to(dtype)
+    kb = torch.where(torch.arange(s, device=cuda)[None] < torch.tensor(
+        [[200], [150], [64], [1]], device=cuda), 0.0, NEG_INF).float()
+    atol, rtol = _grad_tol(dtype)
+    for rate, seed in ((0.0, None), (0.1, 77)):
+        _, lse = tatt.fused_attention_packed(q, k, v, kb, h, seed, rate, need_lse=True)
+        got = tatt.fused_attention_packed_bwd(q, k, v, kb, dout, lse, h, seed, rate)
+        want = tatt.fused_attention_packed_bwd_reference(q, k, v, kb, dout, lse, h,
+                                                         seed, rate)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(x.float(), y.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m: f"{name} rate {rate}: {m}")
+
+
+@pytest.mark.gpu
+def test_k1_autograd_on_card_counts_launches(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(2, 128, 3 * 128, generator=g, device=cuda, requires_grad=True)
+    kb = torch.zeros(2, 128, device=cuda)
+    before = (tatt.fused_attention_packed.launches, tatt.fused_attention_packed_bwd.launches)
+    out = tatt.fused_attention_packed(*qkv.split(128, dim=-1), kb, 2, 5, 0.1)
+    (gq,) = torch.autograd.grad(out.square().sum(), qkv)
+    assert (tatt.fused_attention_packed.launches - before[0],
+            tatt.fused_attention_packed_bwd.launches - before[1]) == (1, 1)
+    ref = qkv.detach().cpu().requires_grad_()
+    want = tatt.fused_attention_packed(*ref.split(128, dim=-1), kb.cpu(), 2, 5, 0.1)
+    (gw,) = torch.autograd.grad(want.square().sum(), ref)
+    torch.testing.assert_close(gq.cpu(), gw, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [768, 136])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2b_kernel_matches_twin_on_card(cuda, dtype, hidden):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(300, hidden, generator=g, device=cuda).to(dtype)
+    res = torch.randn(300, hidden, generator=g, device=cuda).to(dtype)
+    dy = torch.randn(300, hidden, generator=g, device=cuda).to(dtype)
+    gamma = torch.randn(hidden, generator=g, device=cuda)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for r in (res, None):
+        got = tln.fused_add_layernorm_bwd(dy, x, r, gamma)
+        want = tln.layernorm_bwd_reference(dy, x, r, gamma, 1e-12)
+        assert got[0].dtype == dtype and got[1].dtype == torch.float32
+        torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
+        for x_, y_ in zip(got[1:], want[1:]):  # sums over 300 rows
+            torch.testing.assert_close(x_, y_, atol=1e-3, rtol=1e-4)

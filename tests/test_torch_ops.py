@@ -145,3 +145,118 @@ def test_k2_twin_keeps_bf16_and_adds_in_fp32():
     want = tln.layernorm_reference(x.bfloat16().float() + res.bfloat16().float(),
                                    None, g, b, 1e-12).bfloat16()
     assert torch.equal(y, want)
+
+
+# -- backward twins (K1b, K2b) and the autograd Functions ------------------------
+
+@pytest.fixture
+def one_thread():
+    """Tiny tensors gain nothing from intra-op threads, and with several
+    test workers per machine the threads only contend; restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, None), (0.1, 1234)])
+@pytest.mark.parametrize("s", [128, 256])
+def test_k1b_twin_matches_jax_grad_of_pallas_interpret(s, rate, seed):
+    """Gradients of the port's fused_attention_packed (autograd Function ->
+    K1b twin on the CPU) against jax.grad of the Pallas kernel pair."""
+    import jax
+
+    b, h, d = 2, 4, 64
+    q, k, v, kb = _attention_inputs(b, s, h, d, seed=s + 1)
+    dout = np.random.default_rng(s + 2).standard_normal((b, s, h * d)).astype(np.float32)
+
+    def jloss(q, k, v):
+        out = jatt.fused_attention_packed(q, k, v, jnp.asarray(kb), h, seed, rate, True)
+        return jnp.sum(out * jnp.asarray(dout))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                              jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tatt.fused_attention_packed(tq, tk, tv, torch.from_numpy(kb), h, seed, rate)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("has_res", [True, False])
+def test_k2b_twin_matches_jax_grad_of_pallas_interpret(has_res):
+    import jax
+
+    rng = np.random.default_rng(5)
+    shape = (4, 64, 768)
+    x = rng.standard_normal(shape).astype(np.float32)
+    res = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(768).astype(np.float32)
+    b = rng.standard_normal(768).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+
+    def jloss(x, res, g, b):
+        y = jln.fused_add_layernorm(x, res if has_res else None, g, b, 1e-12,
+                                    interpret=True)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(*map(jnp.asarray, (x, res, g, b)))
+    tx, tr, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, res, g, b))
+    y = tln.fused_add_layernorm(tx, tr if has_res else None, tg, tb, 1e-12)
+    inputs = (tx, tr, tg, tb) if has_res else (tx, tg, tb)
+    got = torch.autograd.grad(y, inputs, torch.from_numpy(dy))
+    want = want if has_res else (want[0], want[2], want[3])
+    for i, (gt, w) in enumerate(zip(got, want)):
+        # dgamma/dbeta are sums over 256 rows (|value| ~ 25): fp32 summation
+        # order adds up to ~1 ulp per row there, hence rtol 1e-6 on top.
+        rtol = 1e-6 if gt.ndim == 1 else 0
+        np.testing.assert_allclose(gt.numpy(), np.asarray(w), atol=1e-5, rtol=rtol,
+                                   err_msg=f"grad {i}")
+    if has_res:
+        assert torch.equal(got[0], got[1])  # dh is the gradient of x and of res
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, None), (0.2, 5)])
+def test_k1_autograd_function_gradcheck_fp64(rate, seed, one_thread):
+    # The twin takes any head dim (the kernels only 64 and 128): heads of 8
+    # keep the numerical Jacobian at 768 inputs.
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 16, 2 * 8))).requires_grad_()
+               for _ in range(3))
+    kb = torch.zeros(2, 16, dtype=torch.float64)
+    kb[1, 11:] = NEG_INF
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: tatt.fused_attention_packed(q, k, v, kb, 2, seed, rate), (q, k, v))
+
+
+@pytest.mark.parametrize("has_res", [True, False])
+def test_k2_autograd_function_gradcheck_fp64(has_res, one_thread):
+    rng = np.random.default_rng(7)
+    x, res = (torch.from_numpy(rng.standard_normal((3, 5, 16))).requires_grad_()
+              for _ in range(2))
+    g, b = (torch.from_numpy(rng.standard_normal(16)).requires_grad_() for _ in range(2))
+    if has_res:
+        fn, args = (lambda x, r, g, b: tln.fused_add_layernorm(x, r, g, b, 1e-5)), (x, res, g, b)
+    else:
+        fn, args = (lambda x, g, b: tln.fused_add_layernorm(x, None, g, b, 1e-5)), (x, g, b)
+    assert torch.autograd.gradcheck(fn, args)
+
+
+def test_bwd_wrappers_take_twins_on_cpu_and_count_only_launches():
+    rng = np.random.default_rng(8)
+    q, k, v, kb = (torch.from_numpy(a) for a in _attention_inputs(2, 128, 2, 64, 9))
+    dout = torch.from_numpy(rng.standard_normal((2, 128, 128)).astype(np.float32))
+    _, lse = tatt.fused_attention_packed(q, k, v, kb, 2, need_lse=True)
+    n = tatt.fused_attention_packed_bwd.launches
+    got = tatt.fused_attention_packed_bwd(q, k, v, kb, dout, lse, 2)
+    want = tatt.fused_attention_packed_bwd_reference(q, k, v, kb, dout, lse, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    x = torch.from_numpy(rng.standard_normal((6, 64)).astype(np.float32))
+    m = tln.fused_add_layernorm_bwd.launches
+    got = tln.fused_add_layernorm_bwd(x, x, None, torch.ones(64))
+    want = tln.layernorm_bwd_reference(x, x, None, torch.ones(64), 1e-12)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (tatt.fused_attention_packed_bwd.launches, tln.fused_add_layernorm_bwd.launches) == (n, m)
+    with pytest.raises(ValueError, match="seed"):
+        tatt.fused_attention_packed_bwd(q, k, v, kb, dout, lse, 2, None, 0.1)

@@ -36,7 +36,10 @@ SIGNATURES = {
     "vt_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _LL, _LL, _LL, _LL, _LL, _LL, _I, _U, _U, _F, _I, _F,
                          _P],
+    "vt_attention_bwd": [_P] * 10 + [_I, _I, _I, _I] + [_LL] * 6
+                        + [_I, _U, _U, _F, _I, _F, _P],
     "vt_layernorm_fwd": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "vt_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
 }
 
 _lib = None

@@ -1,8 +1,12 @@
-"""Batching of navigation instances for evaluation
-(visitron_tpu/agents/batcher.py: ``trim_to_bucket``, ``_make_batch`` and
-``eval_batches``).  Host-side numpy; the agent moves each batch onto the
-device.  The training schedule (shuffled, length-sorted, multi-host) is not
-ported yet.
+"""Batching of navigation instances (visitron_tpu/agents/batcher.py:
+``trim_to_bucket``, ``_make_batch``, ``with_teacher``, the training schedule
+``train_batches`` / ``skip_batches`` and ``eval_batches``).  Host-side numpy;
+the agent moves each batch onto the device.
+
+The training schedule is the JAX package's for one host: epoch-shuffled with
+``np.random.default_rng(seed)``, length-sorted within windows of
+``LENGTH_SORT_WINDOW`` batches, the epoch tail wrapped into the next epoch,
+so the same seed gives the same batches.  Multi-host streams are not ported.
 """
 
 from __future__ import annotations
@@ -11,6 +15,11 @@ import numpy as np
 
 from visitron_torch.agents.runtime import NavRuntime
 from visitron_torch.data.datasets import NavInstance
+
+# Within each shuffled window of this many batches the instances are ordered
+# by dialog length, so batches are length-homogeneous and trim to small
+# buckets (the JAX batcher's default window).
+LENGTH_SORT_WINDOW = 8
 
 
 def trim_to_bucket(batch: dict, max_len: int, bucket: int) -> dict:
@@ -28,11 +37,13 @@ def trim_to_bucket(batch: dict, max_len: int, bucket: int) -> dict:
 
 class NavEpisodeBatcher:
     def __init__(self, instances: list[NavInstance], runtime: NavRuntime,
-                 batch_size: int, path_type: str = "trusted_path"):
+                 batch_size: int, path_type: str = "trusted_path", seed: int = 88):
         self.instances = instances
         self.runtime = runtime
         self.batch_size = batch_size
         self.path_type = path_type
+        self.rng = np.random.default_rng(seed)
+        self._stream = None
 
     def _make_batch(self, items: list[NavInstance]) -> dict:
         rt = self.runtime
@@ -61,6 +72,61 @@ class NavEpisodeBatcher:
             out["start_views"][i] = view
             out["goal_rows"][i] = rt.row(it.scan, path[-1])
         return out
+
+    def with_teacher(self, batch: dict, episode_len: int) -> dict:
+        """The batch plus its teacher-forced episode arrays (cur_row, view,
+        teacher, active; NavRuntime.teacher_rollout_arrays)."""
+        batch = dict(batch)
+        batch.update(self.runtime.teacher_rollout_arrays(
+            batch["scans"], batch["start_rows"], batch["start_views"],
+            batch["goal_rows"], episode_len))
+        return batch
+
+    def _window_sort(self, idx: list[int]) -> list[int]:
+        """Length-sort ``idx`` within windows of ``LENGTH_SORT_WINDOW``
+        batches, starting at index 0 so window boundaries stay aligned to
+        batch boundaries."""
+        w = LENGTH_SORT_WINDOW * self.batch_size
+        if len(idx) <= self.batch_size:
+            return list(idx)
+        arr = np.asarray(idx)
+        lengths = np.array([self.instances[i].length for i in arr])
+        out: list[int] = []
+        for s in range(0, len(arr), w):
+            chunk, cl = arr[s:s + w], lengths[s:s + w]
+            out.extend(chunk[np.argsort(cl, kind="stable")].tolist())
+        return out
+
+    def _batch_stream(self):
+        """Yield ``batch_size`` index lists: epoch-shuffled, window-aligned
+        length-sorted, the tail wrapped into the next epoch."""
+        order: list[int] = []
+        while True:
+            while len(order) < self.batch_size:
+                epoch = np.arange(len(self.instances))
+                self.rng.shuffle(epoch)
+                order = self._window_sort(order + epoch.tolist())
+            take, order = order[: self.batch_size], order[self.batch_size:]
+            yield take
+
+    def _next_take(self) -> list[int]:
+        if self._stream is None:
+            self._stream = self._batch_stream()
+        return next(self._stream)
+
+    def skip_batches(self, n: int) -> None:
+        """Advance the schedule by ``n`` batches without building them (a
+        resumed run replays the stream to its checkpoint position)."""
+        for _ in range(n):
+            self._next_take()
+
+    def train_batches(self, num_batches: int, episode_len: int):
+        """``num_batches`` full-size batches of the training schedule, each
+        with its teacher-forced episode arrays of ``episode_len`` steps; the
+        schedule's state persists across calls."""
+        for _ in range(num_batches):
+            batch = self._make_batch([self.instances[i] for i in self._next_take()])
+            yield self.with_teacher(batch, episode_len)
 
     def eval_batches(self):
         """One sequential pass; the final batch wraps to the front (the test

@@ -146,6 +146,53 @@ class NavRuntime:
             geo.view_of(geo.snap_heading(heading), geo.snap_elevation(elevation)),
         )
 
+    def teacher_slot(self, scan: str, row: int, goal_row: int) -> int:
+        """Index of the teacher candidate: slot of the next-hop neighbor, or
+        ``count`` (the stop slot) at the goal (agent.py:237-251)."""
+        g = self.graphs[scan]
+        off = self.feat_table.scan_offsets[scan]
+        u, goal = row - off, goal_row - off
+        if u == goal:
+            return int(self.count_h[row])
+        nxt = int(g.next_hop[u, goal]) + off
+        slots = np.flatnonzero(self.nbr_h[row] == nxt)
+        if len(slots) != 1:
+            raise ValueError(f"no unique teacher slot from row {row} toward "
+                             f"{goal_row} in scan {scan}")
+        return int(slots[0])
+
+    def teacher_rollout_arrays(self, scans: list[str], start_rows: np.ndarray,
+                               start_views: np.ndarray, goal_rows: np.ndarray,
+                               episode_len: int, ignore_id: int = -100) -> dict:
+        """The full teacher-forced episode of a batch, on the host.
+
+        Returns (B, T) int32 arrays cur_row, view and teacher (the teacher
+        slot, ``ignore_id`` once ended) and the (B, T) bool active mask; the
+        rollout itself (features, decoder, loss) then runs on the device."""
+        b = len(start_rows)
+        cur_row = np.zeros((b, episode_len), np.int32)
+        view = np.zeros((b, episode_len), np.int32)
+        teacher = np.full((b, episode_len), ignore_id, np.int32)
+        active = np.zeros((b, episode_len), bool)
+        for i in range(b):
+            row, v = int(start_rows[i]), int(start_views[i])
+            goal = int(goal_rows[i])
+            ended = False
+            for t in range(episode_len):
+                cur_row[i, t] = row
+                view[i, t] = v
+                if ended:
+                    continue
+                slot = self.teacher_slot(scans[i], row, goal)
+                teacher[i, t] = slot
+                active[i, t] = True
+                if slot == int(self.count_h[row]):  # stop
+                    ended = True
+                else:
+                    row, v = self.step_to(row, slot)
+        return {"cur_row": cur_row, "view": view, "teacher": teacher,
+                "active": active}
+
     def step_to(self, row: int, slot: int) -> tuple[int, int]:
         """Apply candidate ``slot`` from ``row``: (new_row, new_view).
 

@@ -1,6 +1,6 @@
-"""Viewpoint-selection navigation agent: the NDH serving rollout
-(visitron_tpu/agents/viewpoint.py; reference tasks/viewpoint_select/
-agent.py:49-63, 358-445).
+"""Viewpoint-selection navigation agent: the NDH serving rollout and the
+teacher-forced fine-tuning train step (visitron_tpu/agents/viewpoint.py;
+reference tasks/viewpoint_select/agent.py:49-63, 358-472, 509-515).
 
 ``test(params, batches, feedback="argmax")`` is the serving entry point:
 
@@ -16,9 +16,18 @@ agent.py:49-63, 358-445).
 ``params`` are ``{"encoder": {name: tensor}, "decoder": {name: tensor}}``,
 applied to the agent's modules with ``torch.func.functional_call``; make
 them with :meth:`ViewpointAgent.init_params` or carry the JAX package's
-across with ``visitron_torch.convert.convert_agent_params``.  Nothing runs
-through autograd: the rollout runs under ``torch.inference_mode``.
-Training (teacher forcing, losses, the optimizer) is not ported yet.
+across with ``visitron_torch.convert.convert_agent_params``.  The rollout
+runs under ``torch.inference_mode``.
+
+``train_step_fn()`` is the training entry point, driven over
+``NavEpisodeBatcher.train_batches(n, episode_len=...)``: ``run(state, batch)
+-> (state, loss)`` with ``state`` from :meth:`ViewpointAgent.init_state`
+(params, the optimizer state and the dropout generators).  One step trims
+the batch to its bucket, runs the encoder and ``episode_len`` teacher-forced
+decoder steps with every dropout active, takes the gradients with
+``torch.autograd.grad`` (the BERT attention and LayerNorms backward through
+their kernels K1b and K2b), clips them and applies Adam.  The student-forced
+and RL losses are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
 from visitron_torch import geometry as geo
@@ -36,8 +46,10 @@ from visitron_torch.agents.batcher import trim_to_bucket
 from visitron_torch.agents.decoding import select_action
 from visitron_torch.agents.runtime import NavRuntime
 from visitron_torch.models import AttnDecoderLSTM, BertConfig, OscarEncoder
-from visitron_torch.models.layers import init_module_params
+from visitron_torch.models.layers import DropoutRng, init_module_params
 from visitron_torch.ops.masking import NEG_INF
+from visitron_torch.train.optim import (agent_optimizer, apply_updates, tree_leaves,
+                                        tree_unflatten)
 
 
 def gather_step_inputs(rt: NavRuntime, cur_row, view):
@@ -80,6 +92,11 @@ class ViewpointAgent:
     aemb: int = 64
     rnn_dim: int = 512
     encoder_hidden_size: int = 512
+    dropout: float = 0.5
+    learning_rate: float = 5e-5
+    optimizer_kind: str = "adam"
+    max_grad_norm: float = 40.0
+    bf16_adam_moments: bool = False  # store Adam mu/nu in bf16
     seed: int = 88
     device: object = None  # None: the card
 
@@ -90,12 +107,17 @@ class ViewpointAgent:
                              f"the agent on {self.device}")
         self.encoder = OscarEncoder(
             self.cfg, hidden_size=self.encoder_hidden_size,
-            decoder_hidden_size=self.rnn_dim).to(self.device).eval()
+            decoder_hidden_size=self.rnn_dim,
+            dropout_ratio=self.dropout).to(self.device).eval()
         self.decoder = AttnDecoderLSTM(
             angle_feat_size=self.angle_feat_size, embedding_size=self.aemb,
             hidden_size=self.rnn_dim,
             feature_size=self.feature_dim + self.angle_feat_size,
-            ctx_size=self.encoder_hidden_size).to(self.device).eval()
+            ctx_size=self.encoder_hidden_size,
+            dropout_ratio=self.dropout).to(self.device).eval()
+        self.optimizer = agent_optimizer(self.learning_rate, self.optimizer_kind,
+                                         self.max_grad_norm,
+                                         bf16_moments=self.bf16_adam_moments)
         self.results: dict = {}
 
     # -- parameters ----------------------------------------------------------
@@ -108,6 +130,17 @@ class ViewpointAgent:
         return {"encoder": init_module_params(self.encoder, g, self.device),
                 "decoder": init_module_params(self.decoder, g, self.device)}
 
+    def init_state(self) -> dict:
+        """Training state: ``params`` (:meth:`init_params` at the agent's
+        seed), ``opt_state`` and ``rng``, the dropout generators (masks on
+        the agent's device, kernel seeds on the CPU, both seeded with
+        seed + 1)."""
+        params = self.init_params()
+        rng = DropoutRng(
+            masks=torch.Generator(device=self.device).manual_seed(self.seed + 1),
+            seeds=torch.Generator().manual_seed(self.seed + 1))
+        return {"params": params, "opt_state": self.optimizer.init(params), "rng": rng}
+
     # -- shared pieces ---------------------------------------------------------
     @staticmethod
     def trim_batch(batch: dict, bucket: int = 128) -> dict:
@@ -119,26 +152,94 @@ class ViewpointAgent:
     def _index(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.int64).to(self.device)
 
-    def encode(self, params, batch: dict):
-        """(ctx, h0, c0, ctx_mask) for a trimmed batch."""
+    def encode(self, params, batch: dict, rng: DropoutRng | None = None):
+        """(ctx, h0, c0, ctx_mask) for a trimmed batch; ``rng`` turns the
+        encoder's dropouts on."""
         ids, segs = self._index(batch["ids"]), self._index(batch["segs"])
         lengths = self._index(batch["lengths"])
         ctx, h, c = functional_call(self.encoder, params["encoder"], (ids, lengths),
-                                    {"token_type_ids": segs}, strict=True)
+                                    {"token_type_ids": segs, "rng": rng}, strict=True)
         ctx_mask = torch.arange(ids.shape[1], device=self.device)[None, :] >= lengths[:, None]
         return ctx, h, c, ctx_mask
 
     def decode_step(self, params, h1, c, ctx, ctx_mask, cur_row, view,
-                    visited_mask=None):
+                    visited_mask=None, rng: DropoutRng | None = None):
         """One decoder step from the runtime tables; returns (masked logit,
-        h_tilde, c_new)."""
+        h_tilde, c_new).  ``rng`` turns the decoder's dropouts on."""
         a_t, f_t, cand_feat, cand_mask = gather_step_inputs(self.runtime, cur_row, view)
         _, c_new, logit, h_tilde = functional_call(
             self.decoder, params["decoder"],
-            (a_t, f_t, cand_feat, h1, c, ctx, ctx_mask), strict=True)
+            (a_t, f_t, cand_feat, h1, c, ctx, ctx_mask), {"rng": rng}, strict=True)
         if visited_mask is not None:
             cand_mask = cand_mask | visited_mask
         return logit.masked_fill(cand_mask, NEG_INF), h_tilde, c_new
+
+    # -- teacher-forced training ------------------------------------------------
+    def episode_loss(self, params, batch: dict, rng: DropoutRng | None = None):
+        """Mean teacher-forced loss of a trimmed batch with teacher arrays
+        (agent.py:406-412, 469-472): the encoder, then T decoder steps fed
+        the teacher's states; each step's masked CE is averaged over its
+        active items (n = max(sum(active), 1)), and the loss is the sum of
+        the step losses over T.  ``rng`` None: no dropout."""
+        ctx, h1, c, ctx_mask = self.encode(params, batch, rng)
+        return self.teacher_forced_loss(params, batch, ctx, h1, c, ctx_mask, rng)
+
+    def teacher_forced_loss(self, params, batch: dict, ctx, h1, c, ctx_mask,
+                            rng: DropoutRng | None = None):
+        """The decoder half of :meth:`episode_loss`: T teacher-forced steps
+        from the encoder's outputs, and the mean of the step losses."""
+        cur_row, view = self._index(batch["cur_row"]), self._index(batch["view"])
+        teacher = self._index(batch["teacher"])
+        active = torch.as_tensor(np.asarray(batch["active"], bool)).to(self.device)
+        t_len = cur_row.shape[1]
+        loss = torch.zeros((), device=self.device)
+        for t in range(t_len):
+            logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask,
+                                            cur_row[:, t], view[:, t], rng=rng)
+            act = active[:, t]
+            ce = F.cross_entropy(logit.float(), torch.where(act, teacher[:, t], 0),
+                                 reduction="none")
+            weight = act.float()
+            loss = loss + torch.sum(ce * weight) / torch.clamp(weight.sum(), min=1.0)
+        return loss / t_len
+
+    def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None):
+        """(loss, grads) of :meth:`episode_loss` for a trimmed batch; grads
+        mirror ``params`` (zeros where a parameter takes no part, as in JAX)."""
+        leaves = tree_leaves(params)
+        live = [p.detach().requires_grad_() for p in leaves]
+        loss = self.episode_loss(tree_unflatten(params, live), batch, rng)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return loss.detach(), tree_unflatten(params, grads)
+
+    def train_step_fn(self):
+        """``run(state, batch) -> (state, loss)``: one teacher-forced step
+        with every dropout active, the global-norm clip and Adam."""
+
+        def run(state, batch):
+            batch = self.trim_batch(batch)
+            loss, grads = self.loss_and_grads(state["params"], batch, state["rng"])
+            updates, opt_state = self.optimizer.update(grads, state["opt_state"],
+                                                       state["params"])
+            params = apply_updates(state["params"], updates)
+            return {"params": params, "opt_state": opt_state, "rng": state["rng"]}, loss
+
+        return run
+
+    def eval_loss_fn(self, use_dropout: bool = False):
+        """Teacher-forced validation loss, no gradient (test(use_dropout,
+        feedback='teacher') parity, train.py:318-320): ``run(params, batch,
+        rng=None)``; ``use_dropout`` needs the ``rng``."""
+
+        def run(params, batch, rng: DropoutRng | None = None):
+            if use_dropout and rng is None:
+                raise ValueError("eval_loss_fn(use_dropout=True) needs an rng")
+            with torch.no_grad():
+                return self.episode_loss(params, self.trim_batch(batch),
+                                         rng if use_dropout else None)
+
+        return run
 
     # -- student-forced rollout --------------------------------------------------
     def device_rollout(self, params, batch: dict, feedback: str = "argmax"):

@@ -17,8 +17,11 @@ checkpoint (visitron_torch/convert.py) loads one to one:
 There is no backend gate: the kernels' wrappers run the CUDA kernels for
 tensors on the card and their plain twins for tensors on the CPU.  Only the
 text path of ``VisitronBert`` is ported; history states and image-region
-fusion raise ``NotImplementedError``.  Dropout is not applied: this is the
-serving (eval-mode) model.
+fusion raise ``NotImplementedError``.  Dropout applies only in a training
+pass, which passes a ``DropoutRng`` as ``rng``: hidden dropout after the
+embedding LayerNorm and after each layer's two output projections, and the
+kernel's hash dropout on the attention probabilities with a fresh seed per
+layer and step.  ``rng=None`` is the deterministic (serving) pass.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from visitron_torch.models.layers import Dense, Embed
+from visitron_torch.models.layers import Dense, DropoutRng, Embed, maybe_drop
 from visitron_torch.ops.attention import fused_attention_packed
 from visitron_torch.ops.layernorm import fused_add_layernorm
 from visitron_torch.ops.masking import make_attention_bias
@@ -44,6 +47,8 @@ class BertConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
     dtype: torch.dtype = torch.float32  # activation dtype (bfloat16 on the card)
@@ -89,11 +94,13 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = _embed(cfg.max_position_embeddings, cfg)
         self.token_type_embeddings = _embed(cfg.type_vocab_size, cfg)
         self.layer_norm = FusedResidualLayerNorm(cfg, cfg.hidden_size)
+        self.dropout_prob = cfg.hidden_dropout_prob
 
-    def forward(self, word_emb, position_ids, token_type_ids):
+    def forward(self, word_emb, position_ids, token_type_ids,
+                rng: DropoutRng | None = None):
         emb = word_emb + self.position_embeddings(position_ids)
         emb = emb + self.token_type_embeddings(token_type_ids)
-        return self.layer_norm(emb)
+        return maybe_drop(self.layer_norm(emb), self.dropout_prob, rng)
 
 
 class BertSelfAttention(nn.Module):
@@ -102,13 +109,16 @@ class BertSelfAttention(nn.Module):
         self.cfg = cfg
         self.qkv = _dense(cfg.hidden_size, 3 * cfg.hidden_size, cfg)
 
-    def forward(self, hidden, key_bias, history_state=None):
+    def forward(self, hidden, key_bias, history_state=None,
+                rng: DropoutRng | None = None):
         if history_state is not None:
             raise NotImplementedError("history_state is not ported yet")
         qkv = self.qkv(hidden)
         q, k, v = qkv.split(self.cfg.hidden_size, dim=-1)
-        return fused_attention_packed(q, k, v, key_bias,
-                                      self.cfg.num_attention_heads).to(self.cfg.dtype)
+        rate = 0.0 if rng is None else float(self.cfg.attention_probs_dropout_prob)
+        seed = rng.seed() if rate > 0.0 else None
+        return fused_attention_packed(q, k, v, key_bias, self.cfg.num_attention_heads,
+                                      seed, rate).to(self.cfg.dtype)
 
 
 class BertLayer(nn.Module):
@@ -123,12 +133,14 @@ class BertLayer(nn.Module):
         self.output = _dense(cfg.intermediate_size, h, cfg)
         self.output_layer_norm = FusedResidualLayerNorm(cfg, h)
 
-    def forward(self, hidden, key_bias, history_state=None):
+    def forward(self, hidden, key_bias, history_state=None,
+                rng: DropoutRng | None = None):
         dt = self.cfg.dtype
-        attn = self.attention_output(self.attention(hidden, key_bias, history_state))
-        hidden = self.attention_layer_norm(attn, hidden).to(dt)
+        p = self.cfg.hidden_dropout_prob
+        attn = self.attention_output(self.attention(hidden, key_bias, history_state, rng))
+        hidden = self.attention_layer_norm(maybe_drop(attn, p, rng), hidden).to(dt)
         inter = F.gelu(self.intermediate(hidden), approximate="none")
-        out = self.output(inter)
+        out = maybe_drop(self.output(inter), p, rng)
         return self.output_layer_norm(out, hidden).to(dt)
 
 
@@ -139,11 +151,12 @@ class BertEncoder(nn.Module):
         for i in range(cfg.num_hidden_layers):
             setattr(self, f"layer_{i}", BertLayer(cfg))
 
-    def forward(self, hidden, key_bias, history_states=None):
+    def forward(self, hidden, key_bias, history_states=None,
+                rng: DropoutRng | None = None):
         if history_states is not None:
             raise NotImplementedError("history_states are not ported yet")
         for i in range(self.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, key_bias)
+            hidden = getattr(self, f"layer_{i}")(hidden, key_bias, rng=rng)
         return hidden
 
 
@@ -173,7 +186,7 @@ class VisitronBert(nn.Module):
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 position_ids=None, img_feats=None, img_location_embeddings=None,
-                history_states=None):
+                history_states=None, rng: DropoutRng | None = None):
         if img_feats is not None or img_location_embeddings is not None:
             raise NotImplementedError("image-region fusion is not ported yet")
         if history_states is not None:
@@ -185,9 +198,9 @@ class VisitronBert(nn.Module):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         emb = self.embeddings(self.word_embeddings(input_ids), position_ids,
-                              token_type_ids).to(self.cfg.dtype)
+                              token_type_ids, rng).to(self.cfg.dtype)
         key_bias = make_attention_bias(attention_mask)[:, 0, 0, :].contiguous()
-        seq = self.encoder(emb, key_bias)
+        seq = self.encoder(emb, key_bias, rng=rng)
         return seq, self.pooler(seq)
 
 
@@ -200,6 +213,7 @@ class BertTextModel(nn.Module):
         self.bert = VisitronBert(cfg)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                position_ids=None):
+                position_ids=None, rng: DropoutRng | None = None):
         return self.bert(input_ids, token_type_ids=token_type_ids,
-                         attention_mask=attention_mask, position_ids=position_ids)
+                         attention_mask=attention_mask, position_ids=position_ids,
+                         rng=rng)

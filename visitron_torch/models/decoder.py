@@ -5,7 +5,11 @@ tasks/viewpoint_select/agent_models.py:313-428).
 The decoder's Dense layers have no computation dtype, so bf16 inputs (the
 runtime's feature tables on the card) are promoted to the fp32 parameters,
 as in the flax modules.  The classifier and turn-based decoders are not
-ported yet.  Dropout is not applied (serving).
+ported yet.  In a training pass (``rng`` given) four dropouts at
+``dropout_ratio`` apply, as in the flax module: on the action embedding, on
+the previous h_tilde fed to the panorama attention (the LSTM cell still gets
+it undropped), on h_1 fed to the dialog attention and on h_tilde fed to the
+candidate scorer (the returned h_tilde is undropped).
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from visitron_torch.models.layers import Dense
+from visitron_torch.models.layers import Dense, DropoutRng, maybe_drop
 from visitron_torch.models.lstm import LSTMCellParams, lstm_cell_step
 from visitron_torch.ops.masking import NEG_INF
 
@@ -49,8 +53,9 @@ class SoftDotAttention(nn.Module):
 class AttnDecoderLSTM(nn.Module):
     def __init__(self, angle_feat_size: int = 4, embedding_size: int = 64,
                  hidden_size: int = 512, feature_size: int = 2048 + 4,
-                 ctx_size: int = 512):
+                 ctx_size: int = 512, dropout_ratio: float = 0.5):
         super().__init__()
+        self.dropout_ratio = dropout_ratio
         self.embedding = Dense(angle_feat_size, embedding_size)
         self.feat_att_layer = SoftDotAttention(hidden_size, feature_size, with_tilde=False)
         self.lstm = LSTMCellParams(embedding_size + feature_size, hidden_size)
@@ -58,7 +63,8 @@ class AttnDecoderLSTM(nn.Module):
         self.candidate_att_layer = SoftDotAttention(hidden_size, feature_size,
                                                     with_tilde=False)
 
-    def forward(self, action, feature, cand_feat, prev_h1, c_0, ctx, ctx_mask=None):
+    def forward(self, action, feature, cand_feat, prev_h1, c_0, ctx, ctx_mask=None,
+                rng: DropoutRng | None = None):
         """One decode step.
 
         action: (B, angle_feat) previous-action angle feature
@@ -67,11 +73,13 @@ class AttnDecoderLSTM(nn.Module):
         ctx: (B, T, C) dialog context; ctx_mask: (B, T) True at pads
         Returns (h_1, c_1, logit (B, K), h_tilde).
         """
-        a = torch.tanh(self.embedding(action))
-        attn_feat, _ = self.feat_att_layer(prev_h1, feature, output_tilde=False)
+        p = self.dropout_ratio
+        a = maybe_drop(torch.tanh(self.embedding(action)), p, rng)
+        attn_feat, _ = self.feat_att_layer(maybe_drop(prev_h1, p, rng), feature,
+                                           output_tilde=False)
         x = torch.cat([a, attn_feat], dim=-1)
         h_1, c_1 = lstm_cell_step(self.lstm(), x, prev_h1, c_0)
-        h_tilde, _ = self.attention_layer(h_1, ctx, mask=ctx_mask)
-        _, logit = self.candidate_att_layer(h_tilde, cand_feat, output_tilde=False,
-                                            output_prob=False)
+        h_tilde, _ = self.attention_layer(maybe_drop(h_1, p, rng), ctx, mask=ctx_mask)
+        _, logit = self.candidate_att_layer(maybe_drop(h_tilde, p, rng), cand_feat,
+                                            output_tilde=False, output_prob=False)
         return h_1, c_1, logit, h_tilde

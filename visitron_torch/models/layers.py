@@ -11,11 +11,16 @@ Each block can draw its own initial parameters from a ``torch.Generator``
 with the distributions of the flax initialisers the JAX package uses
 (``initial_params``); :func:`init_module_params` collects them for a whole
 module tree in a fixed order.
+
+:func:`dropout` is flax ``nn.Dropout`` with an explicit generator;
+:class:`DropoutRng` carries one training pass's generators through the
+modules (``rng=None`` is the deterministic pass).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -77,12 +82,51 @@ class Embed(nn.Module):
         self.init_std = init_std
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        rows = self.weight[ids]
+        # F.embedding: the same rows as weight[ids], with a dense
+        # embedding backward instead of index_put_ accumulation.
+        rows = F.embedding(ids, self.weight)
         return rows if self.dtype is None else rows.to(self.dtype)
 
     def initial_params(self, g: torch.Generator) -> dict:
         return {"weight": torch.empty(self.weight.shape).normal_(
             0.0, self.init_std, generator=g)}
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None = None,
+            deterministic: bool = True) -> torch.Tensor:
+    """flax ``nn.Dropout`` semantics: keep each value with probability
+    1 - rate and scale kept values by 1/(1 - rate); the identity when
+    ``deterministic`` or rate is 0.  The mask is drawn with ``torch.rand``
+    from ``generator``, which lives on x's device (``F.dropout`` takes no
+    generator).  flax's streams cannot be reproduced, so only the
+    distribution matches the JAX package."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+
+
+@dataclass
+class DropoutRng:
+    """The randomness of one training step's dropouts: ``masks`` draws the
+    hidden-dropout masks on the activations' device; ``seeds`` (a CPU
+    generator, so drawing needs no device sync) draws the int32 seeds of the
+    attention kernels' hash dropout.  Modules take ``rng=None`` for the
+    deterministic (serving) pass."""
+
+    masks: torch.Generator
+    seeds: torch.Generator
+
+    def seed(self) -> int:
+        """A seed in [0, 2**31 - 1), as jax.random.randint draws it
+        (visitron_tpu/models/bert.py:350-352)."""
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.seeds))
+
+
+def maybe_drop(x: torch.Tensor, rate: float, rng: DropoutRng | None) -> torch.Tensor:
+    """Dropout at ``rate`` in a training pass (``rng`` given), else x."""
+    return x if rng is None else dropout(x, rate, rng.masks, deterministic=False)
 
 
 def init_module_params(module: nn.Module, g: torch.Generator, device=None) -> dict:

@@ -67,13 +67,18 @@ def masked_lstm_scan(params, inputs, lengths, dtype=None):
     c = torch.zeros((b, hidden_size), dtype=dtype, device=inputs.device)
     gates_x = inputs @ params["wi"].T + params["bi"] + params["bh"]
     wh_t = params["wh"].T
+    # Per-step views through unbind: under autograd its backward stacks the
+    # T step gradients once, where indexing gates_x[:, step] would allocate,
+    # zero-fill and accumulate a full (B, T, 4H) gradient at every step.
+    steps_x = gates_x.unbind(1)
+    steps_m = mask.unbind(1)
     ys = []
     for step in range(t):
-        gates = gates_x[:, step] + h @ wh_t
+        gates = steps_x[step] + h @ wh_t
         i, f, g, o = gates.chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
-        v = mask[:, step, None]
+        v = steps_m[step][:, None]
         h = v * h_new + (1 - v) * h
         c = v * c_new + (1 - v) * c
         ys.append(h * v)

@@ -1,11 +1,12 @@
-"""Packed fused self-attention forward (K1): the Hopper kernel's wrapper, its
-plain PyTorch twin, the (B, H, S, D) ``multi_head_attention`` core and the
+"""Packed fused self-attention (K1): the Hopper kernels' wrappers (forward
+K1f and backward K1b), their plain PyTorch twins, the autograd Function that
+joins them, the (B, H, S, D) ``multi_head_attention`` core and the
 position-hash dropout helpers.
 
 Counterpart of visitron_tpu/ops/attention.py: ``fused_attention_packed``
-(Pallas ``_fused_packed_fwd_kernel``), ``multi_head_attention`` and
-``_keep_mask`` / ``_threshold`` / ``_mix_seed``.  The kernel lives in
-``csrc/attention.cu``.
+(Pallas ``_fused_packed_fwd_kernel`` and, through its custom VJP,
+``_fused_packed_bwd_kernel``), ``multi_head_attention`` and ``_keep_mask`` /
+``_threshold`` / ``_mix_seed``.  The kernels live in ``csrc/attention.cu``.
 
 Dropout on the attention probabilities is a counter-based hash of the
 absolute (query, key) position inside each head (murmur3 finaliser), seeded
@@ -13,8 +14,11 @@ with ``seed ^ (head_id * 0xC2B2AE3D)`` where head_id = b*H + h.  A value is
 kept when the hash is >= ``_threshold(rate)``, and kept values are scaled by
 1/(1 - rate).  The masks equal the JAX package's bit for bit.
 
-``fused_attention_packed`` takes the plain twin only for tensors on the CPU.
-For a CUDA tensor it launches the kernel or raises; there is no fallback.
+``fused_attention_packed`` takes the plain twins only for tensors on the CPU.
+For a CUDA tensor it launches the kernels or raises; there is no fallback.
+When a gradient is needed it records ``_PackedAttention``, whose forward also
+keeps the lse and whose backward runs K1b (``fused_attention_packed_bwd``).
+The twins compute in fp32, or in fp64 for fp64 inputs (gradcheck).
 """
 
 from __future__ import annotations
@@ -25,6 +29,11 @@ from visitron_torch import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
+
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The twins' arithmetic type: fp32 for bf16/fp32, fp64 for fp64."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def multi_head_attention(q, k, v, bias=None, dropout_rate: float = 0.0,
@@ -93,6 +102,22 @@ def _mix_seed(seed: int, bh) -> torch.Tensor:
 
 # -- K1: packed fused attention ----------------------------------------------
 
+def _split_heads(t, num_heads: int, dtype):
+    b, s, hd = t.shape
+    return t.reshape(b, s, num_heads, hd // num_heads).permute(0, 2, 1, 3).to(dtype)
+
+
+def _merge_heads(t, dtype):
+    b, h, s, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b, s, h * d).to(dtype)
+
+
+def _head_keep_mask(seed, b: int, h: int, s: int, rate: float, device):
+    """(B, H, S, S) keep mask of every head, head id b*H + h."""
+    bh = torch.arange(b * h, device=device).reshape(b, h)
+    return _keep_mask(_mix_seed(seed, bh).to(device), 0, 0, (s, s), _threshold(rate))
+
+
 def fused_attention_packed_reference(q, k, v, key_bias, num_heads: int,
                                      seed=None, rate: float = 0.0,
                                      need_lse: bool = False):
@@ -104,27 +129,57 @@ def fused_attention_packed_reference(q, k, v, key_bias, num_heads: int,
     b, s, hd = q.shape
     h = num_heads
     d = hd // h
-
-    def split(t):
-        return t.reshape(b, s, h, d).permute(0, 2, 1, 3).float()
-
-    scores = torch.matmul(split(q), split(k).transpose(-1, -2)) * (1.0 / (d ** 0.5))
-    scores = scores + key_bias.float()[:, None, None, :]
+    ct = _compute_dtype(q.dtype)
+    scores = torch.matmul(_split_heads(q, h, ct),
+                          _split_heads(k, h, ct).transpose(-1, -2)) * (1.0 / (d ** 0.5))
+    scores = scores + key_bias.to(ct)[:, None, None, :]
     m = scores.amax(dim=-1)
     p = torch.exp(scores - m[..., None])
     l = p.sum(dim=-1)
     a = p * (1.0 / l)[..., None]
     if rate > 0.0:
-        bh = torch.arange(b * h, device=q.device).reshape(b, h)
-        keep = _keep_mask(_mix_seed(seed, bh).to(q.device), 0, 0, (s, s),
-                          _threshold(rate))
+        keep = _head_keep_mask(seed, b, h, s, rate, q.device)
         a = torch.where(keep, a, 0.0) * (1.0 / (1.0 - rate))
-    a = a.to(v.dtype).float()
-    out = torch.matmul(a, split(v)).permute(0, 2, 1, 3).reshape(b, s, hd)
-    out = out.to(q.dtype)
+    a = a.to(v.dtype).to(ct)
+    out = _merge_heads(torch.matmul(a, _split_heads(v, h, ct)), q.dtype)
     if need_lse:
         return out, (m + torch.log(l)).reshape(b * h, s)
     return out
+
+
+def fused_attention_packed_bwd_reference(q, k, v, key_bias, dout, lse,
+                                         num_heads: int, seed=None,
+                                         rate: float = 0.0):
+    """Plain twin of the backward kernel: (dq, dk, dv) in q's dtype from the
+    forward's inputs, the output gradient ``dout`` and the lse.
+
+    The TPU kernel's formula line for line (_fused_packed_bwd_kernel), one
+    head at a time in full rows: a = exp(s - lse), dp = dO v^T, the mask and
+    the 1/(1-r) scale on a_eff and da, dv = a_eff^T dO, D_i = sum(a_eff dp),
+    ds = a (da - D_i) scale cast to q's dtype, dq = ds k, dk = ds^T q."""
+    b, s, hd = q.shape
+    h = num_heads
+    d = hd // h
+    ct = _compute_dtype(q.dtype)
+    sm_scale = 1.0 / (d ** 0.5)
+    qh, kh, vh, doh = (_split_heads(t, h, ct) for t in (q, k, v, dout))
+    scores = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale
+    scores = scores + key_bias.to(ct)[:, None, None, :]
+    a = torch.exp(scores - lse.reshape(b, h, s, 1).to(ct))
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    if rate > 0.0:
+        keep = _head_keep_mask(seed, b, h, s, rate, q.device)
+        inv_keep = 1.0 / (1.0 - rate)
+        a_eff = torch.where(keep, a, 0.0) * inv_keep
+        da = torch.where(keep, dp, 0.0) * inv_keep
+    else:
+        a_eff, da = a, dp
+    dv = torch.matmul(a_eff.to(dout.dtype).to(ct).transpose(-1, -2), doh)
+    d_i = torch.sum(a_eff * dp, dim=-1, keepdim=True)
+    ds = (a * (da - d_i) * sm_scale).to(q.dtype).to(ct)
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return tuple(_merge_heads(t, q.dtype) for t in (dq, dk, dv))
 
 
 def _check_cuda(q, k, v, key_bias, num_heads: int, rate: float) -> int:
@@ -146,9 +201,6 @@ def _check_cuda(q, k, v, key_bias, num_heads: int, rate: float) -> int:
         if t.device != q.device or t.stride(-1) != 1:
             raise ValueError(f"fused_attention_packed: {name} must be on "
                              f"{q.device} with a contiguous last dim")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "fused_attention_packed: the backward kernel is not ported yet")
         # The bf16 kernel reads rows as 16-byte vectors.
         if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or t.stride(0) % 8
                                           or t.stride(1) % 8):
@@ -163,18 +215,15 @@ def _check_cuda(q, k, v, key_bias, num_heads: int, rate: float) -> int:
     return d
 
 
-def fused_attention_packed(q, k, v, key_bias, num_heads: int, seed=None,
-                           rate: float = 0.0, need_lse: bool = False):
-    """Self-attention on packed (B, S, H*D) q/k/v with a (B, S) additive key
-    bias; returns (B, S, H*D) in q's dtype, and (B*H, S) fp32 lse when
-    ``need_lse``.  q/k/v may be strided views (e.g. of one fused QKV
-    projection) as long as their last dim is contiguous."""
-    if rate > 0.0 and seed is None:
-        raise ValueError(
-            "fused_attention_packed: rate > 0 requires an explicit seed")
+def _forward(q, k, v, key_bias, num_heads: int, seed, rate: float,
+             need_lse: bool):
+    """K1f, or its twin for CPU tensors; returns (out, lse or None)."""
     if q.device.type == "cpu":
+        if need_lse:
+            return fused_attention_packed_reference(q, k, v, key_bias, num_heads,
+                                                    seed, rate, need_lse=True)
         return fused_attention_packed_reference(q, k, v, key_bias, num_heads,
-                                                seed, rate, need_lse)
+                                                seed, rate), None
     d = _check_cuda(q, k, v, key_bias, num_heads, rate)
     lib = _build.load()
     b, s, hd = q.shape
@@ -191,7 +240,92 @@ def fused_attention_packed(q, k, v, key_bias, num_heads: int, seed=None,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fused_attention_packed")
     fused_attention_packed.launches += 1
+    return out, lse
+
+
+class _PackedAttention(torch.autograd.Function):
+    """K1f forward with the lse kept; K1b backward.  Saves q, k, v (views of
+    the caller's tensors), the key bias and the lse; the seed and rate ride
+    on ctx.  The key bias gets no gradient
+    (_fused_packed_bwd_rule returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, num_heads, seed, rate):
+        out, lse = _forward(q, k, v, key_bias, num_heads, seed, rate, need_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, lse)
+        ctx.num_heads, ctx.seed, ctx.rate = num_heads, seed, rate
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, key_bias, lse = ctx.saved_tensors
+        dq, dk, dv = fused_attention_packed_bwd(
+            q, k, v, key_bias, dout.contiguous(), lse, ctx.num_heads, ctx.seed,
+            ctx.rate)
+        return dq, dk, dv, None, None, None, None
+
+
+def fused_attention_packed(q, k, v, key_bias, num_heads: int, seed=None,
+                           rate: float = 0.0, need_lse: bool = False):
+    """Self-attention on packed (B, S, H*D) q/k/v with a (B, S) additive key
+    bias; returns (B, S, H*D) in q's dtype, and (B*H, S) fp32 lse when
+    ``need_lse``.  q/k/v may be strided views (e.g. of one fused QKV
+    projection) as long as their last dim is contiguous.  Differentiable in
+    q, k and v (K1b)."""
+    if rate > 0.0 and seed is None:
+        raise ValueError(
+            "fused_attention_packed: rate > 0 requires an explicit seed")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = _PackedAttention.apply(q, k, v, key_bias, num_heads, seed, rate)
+    else:
+        out, lse = _forward(q, k, v, key_bias, num_heads, seed, rate, need_lse)
     return (out, lse) if need_lse else out
 
 
 fused_attention_packed.launches = 0
+
+
+def fused_attention_packed_bwd(q, k, v, key_bias, dout, lse, num_heads: int,
+                               seed=None, rate: float = 0.0):
+    """(dq, dk, dv) of :func:`fused_attention_packed`, contiguous (B, S, H*D)
+    in q's dtype, from the forward's inputs, the output gradient ``dout`` and
+    the forward's lse.  CPU tensors take
+    :func:`fused_attention_packed_bwd_reference`; CUDA tensors launch K1b
+    (two kernels: dq with D_i, then dk/dv) or raise."""
+    if rate > 0.0 and seed is None:
+        raise ValueError(
+            "fused_attention_packed_bwd: rate > 0 requires an explicit seed")
+    if q.device.type == "cpu":
+        return fused_attention_packed_bwd_reference(q, k, v, key_bias, dout, lse,
+                                                    num_heads, seed, rate)
+    d = _check_cuda(q, k, v, key_bias, num_heads, rate)
+    b, s, hd = q.shape
+    if (dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device
+            or not dout.is_contiguous() or dout.data_ptr() % 16):
+        raise ValueError("fused_attention_packed_bwd: dout must be a contiguous, "
+                         f"16-byte aligned {tuple(q.shape)} {q.dtype} tensor on "
+                         f"{q.device}")
+    if (lse.shape != (b * num_heads, s) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("fused_attention_packed_bwd: lse must be a contiguous "
+                         f"fp32 ({b * num_heads}, {s}) tensor on {q.device}")
+    lib = _build.load()
+    dq, dk, dv = (torch.empty((b, s, hd), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((b * num_heads, s), dtype=torch.float32, device=q.device)
+    err = lib.vt_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        b, s, num_heads, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), _DTYPE_CODES[q.dtype],
+        0 if seed is None else int(seed) & _M32, _threshold(rate),
+        1.0 / (1.0 - rate), int(rate > 0.0), 1.0 / (d ** 0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fused_attention_packed_bwd")
+    fused_attention_packed_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_attention_packed_bwd.launches = 0
