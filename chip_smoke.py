@@ -8,7 +8,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 
   1. device   the card's name, count, and nvidia-smi's name and power limit
               (no CUDA device: the script fails);
-  2. build    nvcc builds both kernels for sm_90a from visitron_torch/csrc
+  2. build    nvcc builds the kernels for sm_90a from visitron_torch/csrc
               (ptxas register/shared-memory lines, build seconds);
   3. K1       packed fused attention vs its plain twin at the serving shapes
               (B 64, S 256 and 512, 12 heads of 64, bf16 with padding), in
@@ -26,28 +26,50 @@ Phases, one or more lines each; any failure raises and exits non-zero:
   6. K2b      the add+LayerNorm backward vs its twin (R = 64*256 and 64*512,
               H 768, bf16 and fp32, with and without a residual; dh, dgamma,
               dbeta); times and the autograd backward of F.layer_norm(x + res);
-  7. serving  the NDH argmax serving rollout, ViewpointAgent.test, at BERT-base
+  7. K3       the fused masked softmax-CE, forward and backward, vs its twins
+              at the MLM head's shape (R = 16*768, V = 30525, bf16 and fp32,
+              ~10% ignored rows and labels outside [0, V)); times of the
+              kernels, the twins, F.cross_entropy and its autograd backward,
+              and the bounds;
+  8. K4       the fused attention on (B, H, S, D) views of a packed QKV
+              projection, forward and backward, vs its twins at the
+              pretraining shape (B 16, S 768, 12 heads of 64, padded keys,
+              bf16 and fp32, rates 0 and 0.1), and K4 against K1 on the same
+              data (equal bit for bit); times with SDPA as the yardstick;
+  9. serving  the NDH argmax serving rollout, ViewpointAgent.test, at BERT-base
               width and depth (bf16, batch 64, 10-step episodes, 2048-d
               features, rnn 512, random weights from a seed), with and without
               ``submit``; trajectories checked against the graph; kernel
               launch counts read around each run; fp32 agreement of the card
               with the CPU on a 2-item batch; ms per batch, episodes/s,
               actions/s, the time split (BERT / LSTM / decode loop), peak memory;
-  8. train    the NDH teacher-forced train step, ViewpointAgent.train_step_fn
+ 10. train    the NDH teacher-forced train step, ViewpointAgent.train_step_fn
               over NavEpisodeBatcher.train_batches (planner_path, batch 64,
               10-step episodes, the agent's dropouts, Adam at 5e-5, clip 40):
               2 warm-up steps and 8 timed; losses finite, params changed,
-              K1f / K1b / K2f / K2b launches counted around one step and the
+              the launches of every kernel counted around one step and the
               timed run; ms per step, nav actions/s, the forward / backward /
               optimizer split, the device idle share from torch.profiler, peak
               memory; then one fp32 step with every dropout at 0 on a 2-item
               batch on the card and on the CPU: loss, gradients and updated
-              parameters agree.
+              parameters agree;
+ 11. pretrain the multimodal pretraining step, PretrainTrainer.step_fn, at
+              tools/bench_pretrain.py's configuration (BERT-base bf16, vocab
+              30525, batch 16 x (512 text + 256 regions), MLM + next-action +
+              region-token labels, AdamW 5e-5, clip 1.0, the training
+              dropouts): 2 warm-up steps and 5 timed; losses finite, every
+              parameter changed, launches per step K3f 1, K3b 1, K4f 12, K4b
+              12, K2f 26, K2b 26 and no K1; ms per step, examples/s, MFU from
+              analytic FLOPs, peak memory, the idle share and device time by
+              kind of kernel;
+ 12. pretrain agreement: two fp32 steps with every dropout at 0 on 2 items at
+              S 640 (K4 and K3 run) on the card and on the CPU: losses, every
+              gradient, and the AdamW update after two steps in units of lr.
 
 The line before the last is a JSON object listing each kernel with its
-launches in its path's run (K1f and K2f: serving; K1b and K2b: train), max
-error, and times; the last line is ``{"ok": true, "device": {...}}``.  A
-rehearsal prints neither.
+launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
+K3b, K4f and K4b: pretrain), max error, and times; the last line is
+``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
 """
 
 from __future__ import annotations
@@ -72,12 +94,21 @@ from visitron_torch.data import (SceneFeatureTable, WordPieceTokenizer,
 from visitron_torch.data.datasets import build_nav_instances
 from visitron_torch.models import BertConfig
 from visitron_torch.models.lstm import masked_lstm_scan
-from visitron_torch.ops.attention import (fused_attention_packed,
+from visitron_torch.ops.attention import (fused_attention, fused_attention_bwd,
+                                          fused_attention_bwd_reference,
+                                          fused_attention_packed,
                                           fused_attention_packed_bwd,
                                           fused_attention_packed_bwd_reference,
-                                          fused_attention_packed_reference)
+                                          fused_attention_packed_reference,
+                                          fused_attention_reference)
+from visitron_torch.ops import crossentropy as ce_ops
+from visitron_torch.ops.crossentropy import (fused_masked_softmax_ce,
+                                             fused_masked_softmax_ce_bwd,
+                                             masked_softmax_ce_bwd_reference,
+                                             masked_softmax_ce_reference)
 from visitron_torch.ops.layernorm import (fused_add_layernorm, fused_add_layernorm_bwd,
                                           layernorm_bwd_reference, layernorm_reference)
+from visitron_torch.train import PretrainTrainer
 from visitron_torch.train.optim import apply_updates, tree_leaves
 from visitron_torch.testing import SyntheticWorld
 from visitron_torch.testing.synthetic import _TARGETS, _WORDS
@@ -98,6 +129,13 @@ TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-4)}  # (atol, rtol
 GRAD_TOL = {torch.bfloat16: (8e-3, 1e-2), torch.float32: (1e-4, 1e-4)}
 # dgamma/dbeta: fp32 sums over R = 16K-32K rows in another order.
 SUM_TOL = (1e-3, 1e-4)
+# K3: ce and lse are fp32 sums over V in another order.  dlogits: the kernel
+# and the twin round the same fp32 value to bf16 from lse values that may
+# differ in the last fp32 bits, so one bf16 ulp (2^-7 relative at most);
+# fp32: exp's rounding.  The values are probabilities (~1/V), so the
+# absolute part is small.
+CE_TOL = (1e-4, 1e-5)
+CE_GRAD_TOL = {torch.bfloat16: (1e-6, 8e-3), torch.float32: (1e-7, 1e-5)}
 AGREE_TOL = (1e-3, 1e-3)  # card vs CPU, fp32, whole model: (atol, rtol)
 ATTN_SOURCE = ("visitron_torch/csrc/attention.cu",
                "visitron_tpu/ops/attention.py:705")
@@ -105,6 +143,10 @@ LN_SOURCE = ("visitron_torch/csrc/layernorm.cu",
              "visitron_tpu/ops/layernorm.py:95")
 ATTN_BWD_REPLACES = "visitron_tpu/ops/attention.py:742"
 LN_BWD_REPLACES = "visitron_tpu/ops/layernorm.py:123"
+CE_SOURCE = "visitron_torch/csrc/crossentropy.cu"
+CE_REPLACES = ("visitron_tpu/ops/crossentropy.py:53", "visitron_tpu/ops/crossentropy.py:91")
+ATTN4_REPLACES = ("visitron_tpu/ops/attention.py:487", "visitron_tpu/ops/attention.py:529")
+H100_PEAK_BF16 = PEAK_OPS_PER_S[torch.bfloat16]
 
 REHEARSAL = False
 
@@ -476,7 +518,186 @@ def phase_k2b(device, shapes) -> dict:
     return out
 
 
-# -- phase 7: serving ------------------------------------------------------------
+# -- phase 7: K3 ---------------------------------------------------------------------
+
+def ce_inputs(rows, vocab, dtype, device, g):
+    """Logits like the MLM head's, labels with ~10% ignored rows and a few
+    outside [0, V), and a per-row cotangent."""
+    x = (3.0 * torch.randn(rows, vocab, generator=g, device=device)).to(dtype)
+    labels = torch.randint(0, vocab, (rows,), generator=g, device=device)
+    labels[::10] = -1
+    labels[1::97] = vocab + 3
+    cot = torch.rand(rows, generator=g, device=device)
+    return x, labels, cot
+
+
+def phase_k3(device, shapes) -> dict:
+    """K3f and K3b against their twins at the MLM head's shape; returns
+    {"k3": timing, "k3b": timing} for bf16."""
+    say("K3 fused_masked_softmax_ce (forward and backward) vs plain twins")
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    rows, vocab = shapes["rows"], shapes["vocab"]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, labels, cot = ce_inputs(rows, vocab, dtype, device, g)
+        ce, lse = ce_ops._forward(x, labels)  # K3f with its lse
+        want_ce, want_lse = masked_softmax_ce_reference(x, labels)
+        dx = fused_masked_softmax_ce_bwd(x, labels, lse, cot)
+        want_dx = masked_softmax_ce_bwd_reference(x, labels, lse, cot)
+        sync()
+        tag = f"R{rows} V{vocab} {str(dtype)[6:]}"
+        err = check_close(f"ce {tag}", ce, want_ce, CE_TOL)
+        check_close(f"lse {tag}", lse, want_lse, CE_TOL)
+        valid = (labels >= 0) & (labels < vocab)
+        if bool((ce[~valid] != 0).any()) or bool((dx[~valid] != 0).any()):
+            fail(f"K3 {tag}: an ignored row has a non-zero CE or gradient")
+        err_b = check_close(f"dlogits {tag}", dx, want_dx, CE_GRAD_TOL[dtype])
+        if dtype != torch.bfloat16:
+            continue
+        say(f"  ({int((~valid).sum())} of {rows} rows ignored, their CE and "
+            "gradient exactly 0)")
+        elt = x.element_size()
+        nbytes = rows * vocab * elt + rows * 8 + 2 * rows * 4
+        # F.cross_entropy refuses labels >= V: those rows take its ignore label.
+        lib_labels = labels.masked_fill(~valid, -1)
+        xl = x.detach().requires_grad_()
+        lib_ce = F.cross_entropy(xl, lib_labels, ignore_index=-1, reduction="none")
+
+        def kernel():
+            fused_masked_softmax_ce(x, labels)
+
+        def plain():
+            masked_softmax_ce_reference(x, labels)
+
+        def library():
+            F.cross_entropy(x, lib_labels, ignore_index=-1, reduction="none")
+
+        def kernel_b():
+            fused_masked_softmax_ce_bwd(x, labels, want_lse, cot)
+
+        def plain_b():
+            masked_softmax_ce_bwd_reference(x, labels, want_lse, cot)
+
+        def library_b():
+            torch.autograd.grad(lib_ce, xl, cot, retain_graph=True)
+
+        for key, fns, nb, ops in (
+                ("k3", (kernel, plain, library), nbytes, 5 * rows * vocab),
+                ("k3b", (kernel_b, plain_b, library_b),
+                 nbytes + rows * vocab * elt, 4 * rows * vocab)):
+            ms = time_ms(fns[0], iters=10)
+            plain_ms = time_ms(fns[1], iters=2, warmup=1)
+            lib_ms = time_ms(fns[2], iters=10)
+            bms, by = bound_ms(nb, ops, torch.float32)
+            say(f"  time {'backward' if key == 'k3b' else 'forward'} {tag}: kernel "
+                f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, F.cross_entropy"
+                f"{' backward' if key == 'k3b' else ''} {lib_ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}: {nb / 1e6:.1f} MB)")
+            out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bms, "bound_by": by,
+                        "max_abs_err": err if key == "k3" else err_b}
+        del lib_ce, xl
+    return out
+
+
+# -- phase 8: K4 ---------------------------------------------------------------------
+
+def phase_k4(device, shapes) -> dict:
+    """K4f and K4b against their twins on (B, H, S, D) views of a packed QKV
+    projection; K4 against K1 on the same data; returns {"k4": timing,
+    "k4b": timing} for bf16 without dropout."""
+    say("K4 fused_attention on (B, H, S, D) (forward and backward) vs plain twins")
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    b, h, d, s = shapes["batch"], shapes["heads"], shapes["head_dim"], shapes["seq"]
+    out = {}
+
+    def inputs(dtype):
+        qkv, bias = attention_inputs(b, s, h, d, dtype, device, g)
+        views = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in qkv.split(h * d, dim=-1)]
+        dout = torch.randn(b, s, h * d, generator=g, device=device).to(dtype)
+        return qkv, bias, views, dout.unflatten(-1, (h, d)).transpose(1, 2)
+
+    for dtype, rate in ((torch.bfloat16, 0.0), (torch.float32, 0.0),
+                        (torch.bfloat16, 0.1), (torch.float32, 0.1)):
+        seed = 4321 if rate > 0 else None
+        qkv, bias, (q4, k4, v4), do4 = inputs(dtype)
+        got, lse = fused_attention(q4, k4, v4, bias, seed, rate, need_lse=True)
+        want, want_lse = fused_attention_reference(q4, k4, v4, bias, seed, rate, True)
+        grads = fused_attention_bwd(q4, k4, v4, bias, do4, lse, seed, rate)
+        wants = fused_attention_bwd_reference(q4, k4, v4, bias, do4, lse, seed, rate)
+        packed = fused_attention_packed(*qkv.split(h * d, dim=-1), bias, h, seed, rate)
+        sync()
+        tag = f"B{b} S{s} H{h} D{d} {str(dtype)[6:]} rate {rate}"
+        err = check_close(f"out {tag}", got, want, TOL[dtype])
+        check_close(f"lse {tag}", lse, want_lse, TOL[torch.float32])
+        err_b = max(check_close(f"{name} {tag}", x, y, GRAD_TOL[dtype])
+                    for name, x, y in zip(("dq", "dk", "dv"), grads, wants))
+        same = torch.equal(packed, got.transpose(1, 2).flatten(2))
+        say(f"  K4 out == K1 out on the same data: {same}")
+        if not same:
+            fail(f"K4 and K1 disagree on the same data ({tag})")
+        if dtype != torch.bfloat16 or rate > 0:
+            continue
+        elt = qkv.element_size()
+        n = 1 if REHEARSAL else copies_for_cold_l2(4 * b * s * h * d * elt)
+        sets = [(q4, k4, v4, bias, do4, lse)]
+        for _ in range(n - 1):
+            _, kb_, (q_, k_, v_), do_ = inputs(dtype)
+            sets.append((q_, k_, v_, kb_, do_,
+                         fused_attention(q_, k_, v_, kb_, need_lse=True)[1]))
+        it = iter(range(10 ** 9))
+
+        def pick():
+            return sets[next(it) % len(sets)]
+
+        def kernel():
+            fused_attention(*pick()[:4])
+
+        def plain():
+            fused_attention_reference(*pick()[:4])
+
+        def library():
+            q_, k_, v_, kb_ = pick()[:4]
+            F.scaled_dot_product_attention(q_, k_, v_, attn_mask=kb_.to(dtype)[:, None, None, :])
+
+        def kernel_b():
+            fused_attention_bwd(*pick())
+
+        def plain_b():
+            fused_attention_bwd_reference(*pick())
+
+        graphs = []
+        for q_, k_, v_, kb_, do_, _ in sets:
+            four = [t.detach().requires_grad_() for t in (q_, k_, v_)]
+            o4 = F.scaled_dot_product_attention(*four, attn_mask=kb_.to(dtype)[:, None, None, :])
+            graphs.append((o4, four, do_))
+
+        def library_b():
+            o4, four, do_ = graphs[next(it) % len(graphs)]
+            torch.autograd.grad(o4, four, do_, retain_graph=True)
+
+        io = b * s * h * d * elt
+        for key, fns, nb, ops, e in (
+                ("k4", (kernel, plain, library), 4 * io + b * s * 4,
+                 4 * b * h * s * s * d, err),
+                ("k4b", (kernel_b, plain_b, library_b),
+                 7 * io + b * h * s * 4 + b * s * 4, 10 * b * h * s * s * d, err_b)):
+            ms = time_ms(fns[0])
+            plain_ms = time_ms(fns[1], iters=2, warmup=1)
+            lib_ms = time_ms(fns[2])
+            bms, by = bound_ms(nb, ops, dtype)
+            bwd = key == "k4b"
+            say(f"  time {'backward' if bwd else 'forward'} {tag}: kernel {ms:.4f} ms, "
+                f"plain twin {plain_ms:.4f} ms, sdpa{' backward' if bwd else ''} "
+                f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {nb / 1e6:.1f} MB, "
+                f"{ops / 1e9:.2f} GFLOP{'; the two kernels do ' + f'{1.8 * ops / 1e9:.2f}' if bwd else ''})")
+            out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+        del graphs
+    return out
+
+
+# -- phase 9: serving ------------------------------------------------------------
 
 def build_world(sizes, device, dtype):
     world = SyntheticWorld(
@@ -618,10 +839,20 @@ def profile_rollout(agent, params, batch) -> None:
         profile_device(lambda: agent.device_rollout(params, batch), "device rollout")
 
 
-def profile_device(fn, what: str) -> float:
+# Device kernels by kind, for the pretrain step's breakdown (first match).
+KERNEL_KINDS = (("K1/K4 attention", ("::attention_fwd", "::attention_bwd")),
+                ("K3 softmax-CE", ("::ce_fwd", "::ce_bwd")),
+                ("K2 add+LayerNorm", ("::add_layernorm",)),
+                ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+                ("host-to-device copies", ("Memcpy HtoD",)),
+                ("optimizer (foreach)", ("foreach", "multi_tensor")),
+                ("other elementwise / reductions", ("",)))
+
+
+def profile_device(fn, what: str, kinds: bool = False) -> float:
     """Run ``fn`` once warm, then once under torch.profiler (CUPTI); print the
-    device busy time, the idle share and the top kernels; return the idle
-    share."""
+    device busy time, the idle share and the top kernels (with ``kinds``,
+    also the busy time by kind of kernel); return the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -643,6 +874,14 @@ def profile_device(fn, what: str) -> float:
         f"{idle:.1%}; the wall includes the profiler's own cost)")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         say(f"    {us / 1e3:8.3f} ms  {n:5d} x  {name[:90]}")
+    if kinds:
+        sums = {kind: [0, 0.0] for kind, _ in KERNEL_KINDS}
+        for name, (n, us) in by_name.items():
+            kind = next(k for k, keys in KERNEL_KINDS if any(key in name for key in keys))
+            sums[kind][0] += n
+            sums[kind][1] += us
+        say("  busy time by kind: " + "; ".join(
+            f"{kind} {us / 1e3:.2f} ms ({n} kernels)" for kind, (n, us) in sums.items()))
     return idle
 
 
@@ -684,19 +923,34 @@ def phase_agreement(device, sizes, sl) -> None:
                 torch.stack(cpu_logits, 1), AGREE_TOL)
 
 
-# -- phase 8: train -----------------------------------------------------------------
+# -- phase 10: train ----------------------------------------------------------------
 
-COUNTED = (fused_attention_packed, fused_attention_packed_bwd, fused_add_layernorm,
-           fused_add_layernorm_bwd)
+# Every kernel wrapper, by the kernel's name in PERF.md.
+COUNTED = {"K1f": fused_attention_packed, "K1b": fused_attention_packed_bwd,
+           "K2f": fused_add_layernorm, "K2b": fused_add_layernorm_bwd,
+           "K3f": fused_masked_softmax_ce, "K3b": fused_masked_softmax_ce_bwd,
+           "K4f": fused_attention, "K4b": fused_attention_bwd}
 
 
 def zero_counts() -> None:
-    for fn in COUNTED:
+    for fn in COUNTED.values():
         fn.launches = 0
 
 
-def read_counts() -> tuple:
-    return tuple(fn.launches for fn in COUNTED)
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def check_counts(per_step: dict, totals: dict, want: dict, n_steps: int) -> None:
+    """Launches of every kernel in one step and in ``n_steps`` steps against
+    ``want`` per step (kernels not named: 0)."""
+    want = {name: want.get(name, 0) for name in COUNTED}
+    say(f"  launches in one step: {', '.join(f'{k} {v}' for k, v in per_step.items())}; "
+        f"in the {n_steps} timed steps: {', '.join(f'{k} {v}' for k, v in totals.items())}")
+    if not REHEARSAL and (per_step != want
+                          or totals != {k: n_steps * v for k, v in want.items()}):
+        fail(f"kernel launches per step {per_step}, timed run {totals}; expected "
+             f"{want} per step")
 
 
 def phase_train(device, sizes, sl) -> dict:
@@ -735,13 +989,8 @@ def phase_train(device, sizes, sl) -> dict:
     totals = read_counts()
     peak = None if REHEARSAL else torch.cuda.max_memory_allocated()
     layers = cfg.num_hidden_layers
-    want = (layers, layers, 2 * layers + 1, 2 * layers + 1)
-    say(f"  launches in one step: K1f {per_step[0]}, K1b {per_step[1]}, K2f "
-        f"{per_step[2]}, K2b {per_step[3]}; in the {n_timed} timed steps: {totals}")
-    if not REHEARSAL and (per_step != want
-                          or totals != tuple(n_timed * w for w in want)):
-        fail(f"kernel launches per step {per_step}, timed run {totals}; expected "
-             f"{want} per step")
+    check_counts(per_step, totals, {"K1f": layers, "K1b": layers, "K2f": 2 * layers + 1,
+                                    "K2b": 2 * layers + 1}, n_timed)
     losses = torch.stack(losses).float().cpu()
     if not torch.isfinite(losses).all():
         fail(f"non-finite train losses {losses.tolist()}")
@@ -760,8 +1009,8 @@ def phase_train(device, sizes, sl) -> dict:
     idle = None if REHEARSAL else profile_device(
         lambda: step(state, batches[n_warm]), "train step")
     bucket = max(set(buckets[n_warm:]), key=buckets[n_warm:].count)
-    return {"ms_per_step": med, "range": (min(ms), max(ms)), "k1b": totals[1],
-            "k2b": totals[3], "bucket": bucket, "peak_bytes": peak, "idle": idle}
+    return {"ms_per_step": med, "range": (min(ms), max(ms)), "k1b": totals["K1b"],
+            "k2b": totals["K2b"], "bucket": bucket, "peak_bytes": peak, "idle": idle}
 
 
 def time_split(agent, state, batch) -> None:
@@ -877,9 +1126,190 @@ def phase_train_agreement(device, sizes, sl) -> None:
         fail("the Adam step on the card did not move each parameter by ~lr against its gradient")
 
 
-def kernels_line(times, sl, tr) -> dict:
+# -- phase 11: pretrain --------------------------------------------------------------
+
+def pretrain_batch(rng, sizes, vocab, img_dim, classes):
+    """A copy of tools/bench_pretrain.py:_batch (joint text + image sequence,
+    15% MLM labels, next-action labels) that also sets region-token labels
+    on 5% of the text positions."""
+    batch, seq, img = sizes["batch"], sizes["text"], sizes["img"]
+    tokens = np.where(rng.random((batch, seq + img)) < 0.05,
+                      rng.integers(0, classes, (batch, seq + img)), -1).astype(np.int32)
+    tokens[:, seq:] = -1
+    return {
+        "input_ids": rng.integers(0, vocab, (batch, seq)).astype(np.int32),
+        "token_type_ids": rng.integers(0, 4, (batch, seq)).astype(np.int32),
+        "attention_mask": np.ones((batch, seq + img), np.int32),
+        "labels": np.where(rng.random((batch, seq + img)) < 0.15,
+                           rng.integers(0, vocab, (batch, seq + img)), -1).astype(np.int32),
+        "token_labels": tokens,
+        "img_feats": rng.standard_normal((batch, img, img_dim)).astype(np.float32),
+        "img_location_embeddings": rng.standard_normal((batch, img, 128)).astype(np.float32),
+        "next_action": rng.integers(0, 36, (batch,)).astype(np.int32),
+    }
+
+
+def pretrain_config(sizes, dtype, **kw) -> BertConfig:
+    """tools/bench_pretrain.py's configuration: BERT-base, vocab 30525, 768
+    positions, 4 token types, 2054-d region features."""
+    return BertConfig(vocab_size=sizes["vocab"], max_position_embeddings=sizes["positions"],
+                      type_vocab_size=4, dtype=dtype, **sizes["bert"], **kw)
+
+
+def pretrain_flops(cfg, sizes) -> float:
+    """Analytic FLOPs of one train step (forward + backward = 3x forward for
+    the products; attention: 2 products forward, 5 backward)."""
+    b, s_t, s_i = sizes["batch"], sizes["text"], sizes["img"]
+    r, s, h = b * (s_t + s_i), s_t + s_i, cfg.hidden_size
+    layers, heads, d = cfg.num_hidden_layers, cfg.num_attention_heads, h // cfg.num_attention_heads
+    dense = 6 * r * layers * (4 * h * h + 2 * h * cfg.intermediate_size)
+    attention = 14 * b * heads * s * s * d * layers
+    heads_ = 6 * r * h * (h + cfg.vocab_size + cfg.detector_classes)
+    image = 6 * b * s_i * (cfg.img_feature_dim + cfg.location_embed_dim) * h
+    return float(dense + attention + heads_ + image), float(dense), float(attention), \
+        float(6 * r * h * cfg.vocab_size)
+
+
+def phase_pretrain(device, sizes) -> dict:
+    say("pretrain: the multimodal pretraining step, PretrainTrainer.step_fn")
+    n_warm, n_timed = 2, sizes["steps"]
+    t0 = time.perf_counter()
+    cfg = pretrain_config(sizes, sizes["dtype"])
+    trainer = PretrainTrainer(cfg, learning_rate=5e-5, total_steps=100, device=device)
+    rng = np.random.default_rng(SEED)
+    batches = [pretrain_batch(rng, sizes, cfg.vocab_size, cfg.img_feature_dim,
+                              cfg.detector_classes) for _ in range(n_warm + n_timed)]
+    state = trainer.init_state()
+    start = [t.clone() for t in tree_leaves(state["params"])]
+    step = trainer.step_fn()
+    s = sizes["text"] + sizes["img"]
+    route = ("K1 (packed)" if cfg.use_fused_attention and s <= cfg.fused_packed_max_seq
+             else "K4 ((B, H, S, D) views)")
+    say(f"  set-up {time.perf_counter() - t0:.1f} s: BERT {cfg.num_hidden_layers}x"
+        f"{cfg.hidden_size} {str(cfg.dtype)[6:]}, vocab {cfg.vocab_size}, batch "
+        f"{sizes['batch']} x ({sizes['text']} text + {sizes['img']} regions) = S {s}, "
+        f"attention through {route}; dropout hidden {cfg.hidden_dropout_prob} / attention "
+        f"{cfg.attention_probs_dropout_prob}; AdamW lr {trainer.learning_rate}, warmup "
+        f"{trainer.warmup_steps}, clip {trainer.max_grad_norm}")
+    bundles = []
+    for batch in batches[:n_warm]:
+        state, bundle = step(state, batch)
+        bundles.append(bundle)
+    if not REHEARSAL:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    per_step, ms = None, []
+    for batch in batches[n_warm:]:
+        sync()
+        t1 = time.perf_counter()
+        state, bundle = step(state, batch)
+        sync()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        bundles.append(bundle)
+        per_step = per_step or read_counts()
+    totals = read_counts()
+    peak = None if REHEARSAL else torch.cuda.max_memory_allocated()
+    layers = cfg.num_hidden_layers
+    attn = "K1" if route.startswith("K1") else "K4"
+    check_counts(per_step, totals, {f"{attn}f": layers, f"{attn}b": layers, "K3f": 1,
+                                    "K3b": 1, "K2f": 2 * layers + 2,
+                                    "K2b": 2 * layers + 2}, n_timed)
+    losses = torch.stack([torch.stack([b_[k] for k in ("loss", "mask_loss", "next_loss",
+                                                         "token_loss")])
+                          for b_ in bundles]).float().cpu()
+    if not torch.isfinite(losses).all():
+        fail(f"non-finite pretrain losses {losses.tolist()}")
+    final = tree_leaves(state["params"])
+    moved = sum(not torch.equal(a, b_) for a, b_ in zip(start, final))
+    if moved < len(final) or not all(torch.isfinite(p).all() for p in final):
+        fail(f"{moved} of {len(final)} parameters changed, or some are not finite")
+    med = sorted(ms)[len(ms) // 2]
+    flops, dense, attention, decoder = pretrain_flops(cfg, sizes)
+    say(f"  loss (mask + next + token) per step: "
+        f"{', '.join(f'{x:.4f}' for x in losses[:, 0].tolist())}; {moved} of {len(final)} "
+        "parameter tensors changed")
+    say(f"  {med:.2f} ms/step (median of {n_timed} steps, range {min(ms):.2f}-"
+        f"{max(ms):.2f}), {sizes['batch'] / med * 1e3:.2f} examples/s; peak device "
+        f"memory {'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}")
+    say(f"  analytic FLOPs per step {flops / 1e12:.3f} T (layers' Denses "
+        f"{dense / 1e12:.3f}, attention {attention / 1e12:.3f}, tied MLM decoder "
+        f"{decoder / 1e12:.3f}); MFU against 989 TFLOP/s bf16: "
+        f"{flops / (med / 1e3) / H100_PEAK_BF16:.2%}")
+    idle = None if REHEARSAL else profile_device(
+        lambda: step(state, batches[n_warm]), "pretrain step", kinds=True)
+    return {"ms_per_step": med, "counts": totals, "peak_bytes": peak, "idle": idle,
+            "flops": flops}
+
+
+def phase_pretrain_agreement(device, sizes) -> None:
+    """Two fp32 pretrain steps with every dropout at 0 on a 2-item batch at
+    BERT-base width and S > 512 (so K4 runs): the card (kernels) against the
+    CPU (plain twins): the loss bundle, every gradient, and the AdamW update
+    after two steps in units of lr (optax reads the schedule before the step,
+    so the first step moves nothing)."""
+    agree = {**sizes, "batch": 2, "img": sizes["agree_img"]}
+    s = agree["text"] + agree["img"]
+    say(f"pretrain agreement: two fp32 steps, dropouts 0, card vs CPU, 2 items at S {s}")
+    rng = np.random.default_rng(SEED + 1)
+    batches = [pretrain_batch(rng, agree, sizes["vocab"], 2054, 1601) for _ in range(2)]
+    out = {}
+    for dev in (device, "cpu"):
+        cfg = pretrain_config(sizes, torch.float32, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+        trainer = PretrainTrainer(cfg, learning_rate=5e-5, total_steps=100, device=dev)
+        state = trainer.init_state()
+        p0 = [t.clone() for t in tree_leaves(state["params"])]
+        zero_counts()
+        grads, bundles = [], []
+        for b_ in batches:
+            bundle, g = trainer.loss_and_grads(state["params"], trainer.to_device(b_), None)
+            grads.append(torch.cat([x.flatten() for x in tree_leaves(g)]).cpu())
+            bundles.append(bundle)
+        step = trainer.step_fn()
+        for b_ in batches:
+            state, _ = step(state, b_)
+        if dev == device:
+            counts = read_counts()
+        out[dev] = (bundles, grads, torch.cat([(p1 - p0_).flatten() for p1, p0_ in
+                                               zip(tree_leaves(state["params"]), p0)]).cpu())
+    layers = cfg.num_hidden_layers
+    say(f"  launches on {device} (4 forward and backward passes): K4f {counts['K4f']}, "
+        f"K4b {counts['K4b']}, K1f {counts['K1f']}, K3f {counts['K3f']}")
+    if not REHEARSAL and (counts["K4f"], counts["K4b"], counts["K1f"], counts["K3b"]) != (
+            4 * layers, 4 * layers, 0, 4):
+        fail(f"the agreement run on {device} did not go through K4 and K3: {counts}")
+    for i in range(2):
+        for key, v in out["cpu"][0][i].items():
+            if key.endswith("loss"):
+                check_close(f"batch {i + 1} {key}", out[device][0][i][key].cpu(), v,
+                            AGREE_TOL)
+        say(f"  batch {i + 1} accuracies card / cpu: " + ", ".join(
+            f"{k} {float(out[device][0][i][k]):.4f} / {float(v):.4f}"
+            for k, v in out["cpu"][0][i].items() if k.endswith("accuracy")))
+        check_close(f"batch {i + 1} gradients ({len(p0)} tensors)", out[device][1][i],
+                    out["cpu"][1][i], AGREE_TOL)
+    lr = 5e-5
+    step_, want = out[device][2], out["cpu"][2]
+    g1, g2 = out["cpu"][1]
+    big = torch.minimum(g1.abs(), g2.abs()) > 10 * AGREE_TOL[0]
+    diff = (step_ - want).abs()
+    err = float(diff[big].max()) / lr
+    say(f"  AdamW update after two steps ({int(big.sum())} of {g1.numel()} entries with "
+        f"both |g| > {10 * AGREE_TOL[0]:g}): max|card - cpu| {err:.3g} lr (tolerance "
+        f"1e-2 lr there, 3 lr elsewhere: max {float(diff.max()) / lr:.3g} lr); "
+        f"{int((step_[big] != 0).sum())} of them moved")
+    if not big.any():
+        fail("no gradient entry large enough to check the AdamW update")
+    if err > 1e-2 or float(diff.max()) > 3 * lr:
+        fail(f"AdamW update disagrees between {device} and the CPU")
+    if int((step_[big] != 0).sum()) < 0.95 * int(big.sum()):
+        fail("the AdamW step on the card left parameters unmoved")
+
+
+def kernels_line(times, sl, tr, pt) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
+    run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
     run's."""
     runs = sl["runs"][False]
     rows = (sl["ln_rows"], tr["ln_rows"])
@@ -889,7 +1319,15 @@ def kernels_line(times, sl, tr) -> dict:
                ("fused_attention_packed_bwd", (ATTN_SOURCE[0], ATTN_BWD_REPLACES),
                 times["k1b"][tr["bucket"]], tr["k1b"]),
                ("fused_add_layernorm_bwd", (LN_SOURCE[0], LN_BWD_REPLACES),
-                times["k2b"][rows[1]], tr["k2b"]))
+                times["k2b"][rows[1]], tr["k2b"]),
+               ("fused_masked_softmax_ce", (CE_SOURCE, CE_REPLACES[0]), times["k3"],
+                pt["counts"]["K3f"]),
+               ("fused_masked_softmax_ce_bwd", (CE_SOURCE, CE_REPLACES[1]), times["k3b"],
+                pt["counts"]["K3b"]),
+               ("fused_attention", (ATTN_SOURCE[0], ATTN4_REPLACES[0]), times["k4"],
+                pt["counts"]["K4f"]),
+               ("fused_attention_bwd", (ATTN_SOURCE[0], ATTN4_REPLACES[1]), times["k4b"],
+                pt["counts"]["K4b"]))
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -917,6 +1355,11 @@ def main(argv=None) -> int:
                  "batch": 4, "episode_len": 3, "rnn": 24, "dtype": torch.float32,
                  "bert": {"num_hidden_layers": 2, "hidden_size": 128,
                           "num_attention_heads": 2, "intermediate_size": 256}}
+        ce = {"rows": 64, "vocab": 4099}
+        attn4 = {"batch": 2, "heads": 2, "head_dim": 64, "seq": 256}
+        pre = {"batch": 2, "text": 128, "img": 128, "agree_img": 128, "vocab": 4099,
+               "positions": 128, "steps": 2, "dtype": torch.float32,
+               "bert": {**sizes["bert"], "fused_packed_max_seq": 128}}
     else:
         device = "cuda"
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
@@ -924,16 +1367,24 @@ def main(argv=None) -> int:
         sizes = {"scans": 4, "viewpoints": 60, "feat": 2048, "instances": 128,
                  "seq": 512, "batch": 64, "episode_len": 10, "rnn": 512,
                  "dtype": torch.bfloat16, "bert": {}}
+        # tools/bench_pretrain.py: batch 16 x (512 text + 256 regions) = S 768.
+        ce = {"rows": 16 * 768, "vocab": 30525}
+        attn4 = {"batch": 16, "heads": 12, "head_dim": 64, "seq": 768}
+        pre = {"batch": 16, "text": 512, "img": 256, "agree_img": 128, "vocab": 30525,
+               "positions": 768, "steps": 5, "dtype": torch.bfloat16, "bert": {}}
     dev_info = phase_device()
     phase_build()
     times = {"k1": phase_k1(device, attn), "k2": phase_k2(device, ln),
-             "k1b": phase_k1b(device, attn), "k2b": phase_k2b(device, ln)}
+             "k1b": phase_k1b(device, attn), "k2b": phase_k2b(device, ln),
+             **phase_k3(device, ce), **phase_k4(device, attn4)}
     sl = phase_serving(device, sizes)
     sl["ln_rows"] = sizes["batch"] * sl["bucket"]
     phase_agreement(device, sizes, sl)
     tr = phase_train(device, sizes, sl)
     tr["ln_rows"] = sizes["batch"] * tr["bucket"]
     phase_train_agreement(device, sizes, sl)
+    pt = phase_pretrain(device, pre)
+    phase_pretrain_agreement(device, pre)
     # Kernel times at a path's bucket, where the shape phases did not cover it.
     for key, phase, bucket, rows in (("k1", phase_k1, sl["bucket"], None),
                                      ("k2", phase_k2, None, sl["ln_rows"]),
@@ -947,7 +1398,7 @@ def main(argv=None) -> int:
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if REHEARSAL:
         return 0
-    print(json.dumps(kernels_line(times, sl, tr)), flush=True)
+    print(json.dumps(kernels_line(times, sl, tr, pt)), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

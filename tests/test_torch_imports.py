@@ -47,7 +47,7 @@ print(len(names))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 20
+    assert int(res.stdout.strip().splitlines()[-1]) >= 27
 
 
 def test_sources_import_nothing_of_jax():
@@ -71,7 +71,9 @@ def test_package_lists_every_ported_module():
                 "ops.masking", "ops.layernorm", "ops.attention", "models.bert",
                 "models.lstm", "models.encoder", "models.decoder", "agents.runtime",
                 "agents.batcher", "agents.decoding", "agents.viewpoint", "convert",
-                "_build"):
+                "_build", "ops.crossentropy", "models.pretrain", "train.optim",
+                "train.pretrain", "data.pretrain_dataset", "pipelines",
+                "pipelines.pretrain_datagen"):
         assert f"visitron_torch.{mod}" in names, mod
 
 

@@ -149,3 +149,127 @@ def test_k2b_kernel_matches_twin_on_card(cuda, dtype, hidden):
         torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
         for x_, y_ in zip(got[1:], want[1:]):  # sums over 300 rows
             torch.testing.assert_close(x_, y_, atol=1e-3, rtol=1e-4)
+
+
+# -- K3: fused masked softmax-CE ------------------------------------------------
+
+def test_ce_wrapper_refuses_other_devices_and_ignore_ids():
+    from visitron_torch.ops import crossentropy as tce
+
+    x = torch.empty(4, 100, device="meta")
+    with pytest.raises(ValueError):
+        tce.fused_masked_softmax_ce(x, torch.zeros(4, dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="negative"):
+        tce.fused_masked_softmax_ce(torch.zeros(4, 100), torch.zeros(4), ignore_id=0)
+
+
+def _ce_inputs(rows, vocab, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (3.0 * torch.randn(rows, vocab, generator=g, device=device)).to(dtype)
+    labels = torch.randint(0, vocab, (rows,), generator=g, device=device)
+    labels[::10] = -1          # ignored rows
+    labels[3] = vocab          # out of range: ignored as well
+    labels[7] = vocab + 1000
+    return x, labels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", [30525, 4099, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_kernels_match_twins_on_card(cuda, dtype, vocab):
+    from visitron_torch.ops import crossentropy as tce
+
+    x, labels = _ce_inputs(200, vocab, dtype, cuda, seed=5)
+    ce, lse = tce._forward(x, labels)
+    want_ce, want_lse = tce.masked_softmax_ce_reference(x, labels)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(ce, want_ce, atol=1e-4, rtol=1e-5)
+    valid = (labels >= 0) & (labels < vocab)
+    assert torch.equal(ce[~valid], torch.zeros_like(ce[~valid]))
+    gcot = torch.rand(200, generator=torch.Generator(device=cuda).manual_seed(6),
+                      device=cuda)
+    got = tce.fused_masked_softmax_ce_bwd(x, labels, lse, gcot)
+    want = tce.masked_softmax_ce_bwd_reference(x, labels, want_lse, gcot)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    # bf16: one ulp of the twin's bf16 value; fp32: exp's rounding.
+    tol = (1e-6, 8e-3) if dtype == torch.bfloat16 else (1e-6, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol[0], rtol=tol[1])
+    assert torch.equal(got[~valid].float(), torch.zeros_like(got[~valid].float()))
+
+
+@pytest.mark.gpu
+def test_k3_autograd_on_card_counts_launches(cuda):
+    from visitron_torch.ops import crossentropy as tce
+
+    x, labels = _ce_inputs(64, 30525, torch.bfloat16, cuda, seed=7)
+    x.requires_grad_()
+    before = (tce.fused_masked_softmax_ce.launches, tce.fused_masked_softmax_ce_bwd.launches)
+    ce = tce.fused_masked_softmax_ce(x, labels)
+    (gx,) = torch.autograd.grad(ce.sum() / 3.0, x)
+    assert (tce.fused_masked_softmax_ce.launches - before[0],
+            tce.fused_masked_softmax_ce_bwd.launches - before[1]) == (1, 1)
+    ref = x.detach().cpu().requires_grad_()
+    want = tce.fused_masked_softmax_ce(ref, labels.cpu())
+    (gw,) = torch.autograd.grad(want.sum() / 3.0, ref)
+    torch.testing.assert_close(ce.cpu(), want, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(gx.cpu().float(), gw.float(), atol=1e-6, rtol=8e-3)
+
+
+# -- K4: fused attention on (B, H, S, D) ---------------------------------------------
+
+def _views4(qkv, h, d):
+    return [t.unflatten(-1, (h, d)).transpose(1, 2) for t in qkv.split(h * d, dim=-1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [768, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_kernels_match_twins_and_k1_on_card(cuda, dtype, s):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b, h, d = 3, 4, 64
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    dout = torch.randn(b, s, h * d, generator=g, device=cuda).to(dtype)
+    kb = torch.where(torch.arange(s, device=cuda)[None] < torch.tensor(
+        [[s], [s - 100], [1]], device=cuda), 0.0, NEG_INF).float()
+    q4, k4, v4 = _views4(qkv, h, d)
+    do4 = dout.unflatten(-1, (h, d)).transpose(1, 2)
+    # The same operands as contiguous (B, H, S, D) tensors: other head strides.
+    c4 = [t.contiguous() for t in (q4, k4, v4)]
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+    gatol, grtol = _grad_tol(dtype)
+    for rate, seed in ((0.0, None), (0.1, 99)):
+        out, lse = tatt.fused_attention(q4, k4, v4, kb, seed, rate, need_lse=True)
+        want, want_lse = tatt.fused_attention_reference(q4, k4, v4, kb, seed, rate, True)
+        torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+        # K4 on views of the packed projection, K4 on contiguous copies and
+        # K1 on the packed layout run the same arithmetic: equal bit for bit.
+        assert torch.equal(tatt.fused_attention(*c4, kb, seed, rate), out)
+        packed = tatt.fused_attention_packed(*qkv.split(h * d, dim=-1), kb, h, seed, rate)
+        assert torch.equal(packed, out.transpose(1, 2).flatten(2))
+        grads = tatt.fused_attention_bwd(q4, k4, v4, kb, do4, lse, seed, rate)
+        wants = tatt.fused_attention_bwd_reference(q4, k4, v4, kb, do4, lse, seed, rate)
+        for name, x, y in zip(("dq", "dk", "dv"), grads, wants):
+            torch.testing.assert_close(x.float(), y.float(), atol=gatol, rtol=grtol,
+                                       msg=lambda m: f"{name} rate {rate}: {m}")
+        grads_c = tatt.fused_attention_bwd(*c4, kb, do4.contiguous(), lse, seed, rate)
+        assert all(torch.equal(x, y) for x, y in zip(grads, grads_c))
+
+
+@pytest.mark.gpu
+def test_k4_autograd_on_card_counts_launches(cuda):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    h, d = 2, 64
+    qkv = torch.randn(2, 640, 3 * h * d, generator=g, device=cuda, requires_grad=True)
+    kb = torch.zeros(2, 640, device=cuda)
+    before = (tatt.fused_attention.launches, tatt.fused_attention_bwd.launches,
+              tatt.fused_attention_packed.launches)
+    out = tatt.fused_attention(*_views4(qkv, h, d), kb, 5, 0.1)
+    (gq,) = torch.autograd.grad(out.transpose(1, 2).flatten(2).square().sum(), qkv)
+    assert (tatt.fused_attention.launches - before[0],
+            tatt.fused_attention_bwd.launches - before[1],
+            tatt.fused_attention_packed.launches - before[2]) == (1, 1, 0)
+    ref = qkv.detach().cpu().requires_grad_()
+    want = tatt.fused_attention(*_views4(ref, h, d), kb.cpu(), 5, 0.1)
+    (gw,) = torch.autograd.grad(want.transpose(1, 2).flatten(2).square().sum(), ref)
+    torch.testing.assert_close(gq.cpu(), gw, atol=1e-4, rtol=1e-4)

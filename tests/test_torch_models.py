@@ -123,8 +123,12 @@ def test_convert_refuses_missing_and_extra_keys():
 def test_port_modules_refuse_unported_paths():
     bert = tm.VisitronBert(tm.BertConfig(**CFG))
     ids = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        bert(ids, img_feats=torch.zeros(1, 2, 5))
+    # Image fusion is ported; the flash kernels (K5), which the JAX package
+    # runs where the fused gate refuses a shape, are not.
+    flash = tm.VisitronBert(tm.BertConfig(**{**CFG, "use_fused_attention": False,
+                                             "use_flash_attention": True}))
+    with pytest.raises(NotImplementedError, match="flash"):
+        flash(torch.zeros(1, S, dtype=torch.int64))
     with pytest.raises(NotImplementedError):
         bert(ids, history_states=[torch.zeros(1, 2, 128)] * 2)
     with pytest.raises(NotImplementedError):

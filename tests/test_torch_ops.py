@@ -260,3 +260,92 @@ def test_bwd_wrappers_take_twins_on_cpu_and_count_only_launches():
     assert (tatt.fused_attention_packed_bwd.launches, tln.fused_add_layernorm_bwd.launches) == (n, m)
     with pytest.raises(ValueError, match="seed"):
         tatt.fused_attention_packed_bwd(q, k, v, kb, dout, lse, 2, None, 0.1)
+
+
+# -- K4: fused attention on (B, H, S, D) ---------------------------------------
+
+def _attention_inputs4(b, h, s, d, seed):
+    q, k, v, kb = _attention_inputs(b, s, h, d, seed)
+    split = lambda x: x.reshape(b, s, h, d).transpose(0, 2, 1, 3).copy()  # noqa: E731
+    return split(q), split(k), split(v), kb
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, None), (0.1, 1234)])
+@pytest.mark.parametrize("s", [128, 256])
+def test_k4_twins_match_pallas_interpret_and_jax_grad(s, rate, seed, one_thread):
+    """Output, lse and (dq, dk, dv) of the port's fused_attention (autograd
+    Function -> K4 twins on the CPU) against the unpacked Pallas kernels and
+    jax.grad of them; the K4 twin equals the K1 twin on the same data."""
+    import jax
+
+    b, h, d = 2, 4, 64
+    q, k, v, kb = _attention_inputs4(b, h, s, d, seed=s + 5)
+    dout = np.random.default_rng(s + 6).standard_normal((b, h, s, d)).astype(np.float32)
+    jq, jk, jv, jkb = map(jnp.asarray, (q, k, v, kb))
+    want_out, want_lse = jatt._fused_forward(jq, jk, jv, jkb, seed, rate, True, need_lse=True)
+
+    def jloss(q, k, v):
+        return jnp.sum(jatt.fused_attention(q, k, v, jkb, seed, rate, True)
+                       * jnp.asarray(dout))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = tatt.fused_attention(tq, tk, tv, torch.from_numpy(kb), seed, rate,
+                                    need_lse=True)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[:, 0, :], atol=2e-5,
+                               rtol=0)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=0,
+                                   err_msg=name)
+    # The packed twin on the same data, merged and split, is the same function.
+    merge = lambda x: torch.from_numpy(x).transpose(1, 2).flatten(2)  # noqa: E731
+    packed = tatt.fused_attention_packed(merge(q), merge(k), merge(v),
+                                         torch.from_numpy(kb), h, seed, rate)
+    assert torch.equal(packed, out.detach().transpose(1, 2).flatten(2))
+
+
+@pytest.mark.parametrize("seed", [0, 1234, 2**31 - 1])
+def test_k4_keep_mask_bit_identical_per_head(seed):
+    """The twin's (B, H, S, S) mask against the unpacked Pallas kernel's:
+    head id i*hpb + hh of program i is b*H + h."""
+    b, h, s, rate = 2, 3, 128, 0.1
+    thr = jatt._threshold(rate)
+    got = tatt._head_keep_mask(seed, b, h, s, rate, "cpu")
+    for bi in range(b):
+        for hi in range(h):
+            sj = jatt._mix_seed(jnp.asarray([seed], jnp.int32), bi * h + hi)
+            want = np.asarray(jatt._keep_mask(sj, 0, 0, (s, s), thr))
+            np.testing.assert_array_equal(got[bi, hi].numpy(), want)
+
+
+def test_k4_reads_strided_views_and_counts_only_launches():
+    """q/k/v as (B, H, S, D) views of one fused projection give the same
+    output as contiguous copies; CPU calls take the twins and count nothing."""
+    b, h, d, s = 2, 2, 64, 128
+    rng = np.random.default_rng(10)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(np.float32))
+    kb = torch.zeros(b, s)
+    views = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in qkv.split(h * d, dim=-1)]
+    n = (tatt.fused_attention.launches, tatt.fused_attention_bwd.launches)
+    got = tatt.fused_attention(*views, kb)
+    assert torch.equal(got, tatt.fused_attention(*(t.contiguous() for t in views), kb))
+    _, lse = tatt.fused_attention(*views, kb, need_lse=True)
+    dout = torch.ones_like(got)
+    assert all(torch.equal(x, y) for x, y in zip(
+        tatt.fused_attention_bwd(*views, kb, dout, lse),
+        tatt.fused_attention_bwd_reference(*views, kb, dout, lse)))
+    assert (tatt.fused_attention.launches, tatt.fused_attention_bwd.launches) == n
+    with pytest.raises(ValueError, match="seed"):
+        tatt.fused_attention(*views, kb, None, 0.1)
+
+
+def test_fused_and_flash_gates_match_jax_without_the_backend_test():
+    for s in (64, 128, 200, 256, 512, 640, 768, 896, 1024):
+        for d in (32, 64, 128):
+            assert tatt.attention_supports_fused(s, s, d) == (
+                128 <= s <= 768 and s % 128 == 0 and d in (64, 128))
+            assert tatt.attention_supports_flash(s, s, d) == (s % 128 == 0 and d in (64, 128))
+    assert not tatt.attention_supports_fused(256, 384, 64)

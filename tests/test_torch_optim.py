@@ -83,3 +83,41 @@ def test_unported_optimizer_kinds_raise():
             topt.agent_optimizer(1e-3, kind)
     with pytest.raises(ValueError):
         topt.agent_optimizer(1e-3, "lamb")
+
+
+@pytest.mark.parametrize("kind", ["linear", "constant"])
+def test_make_schedule_matches_optax_bit_for_bit(kind):
+    for warmup, total in ((0, 100), (3, 10), (5, 5)):
+        js = jopt.make_schedule(5e-5, warmup, total, kind)
+        ts = topt.make_schedule(5e-5, warmup, total, kind)
+        for count in range(total + 3):
+            assert np.float32(js(count)) == ts(count), (warmup, total, count)
+    # optax reads the schedule at the count before the step: lr 0 first.
+    assert topt.make_schedule(5e-5, 0, 100)(0) == 0.0
+
+
+@pytest.mark.parametrize("bf16_moments,weight_decay", [(False, 0.0), (False, 0.01),
+                                                       (True, 0.01)])
+def test_adamw_with_warmup_matches_optax(bf16_moments, weight_decay):
+    """Four steps with a 2-step warmup, the clip at 1.0 triggered: the
+    first update is exactly 0 (lr 0 at count 0), the later ones match."""
+    rng = np.random.default_rng(1)
+    lr = 1e-2
+    params = _tree(rng, SHAPES)
+    grads = [_tree(rng, SHAPES, scale=s) for s in (1.0, 0.3, 2.0, 0.5)]
+    jo = jopt.adamw_with_warmup(lr, 2, 10, "linear", weight_decay,
+                                bf16_moments=bf16_moments)
+    to = topt.adamw_with_warmup(lr, 2, 10, "linear", weight_decay,
+                                bf16_moments=bf16_moments)
+    jp, tp = jax.tree_util.tree_map(jnp.asarray, params), _to_torch(params)
+    js, ts = jo.init(jp), to.init(tp)
+    for i, g in enumerate(grads):
+        ju, js = jo.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
+        jp = jax.tree_util.tree_map(lambda p, u: p + u, jp, ju)
+        tu, ts = to.update(_to_torch(g), ts, tp)
+        if i == 0:
+            assert all(float(u.abs().max()) == 0.0 for u in topt.tree_leaves(tu))
+        tp = topt.apply_updates(tp, tu)
+    tol = 1e-6 if not bf16_moments else lr * 1e-2
+    for a, b in zip(_leaves_np(jp), _leaves_np(tp)):
+        np.testing.assert_allclose(b, a, atol=tol, rtol=0)

@@ -1,0 +1,291 @@
+"""The port's pretraining slice against the JAX package's, on the CPU: the
+pretraining example walk, ``PretrainDataset``'s batches (byte for byte, with
+masked-token prediction on), ``PretrainModel`` and ``pretrain_loss`` (fp32,
+deterministic, the JAX parameters carried across by
+``convert_pretrain_params``: logits 1e-4, every loss and accuracy 1e-5
+relative, every gradient 1e-4), two ``PretrainTrainer`` steps against the
+JAX trainer on a one-device mesh, and a short training run whose loss falls.
+
+Tiny config: 2 layers, hidden 128 (2 heads of 64), image features of 24
+dims.  Two joint lengths: 128 text + 128 image tokens with
+``fused_packed_max_seq`` 128, where the port takes the fused gate and runs
+its (B, H, S, D) attention (K4's twin here), and 64 + 40, which the gate
+refuses, so the plain attention runs; the JAX package runs its plain
+attention on the CPU in both.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.func import functional_call
+
+from visitron_torch import data as td
+from visitron_torch import geometry as tgeo
+from visitron_torch.convert import convert_pretrain_params
+from visitron_torch.models import BertConfig as TConfig
+from visitron_torch.ops import attention as tatt
+from visitron_torch.pipelines import generate_pretrain_examples as t_generate
+from visitron_torch.testing import SyntheticWorld as TWorld
+from visitron_torch.train import PretrainTrainer as TTrainer
+from visitron_tpu import data as jd
+from visitron_tpu import models as jm
+from visitron_tpu.data.features import RegionFeatureStore as JStore
+from visitron_tpu.data.pretrain_dataset import PretrainDataset as JDataset
+from visitron_tpu.parallel import make_mesh
+from visitron_tpu.pipelines.pretrain_datagen import generate_pretrain_examples as j_generate
+from visitron_tpu.testing import SyntheticWorld as JWorld
+from visitron_tpu.testing.synthetic import _TARGETS, _WORDS
+from visitron_tpu.train.pretrain import PretrainTrainer as JTrainer
+
+IMG_DIM = 24
+SMALL = dict(vocab_size=101, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+             intermediate_size=256, type_vocab_size=4, img_feature_dim=IMG_DIM,
+             detector_classes=11, hidden_dropout_prob=0.0,
+             attention_probs_dropout_prob=0.0)
+LR = 5e-5
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The tiny models gain nothing from intra-op threads, and with several
+    test workers per machine the threads only contend; restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _batch(seed, b, s_text, s_img, vocab, classes):
+    """A host batch like tools/bench_pretrain.py's, with padding, labels on
+    text only and some region-token labels."""
+    rng = np.random.default_rng(seed)
+    s = s_text + s_img
+    mask = np.ones((b, s), np.int32)
+    mask[1, s_text - 20:s_text] = 0
+    mask[1, s - 10:] = 0
+    labels = np.where(rng.random((b, s)) < 0.3, rng.integers(0, vocab, (b, s)), -1)
+    labels[:, s_text:] = -1
+    tokens = np.where(rng.random((b, s)) < 0.2, rng.integers(0, classes, (b, s)), -1)
+    tokens[:, s_text:] = -1
+    return {
+        "input_ids": rng.integers(0, vocab, (b, s_text)).astype(np.int32),
+        "token_type_ids": rng.integers(0, 4, (b, s_text)).astype(np.int32),
+        "attention_mask": mask,
+        "labels": labels.astype(np.int32),
+        "token_labels": tokens.astype(np.int32),
+        "img_feats": rng.standard_normal((b, s_img, IMG_DIM)).astype(np.float32),
+        "img_location_embeddings": rng.standard_normal((b, s_img, 128)).astype(np.float32),
+        "next_action": np.array([rng.integers(0, 36), -1][:b] + [3] * (b - 2), np.int32),
+    }
+
+
+def _jax_forward(jmodel, jparams, batch):
+    return jmodel.apply(jparams, jnp.asarray(batch["input_ids"]),
+                        token_type_ids=jnp.asarray(batch["token_type_ids"]),
+                        attention_mask=jnp.asarray(batch["attention_mask"]),
+                        img_feats=jnp.asarray(batch["img_feats"]),
+                        img_location_embeddings=jnp.asarray(batch["img_location_embeddings"]))
+
+
+def _jax_bundle(jmodel, jcfg, jparams, batch):
+    out = _jax_forward(jmodel, jparams, batch)
+    return jm.pretrain_loss(out, jnp.asarray(batch["labels"]),
+                            jnp.asarray(batch["next_action"]),
+                            jnp.asarray(batch["token_labels"]), cfg=jcfg)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+CASES = {"fused": dict(s_text=128, s_img=128, cfg={"fused_packed_max_seq": 128}),
+         "plain": dict(s_text=64, s_img=40, cfg={})}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_pretrain_model_and_loss_match_jax(case):
+    c = CASES[case]
+    s = c["s_text"] + c["s_img"]
+    kw = {**SMALL, "max_position_embeddings": c["s_text"], **c["cfg"]}
+    jcfg, tcfg = jm.BertConfig(**kw), TConfig(**kw)
+    batch = _batch(1, 2, c["s_text"], c["s_img"], kw["vocab_size"], kw["detector_classes"])
+    jmodel = jm.PretrainModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(batch["input_ids"][:1]),
+                          token_type_ids=jnp.asarray(batch["token_type_ids"][:1]),
+                          attention_mask=jnp.asarray(batch["attention_mask"][:1]),
+                          img_feats=jnp.asarray(batch["img_feats"][:1]),
+                          img_location_embeddings=jnp.asarray(
+                              batch["img_location_embeddings"][:1]))
+    trainer = TTrainer(tcfg, device="cpu")
+    params = convert_pretrain_params(_np_tree(jparams), trainer.model)
+    assert tatt.attention_supports_fused(s, s, 64) == (case == "fused")
+
+    jout = _jax_forward(jmodel, jparams, batch)
+    tb = trainer.to_device(batch)
+    with torch.no_grad():
+        tout = functional_call(trainer.model, params, (tb["input_ids"],),
+                               {k: tb[k] for k in ("token_type_ids", "attention_mask",
+                                                   "img_feats", "img_location_embeddings")})
+    for key in ("mlm_logits", "action_logits", "token_logits", "sequence_output"):
+        np.testing.assert_allclose(tout[key].numpy(), np.asarray(jout[key]), atol=1e-4,
+                                   rtol=0, err_msg=key)
+
+    def jloss(p):
+        bundle = _jax_bundle(jmodel, jcfg, p, batch)
+        return bundle["loss"], bundle
+
+    (_, jbundle), jgrads = jax.value_and_grad(jloss, has_aux=True)(jparams)
+    tbundle, tgrads = trainer.loss_and_grads(params, tb, None)
+    assert set(tbundle) == set(jbundle)
+    for key, v in jbundle.items():
+        np.testing.assert_allclose(float(tbundle[key]), float(v), rtol=1e-5, err_msg=key)
+    jgrads = convert_pretrain_params(_np_tree(jgrads), trainer.model)
+    assert set(tgrads) == set(jgrads)
+    for name, g in tgrads.items():
+        assert g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), jgrads[name].numpy(), atol=1e-4, rtol=0,
+                                   err_msg=name)
+
+
+def test_two_trainer_steps_match_the_jax_trainer():
+    """AdamW 5e-5 with warmup 0: optax reads the schedule before the step,
+    so step 1 moves nothing in either package and step 2 moves by ~lr.  The
+    bundles of both steps agree to 1e-5 relative; the update after two steps
+    agrees to 1e-2 lr where both gradients exceed 1e-4 (and moves there),
+    and to 3 lr everywhere (Adam's second step moves a parameter by at most
+    ~1.1 lr)."""
+    kw = {**SMALL, "max_position_embeddings": 128, "fused_packed_max_seq": 128}
+    jcfg, tcfg = jm.BertConfig(**kw), TConfig(**kw)
+    batches = [_batch(seed, 2, 128, 128, kw["vocab_size"], kw["detector_classes"])
+               for seed in (2, 3)]
+    jtrainer = JTrainer(jcfg, mesh=make_mesh(dp=1), total_steps=100, learning_rate=LR)
+    jstate = jtrainer.init_state(batches[0])
+    p0 = _np_tree(jstate["params"])
+    jstep = jtrainer.step_fn()
+    jbundles = []
+    for b in batches:
+        jstate, bundle = jstep(jstate, b)
+        jbundles.append(_np_tree(bundle))
+    trainer = TTrainer(tcfg, device="cpu", total_steps=100, learning_rate=LR)
+    state = trainer.init_state()
+    state["params"] = convert_pretrain_params(p0, trainer.model)
+    state["opt_state"] = trainer.optimizer.init(state["params"])
+    start = {k: v.clone() for k, v in state["params"].items()}
+    grads = [trainer.loss_and_grads(start, trainer.to_device(b), None)[1] for b in batches]
+    step = trainer.step_fn()
+    for i, b in enumerate(batches):
+        state, bundle = step(state, b)
+        for key, v in jbundles[i].items():
+            np.testing.assert_allclose(float(bundle[key]), float(v), rtol=1e-5,
+                                       err_msg=f"step {i + 1} {key}")
+        if i == 0:
+            assert all(torch.equal(state["params"][k], start[k]) for k in start)
+    jnew = convert_pretrain_params(_np_tree(jstate["params"]), trainer.model)
+    n_big = n_moved = 0
+    for name, p in state["params"].items():
+        upd = (p - start[name]).numpy()
+        jupd = (jnew[name] - start[name]).numpy()
+        big = np.minimum(grads[0][name].abs().numpy(), grads[1][name].abs().numpy()) > 1e-4
+        diff = np.abs(upd - jupd)
+        assert diff.max() <= 3 * LR, name
+        assert (diff[big] <= 1e-2 * LR).all(), name
+        n_big += int(big.sum())
+        n_moved += int((upd[big] != 0).sum())
+    # A move far below a parameter's ulp rounds away; nearly all others show.
+    assert n_moved > 0.95 * n_big > 0
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """The same synthetic world from each package, its task data, region
+    store and candidate tables, and a shared WordPiece vocabulary."""
+    kw = dict(seed=5, num_scans=2, viewpoints_per_scan=16, scene_feat_dim=8,
+              region_feat_dim=IMG_DIM, regions_per_view=2)
+    out = {}
+    vocab = jd.build_wordpiece_vocab([" ".join(_WORDS), " ".join(_TARGETS)], vocab_size=256)
+    hfov = tgeo.camera_hfov(640, 480, np.radians(60))
+    for name, world_cls, pkg in (("jax", JWorld, jd), ("torch", TWorld, td)):
+        world = world_cls(**kw)
+        root = world.write_task_data(str(tmp_path_factory.mktemp(name)),
+                                     counts={"train": 6})
+        feats, tokens = world.region_features()
+        store = (JStore if name == "jax" else td.RegionFeatureStore)(feats, tokens)
+        tables = pkg.build_candidate_tables(world.graphs, hfov)
+        out[name] = {"world": world, "root": root, "store": store, "tables": tables,
+                     "tok": pkg.WordPieceTokenizer(vocab)}
+    return out
+
+
+def _records(worlds, name):
+    w = worlds[name]
+    generate = j_generate if name == "jax" else t_generate
+    return generate(w["root"], ["train"], "NDH", w["world"].graphs, w["tables"])
+
+
+def _dataset(worlds, name, records, **kw):
+    w = worlds[name]
+    cls = JDataset if name == "jax" else td.PretrainDataset
+    return cls(records, w["tok"], region_store=w["store"],
+               detector_classes=["__background__"] + _TARGETS,
+               masked_token_prediction=True, max_seq_length=128, regions_per_view=2,
+               region_feat_dim=IMG_DIM, seed=3, **kw)
+
+
+def test_pretrain_examples_and_batches_match_jax(worlds):
+    jrec, trec = _records(worlds, "jax"), _records(worlds, "torch")
+    assert jrec == trec and len(trec) > 8
+    jds, tds = _dataset(worlds, "jax", jrec), _dataset(worlds, "torch", trec)
+    assert len(tds) == len(jds)
+    n = 0
+    for _ in range(2):  # two epochs: the shuffle and the masking streams
+        for jb, tb in zip(jds.epoch_batches(4), tds.epoch_batches(4)):
+            assert jb.keys() == tb.keys()
+            for key in jb:
+                assert tb[key].dtype == jb[key].dtype, key
+                np.testing.assert_array_equal(tb[key], jb[key], err_msg=key)
+            n += 1
+    assert n >= 4
+    # 2 regions x 36 views = 72, bucketed to 128 image tokens; labels cover
+    # the joint sequence, token labels only the region tokens' positions.
+    assert tb["img_feats"].shape == (4, 128, IMG_DIM)
+    assert tb["labels"].shape == (4, 128 + 128)
+    assert (tb["token_labels"] >= 0).any()
+    with pytest.raises(NotImplementedError):
+        next(tds.epoch_batches(4, host_id=0, num_hosts=2))
+    with pytest.raises(NotImplementedError):
+        _dataset(worlds, "torch", trec[:2], cache_path="cache.pkl")
+
+
+def test_train_epoch_lowers_the_loss_on_a_repeated_batch(worlds):
+    records = _records(worlds, "torch")
+    ds = _dataset(worlds, "torch", records)
+    tok = worlds["torch"]["tok"]
+    cfg = TConfig(**{**SMALL, "vocab_size": len(tok), "max_position_embeddings": 128,
+                     "detector_classes": 1 + len(_TARGETS),
+                     "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1})
+    trainer = TTrainer(cfg, device="cpu", learning_rate=1e-3, total_steps=1000)
+    state = trainer.init_state()
+    fixed = ds.batch(np.arange(4))
+    ev = trainer.eval_fn()
+    first = float(ev(state["params"], fixed)["loss"])
+    history = []
+    for _ in range(3):
+        state, hist = trainer.train_epoch(state, ds, batch_size=4, log_every=1)
+        history += hist
+    assert len(history) >= 6 and all(np.isfinite(h["loss"]) for h in history)
+    assert {"mask_loss", "next_loss", "token_loss", "words_accuracy"} <= set(history[0])
+    assert float(ev(state["params"], fixed)["loss"]) < 0.8 * first
+    report = trainer.evaluate(state["params"], ds, batch_size=4)
+    assert np.isfinite(report["loss"])
+
+
+def test_trainer_refuses_unported_options():
+    cfg = TConfig(**{**SMALL, "max_position_embeddings": 64})
+    for kw in ({"mesh": object()}, {"zero1": True}, {"fsdp": True}):
+        with pytest.raises(NotImplementedError):
+            TTrainer(cfg, device="cpu", **kw)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TTrainer(cfg)

@@ -184,15 +184,16 @@ def test_attention_dropout_draws_a_seed_per_call_and_uses_the_hash_mask():
     """BertSelfAttention in a training pass draws an int32 seed from the
     CPU seed generator and runs K1 (its twin here) with the hash mask at
     attention_probs_dropout_prob; that mask is the JAX package's for the
-    same seed (tests/test_torch_ops.py)."""
+    same seed (tests/test_torch_ops.py).  S 128: the smallest length the
+    fused kernels take (shorter ones run the plain attention, as in JAX)."""
     cfg = TConfig(vocab_size=10, hidden_size=128, num_attention_heads=2,
                   attention_probs_dropout_prob=0.1)
     layer = BertSelfAttention(cfg)
     with torch.no_grad():
         for p in layer.parameters():
             p.normal_(0.0, 0.2, generator=torch.Generator().manual_seed(1))
-    hidden = torch.randn(2, 64, 128, generator=torch.Generator().manual_seed(2))
-    kb = torch.zeros(2, 64)
+    hidden = torch.randn(2, 128, 128, generator=torch.Generator().manual_seed(2))
+    kb = torch.zeros(2, 128)
 
     def rng():
         return tlayers.DropoutRng(torch.Generator().manual_seed(3),

@@ -24,20 +24,22 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("attention.cu", "layernorm.cu")
+SOURCES = ("attention.cu", "crossentropy.cu", "layernorm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # The C entry points and their ctypes signatures.  Every pointer and the
 # stream are c_void_p: an undeclared argument would be passed as a 32-bit int.
-_P, _I, _LL, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_uint, ctypes.c_float)
+# The attention entries take their operands' strides as one host array of
+# 24 int64 (ops/attention.py:_strides).
+_P, _I, _LLP, _U, _F = (ctypes.c_void_p, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_uint,
+                        ctypes.c_float)
 SIGNATURES = {
-    "vt_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _LL, _LL, _LL, _LL, _LL, _LL, _I, _U, _U, _F, _I, _F,
-                         _P],
-    "vt_attention_bwd": [_P] * 10 + [_I, _I, _I, _I] + [_LL] * 6
-                        + [_I, _U, _U, _F, _I, _F, _P],
+    "vt_attention_fwd": [_P] * 6 + [_I] * 4 + [_LLP, _I, _U, _U, _F, _I, _F, _P],
+    "vt_attention_bwd": [_P] * 10 + [_I] * 4 + [_LLP, _I, _U, _U, _F, _I, _F, _P],
+    "vt_ce_fwd": [_P] * 4 + [_I, _I, _I, _P],
+    "vt_ce_bwd": [_P] * 5 + [_I, _I, _I, _P],
     "vt_layernorm_fwd": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "vt_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
 }

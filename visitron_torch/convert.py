@@ -1,14 +1,16 @@
-"""Carry parameters of the JAX package's agent into the port.
+"""Carry parameters of the JAX package's agent and pretraining model into
+the port.
 
 The JAX ``ViewpointAgent`` keeps ``{"encoder": {"params": ...}, "decoder":
-{"params": ...}}`` flax trees.  The port's modules use the same names, so a
-flax path maps to a state-dict key by joining it with dots, with these
-leaf renames:
+{"params": ...}}`` flax trees, the ``PretrainTrainer`` one ``PretrainModel``
+tree.  The port's modules use the same names, so a flax path maps to a
+state-dict key by joining it with dots, with these leaf renames:
 
   Dense ``kernel`` (in, out)      -> ``weight`` (out, in), transposed
   LayerNorm ``scale`` / ``bias``  -> ``weight`` / ``bias``
   Embed ``embedding``             -> ``weight``
   LSTM ``wi/wh/bi/bh``            -> the same (already in torch layout)
+  ``mlm_bias`` (PretrainModel)    -> the same
 
 The trees arrive as numpy arrays (``np.asarray`` of each leaf); nothing here
 imports JAX.  A key missing on either side, or a shape that differs, raises.
@@ -21,7 +23,8 @@ import torch
 from torch import nn
 
 _RENAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-            "bias": "bias", "wi": "wi", "wh": "wh", "bi": "bi", "bh": "bh"}
+            "bias": "bias", "wi": "wi", "wh": "wh", "bi": "bi", "bh": "bh",
+            "mlm_bias": "mlm_bias"}
 
 
 def _flatten(tree, prefix=()):
@@ -69,3 +72,10 @@ def convert_agent_params(jax_params: dict, agent) -> dict:
     return {part: flax_to_state_dict(jax_params[part], getattr(agent, part),
                                      agent.device)
             for part in ("encoder", "decoder")}
+
+
+def convert_pretrain_params(jax_params: dict, model: nn.Module, device=None) -> dict:
+    """The JAX ``PretrainModel`` parameters (with or without the ``params``
+    collection) as the flat parameters of the port's ``PretrainModel``
+    (``PretrainTrainer.model``), on ``device``."""
+    return flax_to_state_dict(jax_params, model, device)

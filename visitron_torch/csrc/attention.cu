@@ -1,9 +1,17 @@
-// Packed fused self-attention for Hopper (sm_90a): forward (K1f) and,
-// further down, backward (K1b).
+// Fused self-attention for Hopper (sm_90a): forward (K1f, K4f) and, further
+// down, backward (K1b, K4b).
 //
 // Replaces: visitron_tpu/ops/attention.py:_fused_packed_fwd_kernel, reached
-// through _fused_packed_forward (the Pallas call of fused_attention_packed).
-// Same function: for each (batch b, head h) of packed (B, S, H*D) q/k/v,
+// through _fused_packed_forward (the Pallas call of fused_attention_packed),
+// and _fused_fwd_kernel, reached through _fused_forward (fused_attention on
+// (B, H, S, D)).  The two TPU kernels compute the same function with the same
+// dropout head id (b*H + h); they differ only in the layout of their
+// operands.  Here one set of kernels serves both: every operand is addressed
+// through its own (batch, head, sequence) element strides (AttnStrides), with
+// the head dim contiguous.  The packed (B, S, H*D) layout has head stride D;
+// a (B, H, S, D) view of the packed QKV projection has the same strides, and
+// a contiguous (B, H, S, D) tensor has head stride S*D.
+// Same function: for each (batch b, head h) of q/k/v,
 //   s = (q_h k_h^T) / sqrt(D) + key_bias[b]   (fp32)
 //   a = softmax(s) over full rows             (fp32)
 //   a = where(keep(q, k), a, 0) / (1 - rate)  (optional hash dropout)
@@ -13,14 +21,16 @@
 // What bounds it on an H100: at the serving shapes (B = 64, S = 256..512,
 // H = 12, D = 64, bf16) the bytes (q/k/v/out once each) and the arithmetic
 // (4*B*H*S^2*D at the bf16 tensor-core rate) give bounds of the same order,
-// a few tens of microseconds; bytes are the larger.
+// a few tens of microseconds; bytes are the larger.  At the pretraining
+// shapes of K4 (B 16, S 768, 12 x 64, bf16) the operations are: 29 GFLOP
+// against 75 MB.
 //
 // Design against what the TPU kernel relied on: the Pallas kernel keeps a
 // whole (S, S) fp32 score matrix per head in VMEM (1 MB at S = 512), which no
 // SM has.  Here one block takes one (b, h, 64-row query tile) and walks
 // 64-wide K/V tiles with an online max/sum (flash-style), which is the same
-// function as the full-row softmax.  Rows are read straight from the packed
-// layout through a row stride, so q/k/v may be strided views of the fused QKV
+// function as the full-row softmax.  Rows are read in place through each
+// operand's strides, so q/k/v may be strided views of the fused QKV
 // projection with no split or transpose copies.  Dropout recomputes the TPU
 // kernel's murmur3 position hash over the absolute (query, key) indices of
 // the head, so masks match it bit for bit; l counts every probability, kept
@@ -62,6 +72,18 @@ __device__ __forceinline__ bool keep_bit(uint32_t r, uint32_t c, uint32_t seed,
   return x >= thr;
 }
 
+// Element strides of one operand seen as (B, H, S, D); D is contiguous.
+struct Strides {
+  long long b, h, s;
+};
+struct AttnStrides {
+  Strides q, k, v, o, dout, dq, dk, dv;
+};
+
+__device__ __forceinline__ long long head_off(const Strides& t, int b, int h) {
+  return b * t.b + h * t.h;
+}
+
 // ---- fp32: FMA on the CUDA cores --------------------------------------------
 
 constexpr int kWarps = 8;
@@ -75,14 +97,12 @@ constexpr int smem_floats() {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-packed_attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
+attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v,
                           const float* __restrict__ key_bias,
                           float* __restrict__ out, float* __restrict__ lse, int S,
-                          int H, long long q_sb, long long q_ss, long long k_sb,
-                          long long k_ss, long long v_sb, long long v_ss,
-                          uint32_t seed, uint32_t thr, float inv_keep,
-                          int dropout, float sm_scale) {
+                          int H, AttnStrides st, uint32_t seed, uint32_t thr,
+                          float inv_keep, int dropout, float sm_scale) {
   constexpr int DP = D + 4;      // padded fp32 row: 16-byte aligned, conflict-free float4
   constexpr int PP = kBK + 4;
   constexpr int DPL = D / 32;    // output columns per lane
@@ -99,15 +119,17 @@ packed_attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  const float* qb = q + b * q_sb + h * D;
-  const float* kb = k + b * k_sb + h * D;
-  const float* vb = v + b * v_sb + h * D;
   const float* bias = key_bias + static_cast<long long>(b) * S;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  // This block's head: every operand from here on is its (S, D) slice.
+  q += head_off(st.q, b, h);
+  k += head_off(st.k, b, h);
+  v += head_off(st.v, b, h);
+  out += head_off(st.o, b, h);
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, s = q0 + r;
-    Qs[r * DP + d] = s < S ? qb[s * q_ss + d] : 0.f;
+    Qs[r * DP + d] = s < S ? q[s * st.q.s + d] : 0.f;
   }
 
   float m[kRows], l[kRows], o[kRows][DPL];
@@ -126,8 +148,8 @@ packed_attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, d = i % D, s = k0 + r;
       const bool ok = s < S;
-      Ks[r * DP + d] = ok ? kb[s * k_ss + d] : 0.f;
-      Vs[r * D + d] = ok ? vb[s * v_ss + d] : 0.f;
+      Ks[r * DP + d] = ok ? k[s * st.k.s + d] : 0.f;
+      Vs[r * D + d] = ok ? v[s * st.v.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -216,7 +238,7 @@ packed_attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__
     const int s = q0 + warp * kRows + r;
     if (s >= S) continue;
     const float inv = 1.f / l[r];
-    float* orow = out + (static_cast<long long>(b) * S + s) * H * D + h * D + lane * DPL;
+    float* orow = out + s * st.o.s + lane * DPL;
 #pragma unroll
     for (int t = 0; t < DPL; ++t) orow[t] = o[r][t] * inv;
     if (lse != nullptr && lane == 0)
@@ -226,22 +248,20 @@ packed_attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__
 
 template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
-                   const void* key_bias, void* out, void* lse, int B, int S,
-                   int H, long long q_sb, long long q_ss, long long k_sb,
-                   long long k_ss, long long v_sb, long long v_ss,
-                   uint32_t seed, uint32_t thr, float inv_keep, int dropout,
-                   float sm_scale, cudaStream_t stream) {
+                        const void* key_bias, void* out, void* lse, int B, int S,
+                        int H, const AttnStrides& st, uint32_t seed, uint32_t thr,
+                        float inv_keep, int dropout, float sm_scale,
+                        cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      packed_attention_fwd_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attention_fwd_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  packed_attention_fwd_fp32<D><<<grid, kThreads, smem, stream>>>(
+  attention_fwd_fp32<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(key_bias),
       static_cast<float*>(out),
-      static_cast<float*>(lse), S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, seed,
-      thr, inv_keep, dropout, sm_scale);
+      static_cast<float*>(lse), S, H, st, seed, thr, inv_keep, dropout, sm_scale);
   return cudaGetLastError();
 }
 
@@ -282,32 +302,44 @@ constexpr int mma_smem_bytes() {
 }
 
 // Copies a (64, D) tile of rows [r0, r0 + 64) into padded shared memory with
-// 16-byte loads; rows at or beyond S are zero.
+// 16-byte loads; rows at or beyond S are zero.  Each thread issues all of
+// its loads before it stores any, so they are in flight together: a row
+// past S is read at row S - 1 and zeroed, which keeps every load
+// unconditional (a guarded load may be compiled into a branch that waits
+// for each load in turn).
 template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           long long row_stride, int r0, int S,
                                           int tid) {
   constexpr int LD = D + 8;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = tid; i < kBQ * VPR; i += kMmaThreads) {
-    const int r = i / VPR, c = (i % VPR) * 8, s = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) val = *reinterpret_cast<const uint4*>(src + s * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+  constexpr int VPR = D / 8;                       // 16-byte vectors per row
+  constexpr int N = kBQ * VPR / kMmaThreads;       // vectors per thread
+  static_assert(kBQ * VPR % kMmaThreads == 0, "tile must split evenly");
+  uint4 val[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int i = tid + j * kMmaThreads;
+    const int s = r0 + i / VPR;
+    val[j] = *reinterpret_cast<const uint4*>(src + min(s, S - 1) * row_stride +
+                                             (i % VPR) * 8);
+    if (s >= S) val[j] = make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int i = tid + j * kMmaThreads;
+    *reinterpret_cast<uint4*>(dst + (i / VPR) * LD + (i % VPR) * 8) = val[j];
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-packed_attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
+attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const float* __restrict__ key_bias,
                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                         int S, int H, long long q_sb, long long q_ss,
-                         long long k_sb, long long k_ss, long long v_sb,
-                         long long v_ss, uint32_t seed, uint32_t thr,
+                         int S, int H, AttnStrides st, uint32_t seed, uint32_t thr,
                          float inv_keep, int dropout, float sm_scale) {
   constexpr int LD = D + 8;
   constexpr int KSTEPS = D / 16;  // k-steps of the QK^T product
@@ -328,8 +360,13 @@ packed_attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
   const int t = lane & 3;   // fragment column pair
   const float* bias = key_bias + static_cast<long long>(b) * S;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  // This block's head: every operand from here on is its (S, D) slice.
+  q += head_off(st.q, b, h);
+  k += head_off(st.k, b, h);
+  v += head_off(st.v, b, h);
+  out += head_off(st.o, b, h);
 
-  load_tile<D>(Qs, q + b * q_sb + h * D, q_ss, q0, S, tid);
+  load_tile<D>(Qs, q, st.q.s, q0, S, tid);
   __syncthreads();
   uint32_t qa[KSTEPS][4];
   const __nv_bfloat16* qw = Qs + (warp * 16) * LD;
@@ -349,8 +386,8 @@ packed_attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
   for (int k0 = 0; k0 < S; k0 += kBK) {
     __syncthreads();  // the previous tile's K/V reads are done
-    load_tile<D>(Ks, k + b * k_sb + h * D, k_ss, k0, S, tid);
-    load_tile<D>(Vs, v + b * v_sb + h * D, v_ss, k0, S, tid);
+    load_tile<D>(Ks, k, st.k.s, k0, S, tid);
+    load_tile<D>(Vs, v, st.v.s, k0, S, tid);
     __syncthreads();
 
     float sc[KT][4];
@@ -441,7 +478,7 @@ packed_attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= S) continue;
     const float inv = 1.f / l[r];
-    __nv_bfloat16* orow = out + (static_cast<long long>(b) * S + rows[r]) * H * D + h * D + 2 * t;
+    __nv_bfloat16* orow = out + rows[r] * st.o.s + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
@@ -454,28 +491,28 @@ packed_attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* key_bias, void* out, void* lse, int B, int S,
-                       int H, long long q_sb, long long q_ss, long long k_sb,
-                       long long k_ss, long long v_sb, long long v_ss,
-                       uint32_t seed, uint32_t thr, float inv_keep, int dropout,
-                       float sm_scale, cudaStream_t stream) {
+                       int H, const AttnStrides& st, uint32_t seed, uint32_t thr,
+                       float inv_keep, int dropout, float sm_scale,
+                       cudaStream_t stream) {
   const int smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      packed_attention_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attention_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  packed_attention_fwd_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+  attention_fwd_mma<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, q_sb,
-      q_ss, k_sb, k_ss, v_sb, v_ss, seed, thr, inv_keep, dropout, sm_scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, st, seed,
+      thr, inv_keep, dropout, sm_scale);
   return cudaGetLastError();
 }
 
 // ============================================================================
-// Backward (K1b).
+// Backward (K1b, K4b).
 //
 // Replaces: visitron_tpu/ops/attention.py:_fused_packed_bwd_kernel, reached
-// through _fused_packed_bwd_rule.  Same function, per (b, h), with the lse
+// through _fused_packed_bwd_rule, and _fused_bwd_kernel, reached through
+// _fused_bwd_rule (fused_attention's VJP).  Same function, per (b, h), with the lse
 // that the forward wrote:
 //   a    = exp(s - lse)                  (s as in the forward, fp32)
 //   dp   = dO v^T                        (fp32)
@@ -505,9 +542,12 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 //   2. dk/dv, one block per (b, h, 64-key tile), looping over query tiles
 //      and reading D_i.
 // Both recompute s, a and the murmur3 keep mask from q, k, the bias, the lse
-// and the per-head seed, bit for bit as the forward does.  q, k, v are read
-// in place through their row strides (views of the fused QKV projection);
-// dO, dq, dk, dv are contiguous (B, S, H*D).
+// and the per-head seed, bit for bit as the forward does.  Every operand is
+// addressed through its own strides: q, k, v are views of the fused QKV
+// projection, dO is what autograd hands back, dq, dk, dv are allocated
+// (B, S, H, D) by the wrapper.  At S = 768 (K4b) both passes of the dq kernel
+// walk 12 key tiles and the dk/dv kernel 12 query tiles; nothing in the
+// kernels is sized by S.
 // bf16: mma.sync m16n8k16 as in the forward, four warps of 16 rows; tiles in
 // padded shared memory, A fragments read from it per k-step.  fp32: FMA on the
 // CUDA cores, 256 threads, each owning a 4 x 4 block of the score tile and a
@@ -568,16 +608,14 @@ constexpr int bwd_mma_smem_bytes() {
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-packed_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
+attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             const float* __restrict__ key_bias,
                             const __nv_bfloat16* __restrict__ dout,
                             const float* __restrict__ lse,
                             __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
-                            int S, int H, long long q_sb, long long q_ss,
-                            long long k_sb, long long k_ss, long long v_sb,
-                            long long v_ss, uint32_t seed, uint32_t thr,
+                            int S, int H, AttnStrides st, uint32_t seed, uint32_t thr,
                             float inv_keep, int dropout, float sm_scale) {
   constexpr int LD = D + 8;
   constexpr int NT = D / 8;
@@ -596,14 +634,18 @@ packed_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const long long o_ss = static_cast<long long>(H) * D;
-  const long long o_sb = o_ss * S;
   const long long row_bh = (static_cast<long long>(b) * H + h) * S;
   const float* bias = key_bias + static_cast<long long>(b) * S;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  // This block's head: every operand from here on is its (S, D) slice.
+  q += head_off(st.q, b, h);
+  k += head_off(st.k, b, h);
+  v += head_off(st.v, b, h);
+  dout += head_off(st.dout, b, h);
+  dq += head_off(st.dq, b, h);
 
-  load_tile<D>(Qs, q + b * q_sb + h * D, q_ss, q0, S, tid);
-  load_tile<D>(dOs, dout + b * o_sb + h * D, o_ss, q0, S, tid);
+  load_tile<D>(Qs, q, st.q.s, q0, S, tid);
+  load_tile<D>(dOs, dout, st.dout.s, q0, S, tid);
   const __nv_bfloat16* Qw = Qs + (warp * 16) * LD;
   const __nv_bfloat16* dOw = dOs + (warp * 16) * LD;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
@@ -618,8 +660,8 @@ packed_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
   for (int pass = 0; pass < 2; ++pass) {
     for (int k0 = 0; k0 < S; k0 += kBK) {
       __syncthreads();  // the previous tile's K/V reads are done
-      load_tile<D>(Ks, k + b * k_sb + h * D, k_ss, k0, S, tid);
-      load_tile<D>(Vs, v + b * v_sb + h * D, v_ss, k0, S, tid);
+      load_tile<D>(Ks, k, st.k.s, k0, S, tid);
+      load_tile<D>(Vs, v, st.v.s, k0, S, tid);
       __syncthreads();
 
       float sc[KT][4], dp[KT][4];
@@ -666,7 +708,7 @@ packed_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= S) continue;
-    __nv_bfloat16* drow = dq + b * o_sb + rows[r] * o_ss + h * D + 2 * t;
+    __nv_bfloat16* drow = dq + rows[r] * st.dq.s + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(drow + n * 8) =
@@ -676,7 +718,7 @@ packed_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-packed_attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
+attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
                              const float* __restrict__ key_bias,
@@ -685,10 +727,8 @@ packed_attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
                              const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dk,
                              __nv_bfloat16* __restrict__ dv, int S, int H,
-                             long long q_sb, long long q_ss, long long k_sb,
-                             long long k_ss, long long v_sb, long long v_ss,
-                             uint32_t seed, uint32_t thr, float inv_keep,
-                             int dropout, float sm_scale) {
+                             AttnStrides st, uint32_t seed, uint32_t thr,
+                             float inv_keep, int dropout, float sm_scale) {
   constexpr int LD = D + 8;
   constexpr int NT = D / 8;
   constexpr int QT = kBQ / 8;
@@ -708,14 +748,19 @@ packed_attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const long long o_ss = static_cast<long long>(H) * D;
-  const long long o_sb = o_ss * S;
   const long long row_bh = (static_cast<long long>(b) * H + h) * S;
   const float* bias = key_bias + static_cast<long long>(b) * S;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  // This block's head: every operand from here on is its (S, D) slice.
+  q += head_off(st.q, b, h);
+  k += head_off(st.k, b, h);
+  v += head_off(st.v, b, h);
+  dout += head_off(st.dout, b, h);
+  dk += head_off(st.dk, b, h);
+  dv += head_off(st.dv, b, h);
 
-  load_tile<D>(Ks, k + b * k_sb + h * D, k_ss, k0, S, tid);
-  load_tile<D>(Vs, v + b * v_sb + h * D, v_ss, k0, S, tid);
+  load_tile<D>(Ks, k, st.k.s, k0, S, tid);
+  load_tile<D>(Vs, v, st.v.s, k0, S, tid);
   const __nv_bfloat16* Kw = Ks + (warp * 16) * LD;
   const __nv_bfloat16* Vw = Vs + (warp * 16) * LD;
   const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
@@ -731,8 +776,8 @@ packed_attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
 
   for (int q0 = 0; q0 < S; q0 += kBQ) {
     __syncthreads();  // the previous tile's Q/dO reads are done
-    load_tile<D>(Qs, q + b * q_sb + h * D, q_ss, q0, S, tid);
-    load_tile<D>(dOs, dout + b * o_sb + h * D, o_ss, q0, S, tid);
+    load_tile<D>(Qs, q, st.q.s, q0, S, tid);
+    load_tile<D>(dOs, dout, st.dout.s, q0, S, tid);
     if (tid < kBQ) {
       const int s = q0 + tid;
       lse_s[tid] = s < S ? lse[row_bh + s] : 0.f;
@@ -741,8 +786,8 @@ packed_attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     // Transposed tiles: rows are this warp's keys, columns the queries.
-    float st[QT][4], pt[QT][4];
-    mma_rows_by_rows<D>(st, Kw, Qs, g, t);
+    float sc_t[QT][4], pt[QT][4];
+    mma_rows_by_rows<D>(sc_t, Kw, Qs, g, t);
     mma_rows_by_rows<D>(pt, Vw, dOs, g, t);
 #pragma unroll
     for (int j = 0; j < QT; ++j) {
@@ -754,7 +799,7 @@ packed_attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const bool ok = query < S && keys[r] < S;
-          const float a = ok ? expf(st[j][2 * r + e] * sm_scale + kb[r] - lq) : 0.f;
+          const float a = ok ? expf(sc_t[j][2 * r + e] * sm_scale + kb[r] - lq) : 0.f;
           float a_eff = a, da = pt[j][2 * r + e];
           if (dropout) {
             const bool keep = keep_bit(static_cast<uint32_t>(query),
@@ -762,24 +807,25 @@ packed_attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
             a_eff = keep ? a * inv_keep : 0.f;
             da = keep ? da * inv_keep : 0.f;
           }
-          st[j][2 * r + e] = a * (da - dq_i) * sm_scale;  // ds^T
+          sc_t[j][2 * r + e] = a * (da - dq_i) * sm_scale;  // ds^T
           pt[j][2 * r + e] = a_eff;                        // a_eff^T
         }
       }
     }
     mma_acc_by_tile<D>(acc_dv, pt, dOs, g, t);
-    mma_acc_by_tile<D>(acc_dk, st, Qs, g, t);
+    mma_acc_by_tile<D>(acc_dk, sc_t, Qs, g, t);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (keys[r] >= S) continue;
-    const long long off = b * o_sb + keys[r] * o_ss + h * D + 2 * t;
+    __nv_bfloat16* dkr = dk + keys[r] * st.dk.s + 2 * t;
+    __nv_bfloat16* dvr = dv + keys[r] * st.dv.s + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
+      *reinterpret_cast<uint32_t*>(dkr + n * 8) =
           pack_bf16(acc_dk[n][2 * r], acc_dk[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
+      *reinterpret_cast<uint32_t*>(dvr + n * 8) =
           pack_bf16(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
     }
   }
@@ -809,15 +855,13 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
 
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-packed_attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
+attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v,
                              const float* __restrict__ key_bias,
                              const float* __restrict__ dout,
                              const float* __restrict__ lse, float* __restrict__ dq,
-                             float* __restrict__ delta, int S, int H, long long q_sb,
-                             long long q_ss, long long k_sb, long long k_ss,
-                             long long v_sb, long long v_ss, uint32_t seed,
-                             uint32_t thr, float inv_keep, int dropout,
+                             float* __restrict__ delta, int S, int H, AttnStrides st,
+                             uint32_t seed, uint32_t thr, float inv_keep, int dropout,
                              float sm_scale) {
   constexpr int P = D + 1;
   constexpr int PS = kBK + 1;
@@ -836,14 +880,18 @@ packed_attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restric
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const long long o_ss = static_cast<long long>(H) * D;
-  const long long o_sb = o_ss * S;
   const long long row_bh = (static_cast<long long>(b) * H + h) * S;
   const float* bias = key_bias + static_cast<long long>(b) * S;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  // This block's head: every operand from here on is its (S, D) slice.
+  q += head_off(st.q, b, h);
+  k += head_off(st.k, b, h);
+  v += head_off(st.v, b, h);
+  dout += head_off(st.dout, b, h);
+  dq += head_off(st.dq, b, h);
 
-  load_tile_f32<D>(Qs, q + b * q_sb + h * D, q_ss, q0, S, tid);
-  load_tile_f32<D>(dOs, dout + b * o_sb + h * D, o_ss, q0, S, tid);
+  load_tile_f32<D>(Qs, q, st.q.s, q0, S, tid);
+  load_tile_f32<D>(dOs, dout, st.dout.s, q0, S, tid);
   if (tid < kBQ) lse_s[tid] = q0 + tid < S ? lse[row_bh + q0 + tid] : 0.f;
 
   float dl[4] = {0.f, 0.f, 0.f, 0.f};  // pass 0: partial D_i of the thread's rows
@@ -856,8 +904,8 @@ packed_attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restric
   for (int pass = 0; pass < 2; ++pass) {
     for (int k0 = 0; k0 < S; k0 += kBK) {
       __syncthreads();  // the previous tile's reads are done
-      load_tile_f32<D>(Ks, k + b * k_sb + h * D, k_ss, k0, S, tid);
-      load_tile_f32<D>(Vs, v + b * v_sb + h * D, v_ss, k0, S, tid);
+      load_tile_f32<D>(Ks, k, st.k.s, k0, S, tid);
+      load_tile_f32<D>(Vs, v, st.v.s, k0, S, tid);
       __syncthreads();
       float sc[4][4], dp[4][4];
 #pragma unroll
@@ -939,7 +987,7 @@ packed_attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restric
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + ty * 4 + i;
     if (s >= S) continue;
-    float* drow = dq + b * o_sb + s * o_ss + h * D;
+    float* drow = dq + s * st.dq.s;
 #pragma unroll
     for (int c = 0; c < CT; ++c) drow[tx + 16 * c] = acc[i][c];
   }
@@ -947,16 +995,14 @@ packed_attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restric
 
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-packed_attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
+attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v,
                               const float* __restrict__ key_bias,
                               const float* __restrict__ dout,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta, float* __restrict__ dk,
-                              float* __restrict__ dv, int S, int H, long long q_sb,
-                              long long q_ss, long long k_sb, long long k_ss,
-                              long long v_sb, long long v_ss, uint32_t seed,
-                              uint32_t thr, float inv_keep, int dropout,
+                              float* __restrict__ dv, int S, int H, AttnStrides st,
+                              uint32_t seed, uint32_t thr, float inv_keep, int dropout,
                               float sm_scale) {
   constexpr int P = D + 1;
   constexpr int PS = kBQ + 1;
@@ -976,14 +1022,19 @@ packed_attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restri
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const long long o_ss = static_cast<long long>(H) * D;
-  const long long o_sb = o_ss * S;
   const long long row_bh = (static_cast<long long>(b) * H + h) * S;
   const float* bias = key_bias + static_cast<long long>(b) * S;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  // This block's head: every operand from here on is its (S, D) slice.
+  q += head_off(st.q, b, h);
+  k += head_off(st.k, b, h);
+  v += head_off(st.v, b, h);
+  dout += head_off(st.dout, b, h);
+  dk += head_off(st.dk, b, h);
+  dv += head_off(st.dv, b, h);
 
-  load_tile_f32<D>(Ks, k + b * k_sb + h * D, k_ss, k0, S, tid);
-  load_tile_f32<D>(Vs, v + b * v_sb + h * D, v_ss, k0, S, tid);
+  load_tile_f32<D>(Ks, k, st.k.s, k0, S, tid);
+  load_tile_f32<D>(Vs, v, st.v.s, k0, S, tid);
   float kb[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -998,19 +1049,19 @@ packed_attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restri
 
   for (int q0 = 0; q0 < S; q0 += kBQ) {
     __syncthreads();  // the previous tile's reads are done
-    load_tile_f32<D>(Qs, q + b * q_sb + h * D, q_ss, q0, S, tid);
-    load_tile_f32<D>(dOs, dout + b * o_sb + h * D, o_ss, q0, S, tid);
+    load_tile_f32<D>(Qs, q, st.q.s, q0, S, tid);
+    load_tile_f32<D>(dOs, dout, st.dout.s, q0, S, tid);
     if (tid < kBQ) {
       const int s = q0 + tid;
       lse_s[tid] = s < S ? lse[row_bh + s] : 0.f;
       dl_s[tid] = s < S ? delta[row_bh + s] : 0.f;
     }
     __syncthreads();
-    float st[4][4], dpt[4][4];
+    float sc_t[4][4], dpt[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) st[i][c] = dpt[i][c] = 0.f;
+      for (int c = 0; c < 4; ++c) sc_t[i][c] = dpt[i][c] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
       float kv[4], vv[4], qv[4], ov[4];
@@ -1025,7 +1076,7 @@ packed_attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restri
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          st[i][c] = fmaf(kv[i], qv[c], st[i][c]);
+          sc_t[i][c] = fmaf(kv[i], qv[c], sc_t[i][c]);
           dpt[i][c] = fmaf(vv[i], ov[c], dpt[i][c]);
         }
     }
@@ -1038,7 +1089,7 @@ packed_attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restri
         const int r = ty * 4 + i;
         const int key = k0 + r;
         const bool ok = query < S && key < S;
-        const float a = ok ? expf(st[i][c] * sm_scale + kb[i] - lse_s[qi]) : 0.f;
+        const float a = ok ? expf(sc_t[i][c] * sm_scale + kb[i] - lse_s[qi]) : 0.f;
         float a_eff = a, da = dpt[i][c];
         if (dropout) {
           const bool keep = keep_bit(static_cast<uint32_t>(query),
@@ -1076,11 +1127,12 @@ packed_attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restri
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
     if (key >= S) continue;
-    const long long off = b * o_sb + key * o_ss + h * D;
+    float* dkr = dk + key * st.dk.s;
+    float* dvr = dv + key * st.dv.s;
 #pragma unroll
     for (int c = 0; c < CT; ++c) {
-      dk[off + tx + 16 * c] = acc_dk[i][c];
-      dv[off + tx + 16 * c] = acc_dv[i][c];
+      dkr[tx + 16 * c] = acc_dk[i][c];
+      dvr[tx + 16 * c] = acc_dv[i][c];
     }
   }
 }
@@ -1088,22 +1140,19 @@ packed_attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restri
 // Launches the dq pass (which writes D_i) and then the dk/dv pass.
 template <typename T, int kThreadsT, int kSmem>
 cudaError_t launch_bwd(void (*dq_kernel)(const T*, const T*, const T*, const float*,
-                                         const T*, const float*, T*, float*,
-                                         int, int, long long, long long, long long,
-                                         long long, long long, long long, uint32_t,
-                                         uint32_t, float, int, float),
+                                         const T*, const float*, T*, float*, int, int,
+                                         AttnStrides, uint32_t, uint32_t, float, int,
+                                         float),
                        void (*dkv_kernel)(const T*, const T*, const T*, const float*,
                                           const T*, const float*, const float*, T*, T*,
-                                          int, int, long long, long long, long long,
-                                          long long, long long, long long, uint32_t,
-                                          uint32_t, float, int, float),
+                                          int, int, AttnStrides, uint32_t, uint32_t,
+                                          float, int, float),
                        const void* q, const void* k, const void* v,
                        const void* key_bias, const void* dout,
                        const void* lse, void* dq, void* dk, void* dv, void* delta,
-                       int B, int S, int H, long long q_sb, long long q_ss,
-                       long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-                       uint32_t seed, uint32_t thr, float inv_keep, int dropout,
-                       float sm_scale, cudaStream_t stream) {
+                       int B, int S, int H, const AttnStrides& st, uint32_t seed,
+                       uint32_t thr, float inv_keep, int dropout, float sm_scale,
+                       cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -1119,70 +1168,77 @@ cudaError_t launch_bwd(void (*dq_kernel)(const T*, const T*, const T*, const flo
   const float* lt = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   dq_kernel<<<grid, kThreadsT, kSmem, stream>>>(
-      qt, kt, vt, kbt, dot, lt, static_cast<T*>(dq), dl,
-      S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, seed, thr, inv_keep, dropout,
-      sm_scale);
+      qt, kt, vt, kbt, dot, lt, static_cast<T*>(dq), dl, S, H, st, seed, thr,
+      inv_keep, dropout, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkv_kernel<<<grid, kThreadsT, kSmem, stream>>>(
       qt, kt, vt, kbt, dot, lt, dl, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
-      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, seed, thr, inv_keep, dropout, sm_scale);
+      st, seed, thr, inv_keep, dropout, sm_scale);
   return cudaGetLastError();
+}
+
+// strides: 24 element strides, (batch, head, sequence) of q, k, v, out,
+// dout, dq, dk, dv in that order (the forward reads the first four).
+AttnStrides read_strides(const long long* s) {
+  AttnStrides st;
+  Strides* t[8] = {&st.q, &st.k, &st.v, &st.o, &st.dout, &st.dq, &st.dk, &st.dv};
+  for (int i = 0; i < 8; ++i) *t[i] = Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+  return st;
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels).
-// q/k/v as for vt_attention_fwd; dout (the output's gradient), dq, dk, dv
-// are contiguous (B, S, H*D); lse is the forward's (B*H, S) fp32 lse; delta
-// is (B*H, S) fp32 scratch for D_i.
+// Every operand is (B, H, S, D) through its strides (see read_strides), with
+// D contiguous; lse is the forward's (B*H, S) fp32 lse; delta is (B*H, S)
+// fp32 scratch for D_i.  bf16 q, k, v and dout rows are read as 16-byte
+// vectors and dq, dk, dv written as 4-byte pairs: base pointers 16-byte
+// aligned, input strides multiples of 8, output strides even.
 extern "C" int vt_attention_bwd(const void* q, const void* k, const void* v,
                                 const void* key_bias, const void* dout,
                                 const void* lse, void* dq,
                                 void* dk, void* dv, void* delta, int B, int S,
-                                int H, int D, long long q_sb, long long q_ss,
-                                long long k_sb, long long k_ss, long long v_sb,
-                                long long v_ss, int dtype, unsigned int seed,
-                                unsigned int thr, float inv_keep, int dropout,
-                                float sm_scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                int H, int D, const long long* strides, int dtype,
+                                unsigned int seed, unsigned int thr, float inv_keep,
+                                int dropout, float sm_scale, void* stream) {
+  const cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
+  const AttnStrides st = read_strides(strides);
 #define VT_ATTN_BWD(T, DD, THREADS, SMEM, DQK, DKVK)                                 \
-  launch_bwd<T, THREADS, SMEM>(DQK<DD>, DKVK<DD>, q, k, v, key_bias, dout,       \
-                                   lse, dq, dk, dv, delta, B, S, H, q_sb, q_ss,      \
-                                   k_sb, k_ss, v_sb, v_ss, seed, thr, inv_keep,      \
-                                   dropout, sm_scale, st)
+  launch_bwd<T, THREADS, SMEM>(DQK<DD>, DKVK<DD>, q, k, v, key_bias, dout, lse, dq,  \
+                               dk, dv, delta, B, S, H, st, seed, thr, inv_keep,      \
+                               dropout, sm_scale, stream_)
   if (dtype == 0 && D == 64)
     return VT_ATTN_BWD(float, 64, kBwdThreads, bwd_fp32_smem_floats<64>() * 4,
-                       packed_attention_bwd_dq_fp32, packed_attention_bwd_dkv_fp32);
+                       attention_bwd_dq_fp32, attention_bwd_dkv_fp32);
   if (dtype == 0 && D == 128)
     return VT_ATTN_BWD(float, 128, kBwdThreads, bwd_fp32_smem_floats<128>() * 4,
-                       packed_attention_bwd_dq_fp32, packed_attention_bwd_dkv_fp32);
+                       attention_bwd_dq_fp32, attention_bwd_dkv_fp32);
   if (dtype == 1 && D == 64)
     return VT_ATTN_BWD(__nv_bfloat16, 64, kMmaThreads, bwd_mma_smem_bytes<64>(),
-                       packed_attention_bwd_dq_mma, packed_attention_bwd_dkv_mma);
+                       attention_bwd_dq_mma, attention_bwd_dkv_mma);
   if (dtype == 1 && D == 128)
     return VT_ATTN_BWD(__nv_bfloat16, 128, kMmaThreads, bwd_mma_smem_bytes<128>(),
-                       packed_attention_bwd_dq_mma, packed_attention_bwd_dkv_mma);
+                       attention_bwd_dq_mma, attention_bwd_dkv_mma);
 #undef VT_ATTN_BWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
-// Strides are in elements; the last dim of q/k/v is contiguous and out is a
-// contiguous (B, S, H*D) tensor.  bf16 q/k/v rows are read as 16-byte vectors:
-// their base pointers are 16-byte aligned and their strides multiples of 8.
+// Strides as for vt_attention_bwd (q, k, v and out are read).  bf16 q/k/v rows
+// are read as 16-byte vectors and out is written as 4-byte pairs: base
+// pointers 16-byte aligned, input strides multiples of 8, output strides even.
 extern "C" int vt_attention_fwd(const void* q, const void* k, const void* v,
                                 const void* key_bias, void* out, void* lse,
-                                int B, int S, int H, int D, long long q_sb,
-                                long long q_ss, long long k_sb, long long k_ss,
-                                long long v_sb, long long v_ss, int dtype,
-                                unsigned int seed, unsigned int thr,
+                                int B, int S, int H, int D, const long long* strides,
+                                int dtype, unsigned int seed, unsigned int thr,
                                 float inv_keep, int dropout, float sm_scale,
                                 void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
+  const AttnStrides st = read_strides(strides);
 #define VT_ATTN_LAUNCH(FN, DD)                                                   \
-  FN<DD>(q, k, v, key_bias, out, lse, B, S, H, q_sb, q_ss, k_sb, k_ss, v_sb,     \
-         v_ss, seed, thr, inv_keep, dropout, sm_scale, st)
+  FN<DD>(q, k, v, key_bias, out, lse, B, S, H, st, seed, thr, inv_keep, dropout, \
+         sm_scale, stream_)
   if (dtype == 0 && D == 64) return VT_ATTN_LAUNCH(launch_fp32, 64);
   if (dtype == 0 && D == 128) return VT_ATTN_LAUNCH(launch_fp32, 128);
   if (dtype == 1 && D == 64) return VT_ATTN_LAUNCH(launch_mma, 64);

@@ -1,12 +1,15 @@
 from visitron_torch.data.tokenization import WordPieceTokenizer, build_wordpiece_vocab
 from visitron_torch.data.dialog import truncate_dialogs, build_dialog_sequence, SEGMENT_IDS
 from visitron_torch.data.datasets import load_split, NavInstance, build_nav_instances
-from visitron_torch.data.features import SceneFeatureTable, read_tsv_img_features
+from visitron_torch.data.features import (RegionFeatureStore, SceneFeatureTable,
+                                          read_tsv_img_features)
 from visitron_torch.data.candidates import (
     ScanCandidateTable,
     build_candidate_table,
     build_candidate_tables,
+    relative_point_id,
 )
+from visitron_torch.data.pretrain_dataset import PretrainDataset, PretrainExample
 
 __all__ = [
     "WordPieceTokenizer",
@@ -22,4 +25,8 @@ __all__ = [
     "ScanCandidateTable",
     "build_candidate_table",
     "build_candidate_tables",
+    "relative_point_id",
+    "RegionFeatureStore",
+    "PretrainDataset",
+    "PretrainExample",
 ]

@@ -121,6 +121,16 @@ def build_candidate_table(
     )
 
 
+def relative_point_id(abs_point: np.ndarray, current_heading: float) -> np.ndarray:
+    """Map an absolute best-view id to the rotated frame used for the 1-in-36
+    pretraining action label (scripts/generate_pretraining_data.py:196-233:
+    sweep restarted at heading ``current_heading - pi``)."""
+    base_step = geo.snap_heading(current_heading - np.pi)
+    row = abs_point // geo.HEADINGS_PER_ROW
+    step = (abs_point % geo.HEADINGS_PER_ROW - base_step) % geo.HEADINGS_PER_ROW
+    return row * geo.HEADINGS_PER_ROW + step
+
+
 def build_candidate_tables(graphs: dict[str, NavGraph], hfov: float,
                            max_candidates: int = MAX_CANDIDATES) -> dict[str, ScanCandidateTable]:
     return {s: build_candidate_table(g, hfov, max_candidates) for s, g in graphs.items()}

@@ -1,4 +1,5 @@
-"""Scene-feature stores: the reference TSV reader + the packed feature table.
+"""Feature stores: the reference TSV reader, the packed scene-feature table
+and the in-memory region-feature store.
 
 Reference format (tasks/viewpoint_select/utils_data.py:331-373): one TSV row
 per (scan, viewpoint) with base64 (36, 2048) float32 features.
@@ -7,6 +8,10 @@ per (scan, viewpoint) with base64 (36, 2048) float32 features.
 array with an id->row index, so the rollout hot loop is a device gather
 instead of a host dict lookup + copy per step.  Host-side numpy; the runtime
 (agents/runtime.py) moves the table onto the device.
+
+`RegionFeatureStore` holds per-view region features and detector tokens for
+pretraining (visitron_tpu/data/features.py); only its in-memory form is
+ported, the pickle and LMDB readers and writers are not.
 """
 
 from __future__ import annotations
@@ -90,3 +95,33 @@ class SceneFeatureTable:
             image_h=image_h,
             vfov=vfov,
         )
+
+
+class RegionFeatureStore:
+    """Region features + tokens keyed ``scan_vp_viewIdx``, held in memory
+    (the JAX package's in-memory backend; its pickle and LMDB backends are
+    not ported)."""
+
+    def __init__(self, features: dict[bytes, np.ndarray], region_tokens: dict[bytes, list[str]],
+                 image_w: int = 640, image_h: int = 480, vfov: int = 60):
+        self.features = features
+        self.region_tokens = region_tokens
+        self.keys = list(features.keys())
+        self.image_w, self.image_h, self.vfov = image_w, image_h, vfov
+        self.viewpoints: dict[str, set] = {}
+        for key in self.keys:
+            scan_id, viewpoint_id, _ = key.decode().split("_")
+            self.viewpoints.setdefault(scan_id, set()).add(viewpoint_id)
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def __getitem__(self, key: bytes) -> np.ndarray:
+        if key not in self.features:
+            raise TypeError(f"invalid key: {key!r}")
+        return self.features[key]
+
+    def get_region_tokens(self, key: bytes) -> list[str]:
+        if key not in self.region_tokens:
+            raise TypeError(f"invalid key: {key!r}")
+        return self.region_tokens[key]

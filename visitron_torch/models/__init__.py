@@ -3,6 +3,8 @@ from visitron_torch.models.bert import (BertConfig, BertTextModel,
 from visitron_torch.models.decoder import AttnDecoderLSTM, SoftDotAttention
 from visitron_torch.models.encoder import OscarEncoder
 from visitron_torch.models.lstm import LSTM, lstm_cell_step, masked_lstm_scan
+from visitron_torch.models.pretrain import (PretrainModel, masked_accuracy,
+                                            masked_cross_entropy, pretrain_loss)
 
 __all__ = [
     "BertConfig",
@@ -14,4 +16,8 @@ __all__ = [
     "LSTM",
     "lstm_cell_step",
     "masked_lstm_scan",
+    "PretrainModel",
+    "masked_cross_entropy",
+    "masked_accuracy",
+    "pretrain_loss",
 ]

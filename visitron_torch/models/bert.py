@@ -1,11 +1,20 @@
-"""Oscar-style BERT text encoder in PyTorch (visitron_tpu/models/bert.py).
+"""Multimodal (Oscar-style) BERT in PyTorch (visitron_tpu/models/bert.py).
 
 Same structure and parameter names as the flax modules, so a converted
 checkpoint (visitron_torch/convert.py) loads one to one:
 
   * one fused QKV projection per layer; q, k and v are strided views of its
-    (B, S, 3*H) output and go straight into the packed attention kernel (K1,
-    ops/attention.py) with no split or transpose copies;
+    (B, S, 3*H) output and go straight into the attention kernels with no
+    split or transpose copies.  The dispatch is the JAX package's
+    (BertSelfAttention): where ``attention_supports_fused`` takes the shape
+    (128 <= S <= 768, S % 128 == 0, head dim 64 or 128), the packed kernel
+    K1 runs for S <= ``fused_packed_max_seq`` and the (B, H, S, D) kernel K4
+    on views of the same projection above it; other shapes take the plain
+    ``multi_head_attention``, as the JAX package does; a shape that only the
+    flash kernels (K5, not ported) would take raises;
+  * image-region fusion (``embed_joint``): projected region features plus
+    location embeddings, dropped out and concatenated after the text, and
+    ``attend_vocab``, the tied MLM decoder (a plain product);
   * every LayerNorm is the fused add+LayerNorm kernel (K2,
     ops/layernorm.py): the embedding LayerNorm without a residual, two
     residual LayerNorms per layer;
@@ -15,13 +24,14 @@ checkpoint (visitron_torch/convert.py) loads one to one:
   * exact (erf) gelu.
 
 There is no backend gate: the kernels' wrappers run the CUDA kernels for
-tensors on the card and their plain twins for tensors on the CPU.  Only the
-text path of ``VisitronBert`` is ported; history states and image-region
-fusion raise ``NotImplementedError``.  Dropout applies only in a training
+tensors on the card and their plain twins for tensors on the CPU.  History
+states raise ``NotImplementedError``.  Dropout applies only in a training
 pass, which passes a ``DropoutRng`` as ``rng``: hidden dropout after the
-embedding LayerNorm and after each layer's two output projections, and the
-kernel's hash dropout on the attention probabilities with a fresh seed per
-layer and step.  ``rng=None`` is the deterministic (serving) pass.
+embedding LayerNorm, on the image embeddings and after each layer's two
+output projections, and the kernels' hash dropout on the attention
+probabilities with a fresh seed per layer and step (the plain attention
+draws its mask from ``rng.masks``).  ``rng=None`` is the deterministic
+(serving) pass.
 """
 
 from __future__ import annotations
@@ -33,7 +43,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from visitron_torch.models.layers import Dense, DropoutRng, Embed, maybe_drop
-from visitron_torch.ops.attention import fused_attention_packed
+from visitron_torch.ops.attention import (attention_supports_flash,
+                                          attention_supports_fused, fused_attention,
+                                          fused_attention_packed,
+                                          multi_head_attention)
 from visitron_torch.ops.layernorm import fused_add_layernorm
 from visitron_torch.ops.masking import make_attention_bias
 
@@ -51,7 +64,24 @@ class BertConfig:
     attention_probs_dropout_prob: float = 0.1
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
+    # Multimodal extensions (model_utils.py:75-83):
+    img_feature_dim: int = 2054
+    location_embed_dim: int = 128
+    use_img_layernorm: bool = False
+    action_space: int = 36
+    detector_classes: int = 1601
     dtype: torch.dtype = torch.float32  # activation dtype (bfloat16 on the card)
+    # Attention dispatch (BertSelfAttention): the fused kernels where
+    # attention_supports_fused takes the shape, packed (K1) up to
+    # fused_packed_max_seq and (B, H, S, D) (K4) above; flash (K5) is not
+    # ported, so a shape only it would take raises.
+    use_fused_attention: bool = True
+    fused_packed_layout: bool = True
+    fused_packed_max_seq: int = 512
+    use_flash_attention: bool = False
+    # The MLM loss through the fused masked softmax-CE kernel (K3), with the
+    # MLM logits kept in ``dtype`` (models/pretrain.py).
+    use_fused_mlm_ce: bool = True
 
     def replace(self, **kw) -> "BertConfig":
         return dataclasses.replace(self, **kw)
@@ -79,6 +109,28 @@ class FusedResidualLayerNorm(nn.Module):
 
     def forward(self, x, residual=None):
         return fused_add_layernorm(x, residual, self.weight, self.bias, self.eps)
+
+    def initial_params(self, g: torch.Generator) -> dict:
+        return {"weight": torch.ones(self.weight.shape),
+                "bias": torch.zeros(self.bias.shape)}
+
+
+class FlaxLayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=float32)`` math in plain PyTorch (fast
+    variance, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``); fp32
+    output.  The optional image LayerNorm; not a kernel in either package."""
+
+    def __init__(self, hidden: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(hidden))
+        self.bias = nn.Parameter(torch.zeros(hidden))
+
+    def forward(self, x):
+        h = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = h.mean(dim=-1, keepdim=True)
+        var = torch.clamp((h * h).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        return (h - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
     def initial_params(self, g: torch.Generator) -> dict:
         return {"weight": torch.ones(self.weight.shape),
@@ -113,12 +165,30 @@ class BertSelfAttention(nn.Module):
                 rng: DropoutRng | None = None):
         if history_state is not None:
             raise NotImplementedError("history_state is not ported yet")
-        qkv = self.qkv(hidden)
-        q, k, v = qkv.split(self.cfg.hidden_size, dim=-1)
-        rate = 0.0 if rng is None else float(self.cfg.attention_probs_dropout_prob)
-        seed = rng.seed() if rate > 0.0 else None
-        return fused_attention_packed(q, k, v, key_bias, self.cfg.num_attention_heads,
-                                      seed, rate).to(self.cfg.dtype)
+        cfg = self.cfg
+        h = cfg.num_attention_heads
+        d = cfg.hidden_size // h
+        s = hidden.shape[1]
+        q, k, v = self.qkv(hidden).split(cfg.hidden_size, dim=-1)
+        rate = 0.0 if rng is None else float(cfg.attention_probs_dropout_prob)
+        fused = cfg.use_fused_attention and attention_supports_fused(s, s, d)
+        if not fused and cfg.use_flash_attention and attention_supports_flash(s, s, d):
+            raise NotImplementedError(
+                f"flash attention (S {s}) is not ported yet; the JAX package runs "
+                "its Pallas flash kernels here")
+        split = lambda t: t.unflatten(-1, (h, d)).transpose(1, 2)  # noqa: E731
+        if fused:
+            seed = rng.seed() if rate > 0.0 else None
+            if cfg.fused_packed_layout and s <= cfg.fused_packed_max_seq:
+                return fused_attention_packed(q, k, v, key_bias, h, seed,
+                                              rate).to(cfg.dtype)
+            ctx = fused_attention(split(q), split(k), split(v), key_bias, seed, rate)
+        else:
+            ctx = multi_head_attention(split(q), split(k), split(v),
+                                       bias=key_bias[:, None, None, :],
+                                       dropout_rate=rate,
+                                       generator=None if rng is None else rng.masks)
+        return ctx.transpose(1, 2).flatten(2).to(cfg.dtype)
 
 
 class BertLayer(nn.Module):
@@ -170,27 +240,42 @@ class BertPooler(nn.Module):
 
 
 class VisitronBert(nn.Module):
-    """Text path of BertImgModelwithLocationEmbeds (encoder.py:161-303);
-    returns (sequence_output, pooled_output)."""
+    """BertImgModelwithLocationEmbeds parity (encoder.py:161-303).
 
-    def __init__(self, cfg: BertConfig):
+    Joint sequence = [text tokens] ++ [projected image regions]; returns
+    (sequence_output, pooled_output).  ``attend_vocab`` is the transposed
+    word-embedding product of the tied MLM decoder (encoder.py:332-335).
+    ``image=False`` builds the text-only model (BertTextModel): the flax
+    module creates its image projections only where they are called, so the
+    text path has none."""
+
+    def __init__(self, cfg: BertConfig, image: bool = True):
         super().__init__()
         self.cfg = cfg
         self.word_embeddings = _embed(cfg.vocab_size, cfg)
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = BertEncoder(cfg)
         self.pooler = BertPooler(cfg)
+        self.image = image
+        if image:
+            self.img_embedding = _dense(cfg.img_feature_dim, cfg.hidden_size, cfg)
+            self.location_embeds = _dense(cfg.location_embed_dim, cfg.hidden_size, cfg)
+            if cfg.use_img_layernorm:
+                self.img_layer_norm = FlaxLayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def attend_vocab(self, x):
-        raise NotImplementedError("the tied MLM decoder is not ported yet")
+        """(..., H) -> (..., vocab) logits against the tied word embeddings,
+        in ``cfg.dtype`` (flax ``Embed.attend``)."""
+        dt = self.cfg.dtype
+        return F.linear(x.to(dt), self.word_embeddings.weight.to(dt))
 
-    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                position_ids=None, img_feats=None, img_location_embeddings=None,
-                history_states=None, rng: DropoutRng | None = None):
-        if img_feats is not None or img_location_embeddings is not None:
-            raise NotImplementedError("image-region fusion is not ported yet")
-        if history_states is not None:
-            raise NotImplementedError("history_states are not ported yet")
+    def embed_joint(self, input_ids, token_type_ids=None, attention_mask=None,
+                    position_ids=None, img_feats=None, img_location_embeddings=None,
+                    rng: DropoutRng | None = None):
+        """Everything before the transformer stack: the text embeddings and,
+        with ``img_feats``, the image embeddings concatenated after them;
+        returns (embeddings in ``cfg.dtype``, (B, K) fp32 key bias)."""
+        cfg = self.cfg
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         if token_type_ids is None:
@@ -198,8 +283,30 @@ class VisitronBert(nn.Module):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         emb = self.embeddings(self.word_embeddings(input_ids), position_ids,
-                              token_type_ids, rng).to(self.cfg.dtype)
+                              token_type_ids, rng).to(cfg.dtype)
+        if img_feats is not None:
+            if not self.image:
+                raise ValueError("this VisitronBert was built without image projections")
+            img = self.img_embedding(img_feats.to(cfg.dtype))
+            img = img + self.location_embeds(img_location_embeddings.to(cfg.dtype))
+            if cfg.use_img_layernorm:
+                img = self.img_layer_norm(img).to(cfg.dtype)
+            img = maybe_drop(img, cfg.hidden_dropout_prob, rng)
+            emb = torch.cat([emb, img], dim=1)
+        if attention_mask.shape[-1] != emb.shape[1]:
+            raise ValueError(f"attention_mask covers {attention_mask.shape[-1]} tokens, "
+                             f"the joint sequence has {emb.shape[1]}")
         key_bias = make_attention_bias(attention_mask)[:, 0, 0, :].contiguous()
+        return emb, key_bias
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                position_ids=None, img_feats=None, img_location_embeddings=None,
+                history_states=None, rng: DropoutRng | None = None):
+        if history_states is not None:
+            raise NotImplementedError("history_states are not ported yet")
+        emb, key_bias = self.embed_joint(input_ids, token_type_ids, attention_mask,
+                                         position_ids, img_feats,
+                                         img_location_embeddings, rng)
         seq = self.encoder(emb, key_bias, rng=rng)
         return seq, self.pooler(seq)
 
@@ -210,7 +317,7 @@ class BertTextModel(nn.Module):
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        self.bert = VisitronBert(cfg)
+        self.bert = VisitronBert(cfg, image=False)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 position_ids=None, rng: DropoutRng | None = None):

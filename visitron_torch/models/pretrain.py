@@ -1,0 +1,125 @@
+"""Multi-objective pretraining model: MLM + next-action + region-token heads
+(visitron_tpu/models/pretrain.py).
+
+PreTrainOscar parity (tasks/viewpoint_select/encoder.py:306-441):
+  * MLM head: dense + exact gelu + LayerNorm (K2 without a residual), decoder
+    tied to the word embeddings plus a free fp32 bias (encoder.py:322,332-335);
+  * next-action: Linear([CLS] pooled) over the 36-view action space
+    (encoder.py:142-158,317-319);
+  * region-token head: Linear over the detector classes (encoder.py:323-326).
+
+The JAX package's documented deviations hold here too: standard softmax CE
+on the logits of the action and token heads, ignore label -1, each loss the
+mean over its non-ignored entries.  With ``use_fused_mlm_ce`` (the default)
+the MLM logits are cast to ``cfg.dtype`` (bf16 product + fp32 bias -> fp32
+-> cast) and the MLM loss runs through the fused masked softmax-CE kernel
+(K3, ops/crossentropy.py), whose per-row CE is summed and divided by the
+count of labels != -1; otherwise the logits stay fp32 and the plain
+``masked_cross_entropy`` runs.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from visitron_torch.models.bert import (BertConfig, FusedResidualLayerNorm,
+                                        VisitronBert, _dense)
+from visitron_torch.models.layers import DropoutRng
+from visitron_torch.ops.crossentropy import fused_masked_softmax_ce
+
+
+def masked_cross_entropy(logits, labels, ignore_id: int = -1):
+    """Mean softmax CE over labels != ignore_id (CrossEntropyLoss parity);
+    returns (loss, valid mask)."""
+    valid = labels != ignore_id
+    safe = torch.where(valid, labels, 0).long()
+    ce = F.cross_entropy(logits.float().flatten(0, -2), safe.flatten(),
+                         reduction="none").reshape(labels.shape)
+    total = torch.sum(ce * valid)
+    count = torch.clamp(torch.sum(valid), min=1)
+    return total / count, valid
+
+
+def masked_accuracy(logits, labels, ignore_id: int = -1):
+    valid = labels != ignore_id
+    pred = torch.argmax(logits, dim=-1)
+    correct = torch.sum((pred == labels) & valid)
+    return correct / torch.clamp(torch.sum(valid), min=1)
+
+
+class PretrainModel(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = VisitronBert(cfg)
+        self.mlm_transform = _dense(cfg.hidden_size, cfg.hidden_size, cfg)
+        self.mlm_layer_norm = FusedResidualLayerNorm(cfg, cfg.hidden_size)
+        self.next_action = _dense(cfg.hidden_size, cfg.action_space, cfg)
+        self.token_head = _dense(cfg.hidden_size, cfg.detector_classes, cfg)
+        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+    def initial_params(self, g: torch.Generator) -> dict:
+        return {"mlm_bias": torch.zeros(self.mlm_bias.shape)}
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                img_feats=None, img_location_embeddings=None,
+                rng: DropoutRng | None = None, text_only: bool = False):
+        seq, pooled = self.bert(input_ids, token_type_ids=token_type_ids,
+                                attention_mask=attention_mask, img_feats=img_feats,
+                                img_location_embeddings=img_location_embeddings,
+                                rng=rng)
+        if text_only:
+            return seq, pooled
+        return self.heads(seq, pooled)
+
+    def heads(self, seq, pooled=None) -> dict:
+        """The three pretraining heads over an encoded sequence."""
+        if pooled is None:
+            pooled = self.bert.pooler(seq)
+        x = F.gelu(self.mlm_transform(seq), approximate="none")
+        x = self.mlm_layer_norm(x)
+        logits = self.bert.attend_vocab(x).float() + self.mlm_bias
+        if self.cfg.use_fused_mlm_ce:
+            # The logits stay in the compute dtype for the fused CE kernel.
+            logits = logits.to(self.cfg.dtype)
+        return {
+            "sequence_output": seq,
+            "pooled_output": pooled,
+            "mlm_logits": logits,
+            "action_logits": self.next_action(pooled).float(),
+            "token_logits": self.token_head(seq).float(),
+        }
+
+
+def pretrain_loss(outputs: dict, labels, next_action=None, token_labels=None,
+                  cfg: BertConfig | None = None) -> dict:
+    """Loss/metric bundle parity (encoder.py:379-441): loss, mask/next/token
+    losses and word/action/token accuracies, as 0-d tensors."""
+    mlm_logits = outputs["mlm_logits"]
+    seq_len = mlm_logits.shape[1]
+    vocab = mlm_logits.shape[-1]
+    mlm_labels = labels[:, :seq_len]
+    if cfg is not None and cfg.use_fused_mlm_ce:
+        flat = mlm_labels.reshape(-1)
+        ce = fused_masked_softmax_ce(mlm_logits.reshape(-1, vocab), flat)
+        mask_loss = ce.sum() / torch.clamp(torch.sum(flat != -1), min=1)
+    else:
+        mask_loss, _ = masked_cross_entropy(mlm_logits, mlm_labels)
+    loss = mask_loss
+    out = {"mask_loss": mask_loss,
+           "words_accuracy": masked_accuracy(mlm_logits, mlm_labels)}
+    if next_action is not None:
+        next_loss, _ = masked_cross_entropy(outputs["action_logits"], next_action)
+        loss = loss + next_loss
+        out["next_loss"] = next_loss
+        out["action_accuracy"] = masked_accuracy(outputs["action_logits"], next_action)
+    if token_labels is not None:
+        tok = token_labels[:, :seq_len]
+        token_loss, _ = masked_cross_entropy(outputs["token_logits"], tok)
+        loss = loss + token_loss
+        out["token_loss"] = token_loss
+        out["token_accuracy"] = masked_accuracy(outputs["token_logits"], tok)
+    out["loss"] = loss
+    return out

@@ -1,27 +1,36 @@
-"""Packed fused self-attention (K1): the Hopper kernels' wrappers (forward
-K1f and backward K1b), their plain PyTorch twins, the autograd Function that
-joins them, the (B, H, S, D) ``multi_head_attention`` core and the
-position-hash dropout helpers.
+"""Fused self-attention: the Hopper kernels' wrappers for the packed layout
+(K1: forward K1f, backward K1b) and the (B, H, S, D) layout (K4: forward
+K4f, backward K4b), their plain PyTorch twins, the autograd Functions that
+join them, the shape gates, the (B, H, S, D) ``multi_head_attention`` core
+and the position-hash dropout helpers.
 
 Counterpart of visitron_tpu/ops/attention.py: ``fused_attention_packed``
 (Pallas ``_fused_packed_fwd_kernel`` and, through its custom VJP,
-``_fused_packed_bwd_kernel``), ``multi_head_attention`` and ``_keep_mask`` /
-``_threshold`` / ``_mix_seed``.  The kernels live in ``csrc/attention.cu``.
+``_fused_packed_bwd_kernel``), ``fused_attention`` (``_fused_fwd_kernel`` /
+``_fused_bwd_kernel``), ``attention_supports_fused`` /
+``attention_supports_flash`` (without their backend test),
+``multi_head_attention`` and ``_keep_mask`` / ``_threshold`` / ``_mix_seed``.
+One set of CUDA kernels in ``csrc/attention.cu`` serves both layouts: each
+operand is read through its own (batch, head, sequence) strides.  K1 and K4
+have their own wrappers and launch counters.
 
 Dropout on the attention probabilities is a counter-based hash of the
 absolute (query, key) position inside each head (murmur3 finaliser), seeded
-with ``seed ^ (head_id * 0xC2B2AE3D)`` where head_id = b*H + h.  A value is
-kept when the hash is >= ``_threshold(rate)``, and kept values are scaled by
-1/(1 - rate).  The masks equal the JAX package's bit for bit.
+with ``seed ^ (head_id * 0xC2B2AE3D)`` where head_id = b*H + h in both
+layouts.  A value is kept when the hash is >= ``_threshold(rate)``, and kept
+values are scaled by 1/(1 - rate).  The masks equal the JAX package's bit
+for bit.
 
-``fused_attention_packed`` takes the plain twins only for tensors on the CPU.
-For a CUDA tensor it launches the kernels or raises; there is no fallback.
-When a gradient is needed it records ``_PackedAttention``, whose forward also
-keeps the lse and whose backward runs K1b (``fused_attention_packed_bwd``).
-The twins compute in fp32, or in fp64 for fp64 inputs (gradcheck).
+The wrappers take the plain twins only for tensors on the CPU.  For a CUDA
+tensor they launch the kernels or raise; there is no fallback.  When a
+gradient is needed they record ``_PackedAttention`` / ``_Attention``, whose
+forward also keeps the lse and whose backward runs K1b / K4b.  The twins
+compute in fp32, or in fp64 for fp64 inputs (gradcheck).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -100,16 +109,16 @@ def _mix_seed(seed: int, bh) -> torch.Tensor:
     return (int(seed) & _M32) ^ _mul32(bh, 0xC2B2AE3D)
 
 
-# -- K1: packed fused attention ----------------------------------------------
+# -- twins on (B, H, S, D) ----------------------------------------------------
 
-def _split_heads(t, num_heads: int, dtype):
-    b, s, hd = t.shape
-    return t.reshape(b, s, num_heads, hd // num_heads).permute(0, 2, 1, 3).to(dtype)
+def _split_heads(t, num_heads: int):
+    """(B, S, H*D) -> a (B, H, S, D) view."""
+    return t.unflatten(-1, (num_heads, t.shape[-1] // num_heads)).transpose(1, 2)
 
 
-def _merge_heads(t, dtype):
-    b, h, s, d = t.shape
-    return t.permute(0, 2, 1, 3).reshape(b, s, h * d).to(dtype)
+def _merge_heads(t):
+    """(B, H, S, D) -> (B, S, H*D)."""
+    return t.transpose(1, 2).flatten(2)
 
 
 def _head_keep_mask(seed, b: int, h: int, s: int, rate: float, device):
@@ -118,20 +127,18 @@ def _head_keep_mask(seed, b: int, h: int, s: int, rate: float, device):
     return _keep_mask(_mix_seed(seed, bh).to(device), 0, 0, (s, s), _threshold(rate))
 
 
-def fused_attention_packed_reference(q, k, v, key_bias, num_heads: int,
-                                     seed=None, rate: float = 0.0,
-                                     need_lse: bool = False):
-    """Plain twin of the packed kernel: (B, S, H*D) q/k/v, (B, S) key bias.
+def fused_attention_reference(q, k, v, key_bias, seed=None, rate: float = 0.0,
+                              need_lse: bool = False):
+    """Plain twin of the fused kernels on (B, H, S, D) q/k/v with a (B, S)
+    key bias (visitron_tpu/ops/attention.py:_fused_fwd_kernel).
 
     The TPU kernel's math, one head at a time in full rows: fp32 scores,
-    p = exp(s - max), a = p * (1/l), hash dropout, a cast to v's dtype, fp32
-    PV product, output in q's dtype; ``need_lse`` adds (B*H, S) fp32 lse."""
-    b, s, hd = q.shape
-    h = num_heads
-    d = hd // h
+    p = exp(s - max), a = p * (1/l), hash dropout (head id b*H + h), a cast to
+    v's dtype, fp32 PV product, output in q's dtype; ``need_lse`` adds
+    (B*H, S) fp32 lse."""
+    b, h, s, d = q.shape
     ct = _compute_dtype(q.dtype)
-    scores = torch.matmul(_split_heads(q, h, ct),
-                          _split_heads(k, h, ct).transpose(-1, -2)) * (1.0 / (d ** 0.5))
+    scores = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * (1.0 / (d ** 0.5))
     scores = scores + key_bias.to(ct)[:, None, None, :]
     m = scores.amax(dim=-1)
     p = torch.exp(scores - m[..., None])
@@ -141,28 +148,26 @@ def fused_attention_packed_reference(q, k, v, key_bias, num_heads: int,
         keep = _head_keep_mask(seed, b, h, s, rate, q.device)
         a = torch.where(keep, a, 0.0) * (1.0 / (1.0 - rate))
     a = a.to(v.dtype).to(ct)
-    out = _merge_heads(torch.matmul(a, _split_heads(v, h, ct)), q.dtype)
+    out = torch.matmul(a, v.to(ct)).to(q.dtype)
     if need_lse:
         return out, (m + torch.log(l)).reshape(b * h, s)
     return out
 
 
-def fused_attention_packed_bwd_reference(q, k, v, key_bias, dout, lse,
-                                         num_heads: int, seed=None,
-                                         rate: float = 0.0):
-    """Plain twin of the backward kernel: (dq, dk, dv) in q's dtype from the
-    forward's inputs, the output gradient ``dout`` and the lse.
+def fused_attention_bwd_reference(q, k, v, key_bias, dout, lse, seed=None,
+                                  rate: float = 0.0):
+    """Plain twin of the backward kernels on (B, H, S, D): (dq, dk, dv) in
+    q's dtype from the forward's inputs, the output gradient ``dout`` and the
+    lse.
 
-    The TPU kernel's formula line for line (_fused_packed_bwd_kernel), one
-    head at a time in full rows: a = exp(s - lse), dp = dO v^T, the mask and
-    the 1/(1-r) scale on a_eff and da, dv = a_eff^T dO, D_i = sum(a_eff dp),
+    The TPU kernel's formula line for line (_fused_bwd_kernel), one head at a
+    time in full rows: a = exp(s - lse), dp = dO v^T, the mask and the
+    1/(1-r) scale on a_eff and da, dv = a_eff^T dO, D_i = sum(a_eff dp),
     ds = a (da - D_i) scale cast to q's dtype, dq = ds k, dk = ds^T q."""
-    b, s, hd = q.shape
-    h = num_heads
-    d = hd // h
+    b, h, s, d = q.shape
     ct = _compute_dtype(q.dtype)
     sm_scale = 1.0 / (d ** 0.5)
-    qh, kh, vh, doh = (_split_heads(t, h, ct) for t in (q, k, v, dout))
+    qh, kh, vh, doh = (t.to(ct) for t in (q, k, v, dout))
     scores = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale
     scores = scores + key_bias.to(ct)[:, None, None, :]
     a = torch.exp(scores - lse.reshape(b, h, s, 1).to(ct))
@@ -179,40 +184,139 @@ def fused_attention_packed_bwd_reference(q, k, v, key_bias, dout, lse,
     ds = (a * (da - d_i) * sm_scale).to(q.dtype).to(ct)
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
-    return tuple(_merge_heads(t, q.dtype) for t in (dq, dk, dv))
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
-def _check_cuda(q, k, v, key_bias, num_heads: int, rate: float) -> int:
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention_packed: unsupported device {q.device}")
+def fused_attention_packed_reference(q, k, v, key_bias, num_heads: int,
+                                     seed=None, rate: float = 0.0,
+                                     need_lse: bool = False):
+    """Plain twin of the packed kernel: (B, S, H*D) q/k/v, (B, S) key bias;
+    :func:`fused_attention_reference` on the heads."""
+    res = fused_attention_reference(*(_split_heads(t, num_heads) for t in (q, k, v)),
+                                    key_bias, seed, rate, need_lse)
+    if need_lse:
+        return _merge_heads(res[0]), res[1]
+    return _merge_heads(res)
+
+
+def fused_attention_packed_bwd_reference(q, k, v, key_bias, dout, lse,
+                                         num_heads: int, seed=None,
+                                         rate: float = 0.0):
+    """Plain twin of the packed backward: (dq, dk, dv) as (B, S, H*D);
+    :func:`fused_attention_bwd_reference` on the heads."""
+    grads = fused_attention_bwd_reference(
+        *(_split_heads(t, num_heads) for t in (q, k, v)), key_bias,
+        _split_heads(dout, num_heads), lse, seed, rate)
+    return tuple(_merge_heads(t) for t in grads)
+
+
+# -- the kernels' launches ------------------------------------------------------
+#
+# Both layouts reach one pair of C entries.  Every operand goes in as a
+# (B, H, S, D) view with D contiguous; the C side reads each through its own
+# (batch, head, sequence) strides.  Outputs are allocated (B, S, H, D)
+# contiguous: the packed (B, S, H*D) result itself, or, for K4, a buffer whose
+# (B, H, S, D) view is returned, so merging the heads back is free.
+
+def _check_cuda(name: str, q4, k4, v4, key_bias, rate: float) -> None:
+    """Raise on what the kernels do not take; q4/k4/v4 are (B, H, S, D)."""
+    if q4.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q4.device}")
+    if q4.dtype not in _DTYPE_CODES or k4.dtype != q4.dtype or v4.dtype != q4.dtype:
+        raise ValueError(f"{name}: dtype {q4.dtype} not supported "
+                         "(fp32 or bf16, the same for q, k, v)")
+    b, h, s, d = q4.shape
+    if d not in (64, 128):
+        raise ValueError(f"{name}: head dim {d} not in (64, 128)")
+    for tname, t in (("q", q4), ("k", k4), ("v", v4)):
+        _check_operand(name, tname, t, q4)
+    if (key_bias.dtype != torch.float32 or key_bias.shape != (b, s)
+            or not key_bias.is_contiguous() or key_bias.device != q4.device):
+        raise ValueError(f"{name}: key_bias must be a contiguous "
+                         f"fp32 ({b}, {s}) tensor on {q4.device}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"{name}: rate {rate} not in [0, 1)")
+
+
+def _check_operand(name: str, tname: str, t, q4) -> None:
+    if t.shape != q4.shape or t.device != q4.device or t.stride(-1) != 1:
+        raise ValueError(f"{name}: {tname} must be a {tuple(q4.shape)} tensor on "
+                         f"{q4.device} with a contiguous last dim")
+    # The bf16 kernels read rows as 16-byte vectors.
+    if t.dtype == torch.bfloat16 and not _vector_aligned(t):
+        raise ValueError(f"{name}: bf16 {tname} needs a 16-byte aligned base and "
+                         "batch/head/row strides that are multiples of 8")
+
+
+def _vector_aligned(t) -> bool:
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+
+
+def _strides(q4, k4, v4, out4=None, dout4=None, dq4=None, dk4=None, dv4=None):
+    """The C entries' stride array: (batch, head, sequence) of q, k, v, out,
+    dout, dq, dk, dv, in that order (zeros for an operand not passed)."""
+    views = (q4, k4, v4, out4, dout4, dq4, dk4, dv4)
+    flat = [st for t in views for st in (t.stride()[:3] if t is not None else (0, 0, 0))]
+    return (ctypes.c_longlong * 24)(*flat)
+
+
+def _launch_fwd(name: str, q4, k4, v4, key_bias, out4, lse, seed, rate: float) -> None:
+    b, h, s, d = q4.shape
+    err = _build.load().vt_attention_fwd(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), key_bias.data_ptr(),
+        out4.data_ptr(), None if lse is None else lse.data_ptr(), b, s, h, d,
+        _strides(q4, k4, v4, out4), _DTYPE_CODES[q4.dtype],
+        0 if seed is None else int(seed) & _M32, _threshold(rate),
+        1.0 / (1.0 - rate), int(rate > 0.0), 1.0 / (d ** 0.5),
+        torch.cuda.current_stream(q4.device).cuda_stream)
+    _build.check(err, name)
+
+
+def _launch_bwd(name: str, q4, k4, v4, key_bias, dout4, lse, dq4, dk4, dv4,
+                seed, rate: float) -> None:
+    b, h, s, d = q4.shape
+    if (lse.shape != (b * h, s) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q4.device):
+        raise ValueError(f"{name}: lse must be a contiguous "
+                         f"fp32 ({b * h}, {s}) tensor on {q4.device}")
+    if dout4.dtype != q4.dtype:
+        raise ValueError(f"{name}: dout must be {q4.dtype}")
+    _check_operand(name, "dout", dout4, q4)
+    delta = torch.empty((b * h, s), dtype=torch.float32, device=q4.device)
+    err = _build.load().vt_attention_bwd(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), key_bias.data_ptr(),
+        dout4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), dk4.data_ptr(),
+        dv4.data_ptr(), delta.data_ptr(), b, s, h, d,
+        _strides(q4, k4, v4, dout4=dout4, dq4=dq4, dk4=dk4, dv4=dv4), _DTYPE_CODES[q4.dtype],
+        0 if seed is None else int(seed) & _M32, _threshold(rate),
+        1.0 / (1.0 - rate), int(rate > 0.0), 1.0 / (d ** 0.5),
+        torch.cuda.current_stream(q4.device).cuda_stream)
+    _build.check(err, name)
+
+
+def _bshd_buffers(q4, n: int):
+    """``n`` uninitialised (B, S, H, D) buffers, each as its (B, H, S, D) view."""
+    b, h, s, d = q4.shape
+    return [torch.empty((b, s, h, d), dtype=q4.dtype, device=q4.device).transpose(1, 2)
+            for _ in range(n)]
+
+
+def _kernel_dout(dout):
+    """The output gradient as autograd hands it back, copied only where the
+    kernels cannot read it in place."""
+    ok = dout.stride(-1) == 1 and (dout.dtype != torch.bfloat16 or _vector_aligned(dout))
+    return dout if ok else dout.contiguous()
+
+
+# -- K1: packed fused attention ----------------------------------------------
+
+def _check_packed(q, k, v, num_heads: int) -> None:
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("fused_attention_packed: q, k, v must share one "
                          "(B, S, H*D) shape")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"fused_attention_packed: dtype {q.dtype} not supported "
-                         "(fp32 or bf16, the same for q, k, v)")
-    b, s, hd = q.shape
-    if hd % num_heads:
-        raise ValueError(f"fused_attention_packed: {hd} not divisible by {num_heads} heads")
-    d = hd // num_heads
-    if d not in (64, 128):
-        raise ValueError(f"fused_attention_packed: head dim {d} not in (64, 128)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.stride(-1) != 1:
-            raise ValueError(f"fused_attention_packed: {name} must be on "
-                             f"{q.device} with a contiguous last dim")
-        # The bf16 kernel reads rows as 16-byte vectors.
-        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or t.stride(0) % 8
-                                          or t.stride(1) % 8):
-            raise ValueError(f"fused_attention_packed: bf16 {name} needs a 16-byte "
-                             "aligned base and row strides that are multiples of 8")
-    if (key_bias.dtype != torch.float32 or key_bias.shape != (b, s)
-            or not key_bias.is_contiguous() or key_bias.device != q.device):
-        raise ValueError("fused_attention_packed: key_bias must be a contiguous "
-                         f"fp32 ({b}, {s}) tensor on {q.device}")
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"fused_attention_packed: rate {rate} not in [0, 1)")
-    return d
+    if q.shape[-1] % num_heads:
+        raise ValueError(f"fused_attention_packed: {q.shape[-1]} not divisible by "
+                         f"{num_heads} heads")
 
 
 def _forward(q, k, v, key_bias, num_heads: int, seed, rate: float,
@@ -224,21 +328,17 @@ def _forward(q, k, v, key_bias, num_heads: int, seed, rate: float,
                                                     seed, rate, need_lse=True)
         return fused_attention_packed_reference(q, k, v, key_bias, num_heads,
                                                 seed, rate), None
-    d = _check_cuda(q, k, v, key_bias, num_heads, rate)
-    lib = _build.load()
-    b, s, hd = q.shape
-    out = torch.empty((b, s, hd), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b * num_heads, s), dtype=torch.float32, device=q.device)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_packed: unsupported device {q.device}")
+    _check_packed(q, k, v, num_heads)
+    q4, k4, v4 = (_split_heads(t, num_heads) for t in (q, k, v))
+    _check_cuda("fused_attention_packed", q4, k4, v4, key_bias, rate)
+    b, h, s, _ = q4.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b * h, s), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    err = lib.vt_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(),
-        b, s, num_heads, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), _DTYPE_CODES[q.dtype],
-        0 if seed is None else int(seed) & _M32, _threshold(rate),
-        1.0 / (1.0 - rate), int(rate > 0.0), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "fused_attention_packed")
+    _launch_fwd("fused_attention_packed", q4, k4, v4, key_bias,
+                _split_heads(out, num_heads), lse, seed, rate)
     fused_attention_packed.launches += 1
     return out, lse
 
@@ -299,33 +399,117 @@ def fused_attention_packed_bwd(q, k, v, key_bias, dout, lse, num_heads: int,
     if q.device.type == "cpu":
         return fused_attention_packed_bwd_reference(q, k, v, key_bias, dout, lse,
                                                     num_heads, seed, rate)
-    d = _check_cuda(q, k, v, key_bias, num_heads, rate)
-    b, s, hd = q.shape
-    if (dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device
-            or not dout.is_contiguous() or dout.data_ptr() % 16):
-        raise ValueError("fused_attention_packed_bwd: dout must be a contiguous, "
-                         f"16-byte aligned {tuple(q.shape)} {q.dtype} tensor on "
-                         f"{q.device}")
-    if (lse.shape != (b * num_heads, s) or lse.dtype != torch.float32
-            or not lse.is_contiguous() or lse.device != q.device):
-        raise ValueError("fused_attention_packed_bwd: lse must be a contiguous "
-                         f"fp32 ({b * num_heads}, {s}) tensor on {q.device}")
-    lib = _build.load()
-    dq, dk, dv = (torch.empty((b, s, hd), dtype=q.dtype, device=q.device)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_packed_bwd: unsupported device {q.device}")
+    _check_packed(q, k, v, num_heads)
+    if dout.shape != q.shape:
+        raise ValueError(f"fused_attention_packed_bwd: dout must be {tuple(q.shape)}")
+    q4, k4, v4, dout4 = (_split_heads(t, num_heads) for t in (q, k, v, dout))
+    _check_cuda("fused_attention_packed_bwd", q4, k4, v4, key_bias, rate)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    delta = torch.empty((b * num_heads, s), dtype=torch.float32, device=q.device)
-    err = lib.vt_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        b, s, num_heads, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), _DTYPE_CODES[q.dtype],
-        0 if seed is None else int(seed) & _M32, _threshold(rate),
-        1.0 / (1.0 - rate), int(rate > 0.0), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "fused_attention_packed_bwd")
+    _launch_bwd("fused_attention_packed_bwd", q4, k4, v4, key_bias, dout4, lse,
+                *(_split_heads(t, num_heads) for t in (dq, dk, dv)), seed, rate)
     fused_attention_packed_bwd.launches += 1
     return dq, dk, dv
 
 
 fused_attention_packed_bwd.launches = 0
+
+
+# -- K4: fused attention on (B, H, S, D) -----------------------------------------
+
+def _forward4(q, k, v, key_bias, seed, rate: float, need_lse: bool):
+    """K4f, or its twin for CPU tensors; returns (out, lse or None)."""
+    if q.device.type == "cpu":
+        if need_lse:
+            return fused_attention_reference(q, k, v, key_bias, seed, rate, True)
+        return fused_attention_reference(q, k, v, key_bias, seed, rate), None
+    if q.ndim != 4:
+        raise ValueError("fused_attention: q, k, v must be (B, H, S, D)")
+    _check_cuda("fused_attention", q, k, v, key_bias, rate)
+    b, h, s, _ = q.shape
+    (out,) = _bshd_buffers(q, 1)
+    lse = (torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    _launch_fwd("fused_attention", q, k, v, key_bias, out, lse, seed, rate)
+    fused_attention.launches += 1
+    return out, lse
+
+
+class _Attention(torch.autograd.Function):
+    """K4f forward with the lse (B*H, S) kept; K4b backward.  Saves q, k, v
+    (views of the caller's tensors), the key bias and the lse; the key bias
+    gets no gradient (_fused_bwd_rule returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, seed, rate):
+        out, lse = _forward4(q, k, v, key_bias, seed, rate, need_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, lse)
+        ctx.seed, ctx.rate = seed, rate
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, key_bias, lse = ctx.saved_tensors
+        dq, dk, dv = fused_attention_bwd(q, k, v, key_bias, _kernel_dout(dout), lse,
+                                         ctx.seed, ctx.rate)
+        return dq, dk, dv, None, None, None
+
+
+def fused_attention(q, k, v, key_bias, seed=None, rate: float = 0.0,
+                    need_lse: bool = False):
+    """Self-attention on (B, H, S, D) q/k/v with a (B, S) additive key bias
+    (visitron_tpu/ops/attention.py:fused_attention, K4); returns (B, H, S, D)
+    in q's dtype (on the card a view of a (B, S, H, D) buffer) and, when
+    ``need_lse``, (B*H, S) fp32 lse.  q/k/v may be strided views, e.g. of the
+    fused QKV projection, with a contiguous last dim.  Differentiable in q,
+    k and v (K4b)."""
+    if rate > 0.0 and seed is None:
+        raise ValueError("fused_attention: rate > 0 requires an explicit seed")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = _Attention.apply(q, k, v, key_bias, seed, rate)
+    else:
+        out, lse = _forward4(q, k, v, key_bias, seed, rate, need_lse)
+    return (out, lse) if need_lse else out
+
+
+fused_attention.launches = 0
+
+
+def fused_attention_bwd(q, k, v, key_bias, dout, lse, seed=None, rate: float = 0.0):
+    """(dq, dk, dv) of :func:`fused_attention` as (B, H, S, D) in q's dtype
+    (on the card views of (B, S, H, D) buffers), from the forward's inputs,
+    the output gradient ``dout`` and the forward's lse.  CPU tensors take
+    :func:`fused_attention_bwd_reference`; CUDA tensors launch K4b (the
+    dq and dk/dv kernels of K1b, through the operands' strides) or raise."""
+    if rate > 0.0 and seed is None:
+        raise ValueError("fused_attention_bwd: rate > 0 requires an explicit seed")
+    if q.device.type == "cpu":
+        return fused_attention_bwd_reference(q, k, v, key_bias, dout, lse, seed, rate)
+    if q.ndim != 4:
+        raise ValueError("fused_attention_bwd: q, k, v must be (B, H, S, D)")
+    _check_cuda("fused_attention_bwd", q, k, v, key_bias, rate)
+    dq, dk, dv = _bshd_buffers(q, 3)
+    _launch_bwd("fused_attention_bwd", q, k, v, key_bias, dout, lse, dq, dk, dv,
+                seed, rate)
+    fused_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_attention_bwd.launches = 0
+
+
+def attention_supports_fused(q_len: int, k_len: int, head_dim: int) -> bool:
+    """The fused kernels' shape gate (visitron_tpu/ops/attention.py:
+    attention_supports_fused without its backend test): self-attention,
+    128 <= S <= 768, S a multiple of 128, head dim 64 or 128."""
+    return (q_len == k_len and 128 <= q_len <= 768 and q_len % 128 == 0
+            and head_dim in (64, 128))
+
+
+def attention_supports_flash(q_len: int, k_len: int, head_dim: int) -> bool:
+    """The flash kernels' shape gate (attention_supports_flash without its
+    backend test); the flash kernels (K5) are not ported."""
+    return q_len % 128 == 0 and k_len % 128 == 0 and head_dim in (64, 128)

@@ -1,0 +1,6 @@
+"""Data pipelines of the port: the pretraining example walk (pretrain_datagen)."""
+
+from visitron_torch.pipelines.pretrain_datagen import (generate_pretrain_examples,
+                                                        walk_path_examples)
+
+__all__ = ["walk_path_examples", "generate_pretrain_examples"]

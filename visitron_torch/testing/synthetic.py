@@ -8,8 +8,8 @@ schema (utils_data.py:26-60), NDH/CVDN/R2R-shaped episode records
 (utils_data.py:87-238), and scene features — so every pipeline in the
 framework can be exercised end-to-end, deterministically, without Matterport.
 A copy of visitron_tpu/testing/synthetic.py: the same seed gives the same
-graphs, features and task JSON byte for byte (region stores are not needed
-by the serving path and are left out).
+graphs, scene and region features, region tokens and task JSON byte for
+byte.
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ class SyntheticWorld:
         viewpoints_per_scan: int = 24,
         mean_degree: float = 3.0,
         scene_feat_dim: int = 2048,
+        region_feat_dim: int = 2054,
+        regions_per_view: int = 5,
         dialog_turns: tuple[int, int] = (1, 4),
         words_per_turn: tuple[int, int] = (4, 12),
         directional_language: bool = False,
@@ -61,6 +63,8 @@ class SyntheticWorld:
         self.dialog_turns = dialog_turns
         self.words_per_turn = words_per_turn
         self.scene_feat_dim = scene_feat_dim
+        self.region_feat_dim = region_feat_dim
+        self.regions_per_view = regions_per_view
         self.scans = [f"scan{j:02d}" for j in range(num_scans)]
         self.connectivity: dict[str, list[dict]] = {}
         self.graphs: dict[str, NavGraph] = {}
@@ -364,3 +368,19 @@ class SyntheticWorld:
                     (geo.NUM_VIEWS, self.scene_feat_dim), dtype=np.float32
                 )
         return out
+
+    def region_features(self) -> tuple[dict[bytes, np.ndarray], dict[bytes, list[str]]]:
+        """Region features + tokens keyed ``scan_vp_viewIdx`` (FeaturesReader parity)."""
+        feats: dict[bytes, np.ndarray] = {}
+        tokens: dict[bytes, list[str]] = {}
+        for scan, g in self.graphs.items():
+            for vp in g.viewpoints:
+                for view in range(geo.NUM_VIEWS):
+                    key = f"{scan}_{vp}_{view}".encode()
+                    feats[key] = self.rng.standard_normal(
+                        (self.regions_per_view, self.region_feat_dim), dtype=np.float32
+                    )
+                    tokens[key] = list(
+                        self.rng.choice(_TARGETS, size=self.regions_per_view)
+                    )
+        return feats, tokens

@@ -1,4 +1,5 @@
-"""The agents' optimizer (visitron_tpu/train/optim.py:agent_optimizer) as
+"""The optimizers of visitron_tpu/train/optim.py (``agent_optimizer`` for
+the agents, ``adamw_with_warmup`` and ``make_schedule`` for pretraining) as
 plain functions on nested dicts of tensors, with optax's semantics rather
 than torch.optim's defaults:
 
@@ -10,7 +11,14 @@ than torch.optim's defaults:
     correction from the incremented count; update mu_hat / (sqrt(nu_hat) + eps);
   * ``scale_by_adam_lowp``: the same update with both moments stored in
     bf16 and all arithmetic in fp32;
-  * ``scale_by_learning_rate``: times -lr; ``apply_updates``: p + u.
+  * ``add_decayed_weights``: u + weight_decay * p (decoupled weight decay,
+    before the learning rate, as in ``optax.adamw``);
+  * ``scale_by_learning_rate``: times -lr, where lr may be a schedule of the
+    step count; a schedule is evaluated at the count BEFORE the step, so a
+    warmup from 0 gives lr 0 on the first step (optax's
+    ``scale_by_schedule``); ``apply_updates``: p + u;
+  * ``make_schedule``: optax's ``join_schedules`` of two
+    ``linear_schedule``s (warmup then linear decay or constant), in float32.
 
 A transformation is an ``(init, update)`` pair as in optax:
 ``init(params) -> state`` and ``update(grads, state, params) -> (updates,
@@ -137,14 +145,84 @@ def scale_by_adam_lowp(b1: float = 0.9, b2: float = 0.999,
     return GradientTransformation(init, update)
 
 
-def scale_by_learning_rate(lr: float) -> GradientTransformation:
+def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def init(params):
         return {}
 
     def update(grads, state, params=None):
-        return tree_unflatten(grads, torch._foreach_mul(tree_leaves(grads), -lr)), state
+        if params is None:
+            raise ValueError("add_decayed_weights needs the parameters")
+        out = torch._foreach_add(tree_leaves(grads), tree_leaves(params),
+                                 alpha=weight_decay)
+        return tree_unflatten(grads, out), state
 
     return GradientTransformation(init, update)
+
+
+def scale_by_learning_rate(lr) -> GradientTransformation:
+    """Times -lr; ``lr`` is a float or a schedule (count -> float), which is
+    read at the step count before the update and counted up after it."""
+    if not callable(lr):
+        def init(params):
+            return {}
+
+        def update(grads, state, params=None):
+            return tree_unflatten(grads, torch._foreach_mul(tree_leaves(grads), -lr)), state
+
+        return GradientTransformation(init, update)
+
+    def init_sched(params):
+        return {"count": 0}
+
+    def update_sched(grads, state, params=None):
+        step = -float(lr(state["count"]))
+        return (tree_unflatten(grads, torch._foreach_mul(tree_leaves(grads), step)),
+                {"count": state["count"] + 1})
+
+    return GradientTransformation(init_sched, update_sched)
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int):
+    """optax.linear_schedule in float32: init_value -> end_value over
+    ``transition_steps`` counts, then end_value."""
+    if transition_steps <= 0:
+        return lambda count: np.float32(init_value)
+
+    def schedule(count: int):
+        c = np.float32(min(max(count, 0), transition_steps))
+        frac = np.float32(1.0) - c / np.float32(transition_steps)
+        return np.float32(init_value - end_value) * frac + np.float32(end_value)
+
+    return schedule
+
+
+def join_schedules(schedules, boundaries):
+    """optax.join_schedules: schedule i+1 takes over at boundary i, counted
+    from there."""
+
+    def schedule(count: int):
+        out = schedules[0](count)
+        for boundary, nxt in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = nxt(count - boundary)
+        return out
+
+    return schedule
+
+
+def make_schedule(lr: float, warmup_steps: int, total_steps: int, kind: str = "linear"):
+    """The pretraining schedules (WarmupConstant / WarmupLinear parity): a
+    linear warmup from 0 over max(warmup_steps, 1) counts, then ``lr``
+    (constant) or a linear decay to 0 over the remaining steps (linear)."""
+    warm = max(warmup_steps, 1)
+    if kind == "constant":
+        return join_schedules([linear_schedule(0.0, lr, warm),
+                               lambda count: np.float32(lr)], [warm])
+    if kind == "linear":
+        return join_schedules([linear_schedule(0.0, lr, warm),
+                               linear_schedule(lr, 0.0, max(total_steps - warmup_steps, 1))],
+                              [warm])
+    raise ValueError(f"unknown schedule {kind}")
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
@@ -178,3 +256,18 @@ def agent_optimizer(lr: float, kind: str = "adam", max_grad_norm: float = 40.0,
         raise ValueError(f"unknown optimizer {kind}")
     core = scale_by_adam_lowp() if bf16_moments else scale_by_adam()
     return chain(clip_by_global_norm(max_grad_norm), core, scale_by_learning_rate(lr))
+
+
+def adamw_with_warmup(lr: float, warmup_steps: int, total_steps: int,
+                      schedule: str = "linear", weight_decay: float = 0.0,
+                      eps: float = 1e-8, max_grad_norm: float = 1.0,
+                      bf16_moments: bool = False) -> GradientTransformation:
+    """The pretraining optimizer (pretrain.py:128-139 + clip 1.0 parity):
+    clip by global norm, Adam (moments in bf16 with ``bf16_moments``),
+    decoupled weight decay, and the warmup schedule of :func:`make_schedule`.
+    A zero weight decay adds nothing (optax adds 0 * p)."""
+    sched = make_schedule(lr, warmup_steps, total_steps, schedule)
+    core = [scale_by_adam_lowp(eps=eps) if bf16_moments else scale_by_adam(eps=eps)]
+    if weight_decay:
+        core.append(add_decayed_weights(weight_decay))
+    return chain(clip_by_global_norm(max_grad_norm), *core, scale_by_learning_rate(sched))
