@@ -36,14 +36,22 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               pretraining shape (B 16, S 768, 12 heads of 64, padded keys,
               bf16 and fp32, rates 0 and 0.1), and K4 against K1 on the same
               data (equal bit for bit); times with SDPA as the yardstick;
-  9. serving  the NDH argmax serving rollout, ViewpointAgent.test, at BERT-base
+  9. K5       the flash attention, forward (with its lse) and backward, vs its
+              twins on (B, H, S, D) views of packed projections: at the
+              long-context shape (B 16, S 1024, 12 heads of 64, the last 8 of
+              512 region slots masked, bf16 and fp32, rates 0 and 0.1), at
+              B 2 x S 4096 (bf16, rate 0.1: no length ceiling) and Q 512 x
+              K 1024; K5f against K4f on the same data at S 768; times of
+              the kernels, the twins, SDPA forward and backward as the
+              yardstick, and the bounds;
+ 10. serving  the NDH argmax serving rollout, ViewpointAgent.test, at BERT-base
               width and depth (bf16, batch 64, 10-step episodes, 2048-d
               features, rnn 512, random weights from a seed), with and without
               ``submit``; trajectories checked against the graph; kernel
               launch counts read around each run; fp32 agreement of the card
               with the CPU on a 2-item batch; ms per batch, episodes/s,
               actions/s, the time split (BERT / LSTM / decode loop), peak memory;
- 10. train    the NDH teacher-forced train step, ViewpointAgent.train_step_fn
+ 11. train    the NDH teacher-forced train step, ViewpointAgent.train_step_fn
               over NavEpisodeBatcher.train_batches (planner_path, batch 64,
               10-step episodes, the agent's dropouts, Adam at 5e-5, clip 40):
               2 warm-up steps and 8 timed; losses finite, params changed,
@@ -53,22 +61,42 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               memory; then one fp32 step with every dropout at 0 on a 2-item
               batch on the card and on the CPU: loss, gradients and updated
               parameters agree;
- 11. pretrain the multimodal pretraining step, PretrainTrainer.step_fn, at
+ 12. pretrain the multimodal pretraining step, PretrainTrainer.step_fn, at
               tools/bench_pretrain.py's configuration (BERT-base bf16, vocab
               30525, batch 16 x (512 text + 256 regions), MLM + next-action +
               region-token labels, AdamW 5e-5, clip 1.0, the training
               dropouts): 2 warm-up steps and 5 timed; losses finite, every
               parameter changed, launches per step K3f 1, K3b 1, K4f 12, K4b
-              12, K2f 26, K2b 26 and no K1; ms per step, examples/s, MFU from
-              analytic FLOPs, peak memory, the idle share and device time by
-              kind of kernel;
- 12. pretrain agreement: two fp32 steps with every dropout at 0 on 2 items at
+              12, K2f 26, K2b 26 and no K1 or K5; ms per step, examples/s, MFU
+              from analytic FLOPs, peak memory, the idle share and device
+              time by kind of kernel;
+ 13. pretrain agreement: two fp32 steps with every dropout at 0 on 2 items at
               S 640 (K4 and K3 run) on the card and on the CPU: losses, every
-              gradient, and the AdamW update after two steps in units of lr.
+              gradient, and the AdamW update after two steps in units of lr;
+ 14. long-context pretrain: the same step with ``use_flash_attention`` at
+              batch 16 x (512 text + 512 region slots, the last 8 masked, as
+              a PretrainDataset(regions_per_view=14, max_img_seq_length=512)
+              batch has them) = S 1024, which the fused gate refuses: launches
+              per step K5f 12, K5b 12, K3f 1, K3b 1, K2f 26, K2b 26 and no K1
+              or K4, with the same readings as phase 12; one eval_fn batch
+              (K5f 12, K5b 0, no lse written); one forward and backward with
+              ``remat`` from the same parameters, batch and DropoutRng seeds
+              as one without: the loss equal, gradients within GRAD_TOL, the
+              peak memory of both;
+ 15. long-context agreement: two fp32 steps with every dropout at 0 on 2
+              items at S 896 (512 text + 384 regions, the shortest length the
+              fused gate refuses, so the dispatch picks K5) on the card and
+              on the CPU, as in phase 13 (K5f runs, K5b not: at rate 0 the
+              backward recomputes through the plain attention); then one
+              step with attention dropout 0.1 and hidden dropouts 0, whose
+              kernel seeds come from one CPU generator on both sides, so K5b
+              runs on the card against its twin on the CPU: loss and
+              gradients agree.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
-K3b, K4f and K4b: pretrain), max error, and times; the last line is
+K3b, K4f and K4b: pretrain; K5f and K5b: long-context pretrain), max error,
+and times; the last line is
 ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
 """
 
@@ -93,8 +121,13 @@ from visitron_torch.data import (SceneFeatureTable, WordPieceTokenizer,
                                  build_wordpiece_vocab)
 from visitron_torch.data.datasets import build_nav_instances
 from visitron_torch.models import BertConfig
+from visitron_torch.models.layers import DropoutRng
 from visitron_torch.models.lstm import masked_lstm_scan
-from visitron_torch.ops.attention import (fused_attention, fused_attention_bwd,
+from visitron_torch.ops import attention as attn_ops
+from visitron_torch.ops.attention import (flash_attention, flash_attention_bwd,
+                                          flash_attention_bwd_reference,
+                                          flash_attention_reference,
+                                          fused_attention, fused_attention_bwd,
                                           fused_attention_bwd_reference,
                                           fused_attention_packed,
                                           fused_attention_packed_bwd,
@@ -146,6 +179,8 @@ LN_BWD_REPLACES = "visitron_tpu/ops/layernorm.py:123"
 CE_SOURCE = "visitron_torch/csrc/crossentropy.cu"
 CE_REPLACES = ("visitron_tpu/ops/crossentropy.py:53", "visitron_tpu/ops/crossentropy.py:91")
 ATTN4_REPLACES = ("visitron_tpu/ops/attention.py:487", "visitron_tpu/ops/attention.py:529")
+# K5b replaces the two Pallas kernels _bwd_dkv_kernel (:146) and _bwd_dq_kernel (:191).
+FLASH_REPLACES = ("visitron_tpu/ops/attention.py:100", "visitron_tpu/ops/attention.py:146")
 H100_PEAK_BF16 = PEAK_OPS_PER_S[torch.bfloat16]
 
 REHEARSAL = False
@@ -697,7 +732,140 @@ def phase_k4(device, shapes) -> dict:
     return out
 
 
-# -- phase 9: serving ------------------------------------------------------------
+# -- phase 9: K5 ---------------------------------------------------------------------
+
+def flash_inputs(b, h, sq, sk, d, pad, dtype, device, g):
+    """q (B, H, Q, D) and k, v (B, H, K, D) as views of packed projections (one
+    for Q == K, two otherwise), a (B, K) key bias with the last ``pad`` keys
+    masked, and an output cotangent."""
+    proj = torch.randn(b, sq, 3 * h * d, generator=g, device=device).to(dtype)
+    views = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in proj.split(h * d, dim=-1)]
+    if sk != sq:
+        kv = torch.randn(b, sk, 3 * h * d, generator=g, device=device).to(dtype)
+        views[1:] = [t.unflatten(-1, (h, d)).transpose(1, 2)
+                     for t in kv.split(h * d, dim=-1)[1:]]
+    bias = torch.zeros(b, sk, device=device)
+    bias[:, sk - pad:] = -1e9
+    dout = torch.randn(b, h, sq, d, generator=g, device=device).to(dtype)
+    return (*views, bias, dout)
+
+
+def phase_k5(device, shapes) -> dict:
+    """K5f and K5b against their twins at the long-context shape, at a long
+    S and with Q != K; K5f against K4f at the fused gate's top length;
+    returns {"k5": timing, "k5b": timing} for bf16 at rate 0.1, the main
+    path's setting (the backward runs K5b only at rate > 0)."""
+    say("K5 flash_attention (forward and backward) vs plain twins")
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    b, h, d, s, pad = (shapes[k] for k in ("batch", "heads", "head_dim", "seq", "pad"))
+    cases = [(b, s, s, dtype, rate) for dtype in (torch.bfloat16, torch.float32)
+             for rate in (0.0, 0.1)]
+    cases += [(shapes["long_batch"], shapes["long_seq"], shapes["long_seq"],
+               torch.bfloat16, 0.1),
+              (b, shapes["cross"][0], shapes["cross"][1], torch.bfloat16, 0.1)]
+    out = {}
+    for bb, sq, sk, dtype, rate in cases:
+        seed = 2468 if rate > 0 else None
+        q, k, v, kb, dout = flash_inputs(bb, h, sq, sk, d, pad, dtype, device, g)
+        got, lse = attn_ops._flash_forward(q, k, v, kb, seed, rate, need_lse=True)
+        want, want_lse = flash_attention_reference(q, k, v, kb, seed, rate, True)
+        grads = flash_attention_bwd(q, k, v, kb, got, dout, lse, seed, rate)
+        wants = flash_attention_bwd_reference(q, k, v, kb, got, dout, lse, seed, rate)
+        sync()
+        tag = f"B{bb} Q{sq} K{sk} H{h} D{d} {str(dtype)[6:]} rate {rate}"
+        err = check_close(f"out {tag}", got, want, TOL[dtype])
+        check_close(f"lse {tag}", lse, want_lse, TOL[torch.float32])
+        err_b = max(check_close(f"{name} {tag}", x, y, GRAD_TOL[dtype])
+                    for name, x, y in zip(("dq", "dk", "dv"), grads, wants))
+        del want, wants, grads
+        if (bb, sq, sk, dtype, rate) != (b, s, s, torch.bfloat16, 0.1):
+            continue
+        elt = q.element_size()
+        io = bb * sq * h * d * elt
+        n = 1 if REHEARSAL else copies_for_cold_l2(5 * io)
+        sets = [(q, k, v, kb, dout, got, lse)]
+        for _ in range(n - 1):
+            q_, k_, v_, kb_, do_ = flash_inputs(bb, h, sq, sk, d, pad, dtype, device, g)
+            sets.append((q_, k_, v_, kb_, do_,
+                         *attn_ops._flash_forward(q_, k_, v_, kb_, seed, rate, True)))
+        it = iter(range(10 ** 9))
+
+        def pick():
+            return sets[next(it) % len(sets)]
+
+        def kernel():  # the train step's call: dropout and the lse
+            attn_ops._flash_forward(*pick()[:4], seed, rate, need_lse=True)
+
+        def kernel_eval():  # the eval call: no dropout, no lse
+            flash_attention(*pick()[:4])
+
+        def plain():
+            flash_attention_reference(*pick()[:4], seed, rate, True)
+
+        def library():
+            q_, k_, v_, kb_ = pick()[:4]
+            F.scaled_dot_product_attention(q_, k_, v_,
+                                           attn_mask=kb_.to(dtype)[:, None, None, :])
+
+        def kernel_b():
+            q_, k_, v_, kb_, do_, o_, l_ = pick()
+            flash_attention_bwd(q_, k_, v_, kb_, o_, do_, l_, seed, rate)
+
+        def plain_b():
+            q_, k_, v_, kb_, do_, o_, l_ = pick()
+            flash_attention_bwd_reference(q_, k_, v_, kb_, o_, do_, l_, seed, rate)
+
+        graphs = []
+        for q_, k_, v_, kb_, do_, _, _ in sets:
+            four = [t.detach().requires_grad_() for t in (q_, k_, v_)]
+            o4 = F.scaled_dot_product_attention(
+                *four, attn_mask=kb_.to(dtype)[:, None, None, :])
+            graphs.append((o4, four, do_))
+
+        def library_b():
+            o4, four, do_ = graphs[next(it) % len(graphs)]
+            torch.autograd.grad(o4, four, do_, retain_graph=True)
+
+        eval_ms = time_ms(kernel_eval)
+        stats = bb * h * sq * 4
+        fwd_ops = 4 * bb * h * sq * sk * d
+        for key, fns, nb, ops, e in (
+                ("k5", (kernel, plain, library), 4 * io + bb * sk * 4 + stats, fwd_ops, err),
+                ("k5b", (kernel_b, plain_b, library_b), 8 * io + stats + bb * sk * 4,
+                 10 * bb * h * sq * sk * d, err_b)):
+            ms = time_ms(fns[0])
+            plain_ms = time_ms(fns[1], iters=2, warmup=1)
+            lib_ms = time_ms(fns[2])
+            bms, by = bound_ms(nb, ops, dtype)
+            bwd = key == "k5b"
+            extra = (f"; the two kernels do {1.4 * ops / 1e9:.2f}, and the time includes "
+                     "the wrapper's di reduction" if bwd else
+                     f"; eval call (rate 0, no lse) {eval_ms:.4f} ms")
+            say(f"  time {'backward' if bwd else 'forward'} {tag}: kernel {ms:.4f} ms, "
+                f"plain twin {plain_ms:.4f} ms, sdpa{' backward' if bwd else ''} (rate 0) "
+                f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {nb / 1e6:.1f} MB, "
+                f"{ops / 1e9:.2f} GFLOP{extra})")
+            out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+        del graphs, sets
+
+    # K5f and K4f on the same data, at the fused gate's top length.  The TPU
+    # kernels round at different running maxima and are not expected to
+    # agree bit for bit; here both launch one device body (which rounds the
+    # unnormalised probabilities for the PV product, as the TPU flash kernel
+    # does), so they should.
+    s4 = shapes["fused_seq"]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, kb, _ = flash_inputs(b, h, s4, s4, d, pad, dtype, device, g)
+        k5 = flash_attention(q, k, v, kb, 99, 0.1)
+        k4 = fused_attention(q, k, v, kb, 99, 0.1)
+        sync()
+        check_close(f"K5f vs K4f B{b} S{s4} {str(dtype)[6:]} rate 0.1", k5, k4, TOL[dtype])
+        say(f"  equal bit for bit: {torch.equal(k5, k4)}")
+    return out
+
+
+# -- phase 10: serving ------------------------------------------------------------
 
 def build_world(sizes, device, dtype):
     world = SyntheticWorld(
@@ -840,7 +1008,8 @@ def profile_rollout(agent, params, batch) -> None:
 
 
 # Device kernels by kind, for the pretrain step's breakdown (first match).
-KERNEL_KINDS = (("K1/K4 attention", ("::attention_fwd", "::attention_bwd")),
+# K1, K4 and K5 launch the same device kernels (csrc/attention.cu).
+KERNEL_KINDS = (("K1/K4/K5 attention", ("::attention_fwd", "::attention_bwd")),
                 ("K3 softmax-CE", ("::ce_fwd", "::ce_bwd")),
                 ("K2 add+LayerNorm", ("::add_layernorm",)),
                 ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
@@ -923,13 +1092,14 @@ def phase_agreement(device, sizes, sl) -> None:
                 torch.stack(cpu_logits, 1), AGREE_TOL)
 
 
-# -- phase 10: train ----------------------------------------------------------------
+# -- phase 11: train ----------------------------------------------------------------
 
 # Every kernel wrapper, by the kernel's name in PERF.md.
 COUNTED = {"K1f": fused_attention_packed, "K1b": fused_attention_packed_bwd,
            "K2f": fused_add_layernorm, "K2b": fused_add_layernorm_bwd,
            "K3f": fused_masked_softmax_ce, "K3b": fused_masked_softmax_ce_bwd,
-           "K4f": fused_attention, "K4b": fused_attention_bwd}
+           "K4f": fused_attention, "K4b": fused_attention_bwd,
+           "K5f": flash_attention, "K5b": flash_attention_bwd}
 
 
 def zero_counts() -> None:
@@ -1126,20 +1296,23 @@ def phase_train_agreement(device, sizes, sl) -> None:
         fail("the Adam step on the card did not move each parameter by ~lr against its gradient")
 
 
-# -- phase 11: pretrain --------------------------------------------------------------
+# -- phase 12: pretrain --------------------------------------------------------------
 
 def pretrain_batch(rng, sizes, vocab, img_dim, classes):
     """A copy of tools/bench_pretrain.py:_batch (joint text + image sequence,
     15% MLM labels, next-action labels) that also sets region-token labels
-    on 5% of the text positions."""
+    on 5% of the text positions, and masks the last ``img_pad`` region slots
+    (the bucket's padding, as a PretrainDataset batch has it)."""
     batch, seq, img = sizes["batch"], sizes["text"], sizes["img"]
     tokens = np.where(rng.random((batch, seq + img)) < 0.05,
                       rng.integers(0, classes, (batch, seq + img)), -1).astype(np.int32)
     tokens[:, seq:] = -1
+    mask = np.ones((batch, seq + img), np.int32)
+    mask[:, seq + img - sizes.get("img_pad", 0):] = 0
     return {
         "input_ids": rng.integers(0, vocab, (batch, seq)).astype(np.int32),
         "token_type_ids": rng.integers(0, 4, (batch, seq)).astype(np.int32),
-        "attention_mask": np.ones((batch, seq + img), np.int32),
+        "attention_mask": mask,
         "labels": np.where(rng.random((batch, seq + img)) < 0.15,
                            rng.integers(0, vocab, (batch, seq + img)), -1).astype(np.int32),
         "token_labels": tokens,
@@ -1170,11 +1343,17 @@ def pretrain_flops(cfg, sizes) -> float:
         float(6 * r * h * cfg.vocab_size)
 
 
-def phase_pretrain(device, sizes) -> dict:
-    say("pretrain: the multimodal pretraining step, PretrainTrainer.step_fn")
+ROUTE_NAMES = {"K4": "K4 ((B, H, S, D) views)", "K5": "K5 (flash, (B, H, S, D) views)"}
+
+
+def phase_pretrain(device, sizes, attn: str = "K4",
+                   what: str = "pretrain: the multimodal pretraining step", **cfg_kw) -> dict:
+    """The pretraining step, every self-attention expected through ``attn``
+    (K4 at S 768; K5 past the fused gate with ``use_flash_attention``)."""
+    say(f"{what}, PretrainTrainer.step_fn")
     n_warm, n_timed = 2, sizes["steps"]
     t0 = time.perf_counter()
-    cfg = pretrain_config(sizes, sizes["dtype"])
+    cfg = pretrain_config(sizes, sizes["dtype"], **cfg_kw)
     trainer = PretrainTrainer(cfg, learning_rate=5e-5, total_steps=100, device=device)
     rng = np.random.default_rng(SEED)
     batches = [pretrain_batch(rng, sizes, cfg.vocab_size, cfg.img_feature_dim,
@@ -1183,18 +1362,19 @@ def phase_pretrain(device, sizes) -> dict:
     start = [t.clone() for t in tree_leaves(state["params"])]
     step = trainer.step_fn()
     s = sizes["text"] + sizes["img"]
-    route = ("K1 (packed)" if cfg.use_fused_attention and s <= cfg.fused_packed_max_seq
-             else "K4 ((B, H, S, D) views)")
     say(f"  set-up {time.perf_counter() - t0:.1f} s: BERT {cfg.num_hidden_layers}x"
         f"{cfg.hidden_size} {str(cfg.dtype)[6:]}, vocab {cfg.vocab_size}, batch "
-        f"{sizes['batch']} x ({sizes['text']} text + {sizes['img']} regions) = S {s}, "
-        f"attention through {route}; dropout hidden {cfg.hidden_dropout_prob} / attention "
+        f"{sizes['batch']} x ({sizes['text']} text + {sizes['img']} region slots, the last "
+        f"{sizes.get('img_pad', 0)} masked) = S {s}, attention through "
+        f"{ROUTE_NAMES[attn]}; dropout hidden {cfg.hidden_dropout_prob} / attention "
         f"{cfg.attention_probs_dropout_prob}; AdamW lr {trainer.learning_rate}, warmup "
         f"{trainer.warmup_steps}, clip {trainer.max_grad_norm}")
     bundles = []
     for batch in batches[:n_warm]:
         state, bundle = step(state, batch)
         bundles.append(bundle)
+    sync()
+    resident = None if REHEARSAL else torch.cuda.memory_allocated()
     if not REHEARSAL:
         torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -1210,7 +1390,6 @@ def phase_pretrain(device, sizes) -> dict:
     totals = read_counts()
     peak = None if REHEARSAL else torch.cuda.max_memory_allocated()
     layers = cfg.num_hidden_layers
-    attn = "K1" if route.startswith("K1") else "K4"
     check_counts(per_step, totals, {f"{attn}f": layers, f"{attn}b": layers, "K3f": 1,
                                     "K3b": 1, "K2f": 2 * layers + 2,
                                     "K2b": 2 * layers + 2}, n_timed)
@@ -1230,7 +1409,8 @@ def phase_pretrain(device, sizes) -> dict:
         "parameter tensors changed")
     say(f"  {med:.2f} ms/step (median of {n_timed} steps, range {min(ms):.2f}-"
         f"{max(ms):.2f}), {sizes['batch'] / med * 1e3:.2f} examples/s; peak device "
-        f"memory {'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}")
+        f"memory {'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'} (resident "
+        f"before the steps: {'n/a' if resident is None else f'{resident / 2**30:.2f} GiB'})")
     say(f"  analytic FLOPs per step {flops / 1e12:.3f} T (layers' Denses "
         f"{dense / 1e12:.3f}, attention {attention / 1e12:.3f}, tied MLM decoder "
         f"{decoder / 1e12:.3f}); MFU against 989 TFLOP/s bf16: "
@@ -1238,24 +1418,100 @@ def phase_pretrain(device, sizes) -> dict:
     idle = None if REHEARSAL else profile_device(
         lambda: step(state, batches[n_warm]), "pretrain step", kinds=True)
     return {"ms_per_step": med, "counts": totals, "peak_bytes": peak, "idle": idle,
-            "flops": flops}
+            "flops": flops, "trainer": trainer, "state": state,
+            "batch": batches[n_warm]}
 
 
-def phase_pretrain_agreement(device, sizes) -> None:
+def phase_long_eval_and_remat(device, pt) -> None:
+    """One eval_fn batch (K5f without the lse, no K5b) and one forward and
+    backward with ``remat`` against one without, from the long-context
+    phase's parameters, batch and one DropoutRng seed."""
+    trainer, state, host_batch = pt["trainer"], pt["state"], pt["batch"]
+    cfg, layers = trainer.cfg, trainer.cfg.num_hidden_layers
+    say("long-context eval: one eval_fn batch")
+    real_forward, lse_asked = attn_ops._flash_forward, []
+
+    def spy(*args, **kw):
+        out = real_forward(*args, **kw)
+        lse_asked.append(out[1] is not None)
+        return out
+
+    attn_ops._flash_forward = spy
+    try:
+        zero_counts()
+        bundle = trainer.eval_fn()(state["params"], host_batch)
+        counts = read_counts()
+    finally:
+        attn_ops._flash_forward = real_forward
+    say(f"  eval loss {float(bundle['loss']):.4f}; launches K5f {counts['K5f']}, K5b "
+        f"{counts['K5b']}; flash forwards that wrote an lse: {sum(lse_asked)} of "
+        f"{len(lse_asked)}")
+    if not torch.isfinite(bundle["loss"]).all():
+        fail("non-finite eval loss")
+    if any(lse_asked) or len(lse_asked) != layers:
+        fail(f"eval ran {len(lse_asked)} flash forwards, {sum(lse_asked)} with an lse")
+    want = {"K5f": layers, "K3f": 1, "K2f": 2 * layers + 2}
+    if not REHEARSAL and counts != {k: want.get(k, 0) for k in COUNTED}:
+        fail(f"eval launches {counts}; expected {want}")
+
+    say("long-context remat: one forward and backward with remat and one without, "
+        "same parameters, batch and DropoutRng seeds")
+    batch = trainer.to_device(host_batch)
+    remat = PretrainTrainer(cfg.replace(remat=True), device=device)
+    runs = {}
+    for name, tr_ in (("plain", trainer), ("remat", remat)):
+        rng = DropoutRng(masks=torch.Generator(device=device).manual_seed(SEED + 7),
+                         seeds=torch.Generator().manual_seed(SEED + 7))
+        sync()
+        if not REHEARSAL:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t1 = time.perf_counter()
+        bundle, grads = tr_.loss_and_grads(state["params"], batch, rng)
+        sync()
+        seconds = time.perf_counter() - t1
+        counts = read_counts()
+        peak = None if REHEARSAL else torch.cuda.max_memory_allocated() - base
+        runs[name] = (bundle, torch.cat([g.flatten() for g in tree_leaves(grads)]).cpu())
+        del grads
+        say(f"  {name}: loss {float(bundle['loss']):.6f}, {seconds * 1e3:.1f} ms (host "
+            f"clock, one run), peak device memory above the resident state "
+            f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}; launches "
+            f"{', '.join(f'{k} {v}' for k, v in counts.items() if v)}")
+        want = ({"K5f": layers, "K5b": layers, "K3f": 1, "K3b": 1, "K2f": 2 * layers + 2,
+                 "K2b": 2 * layers + 2} if name == "plain" else
+                {"K5f": 2 * layers, "K5b": layers, "K3f": 1, "K3b": 1,
+                 "K2f": 4 * layers + 2, "K2b": 2 * layers + 2})
+        if not REHEARSAL and counts != {k: want.get(k, 0) for k in COUNTED}:
+            fail(f"{name} launches {counts}; expected {want}")
+    (b0, g0), (b1, g1) = runs["plain"], runs["remat"]
+    same = {k: bool(torch.equal(b0[k], b1[k])) for k in b0 if k.endswith("loss")}
+    say(f"  losses equal bit for bit: {same}")
+    if not all(same.values()):
+        fail("the remat step's losses differ from the plain step's")
+    check_close(f"remat gradients vs plain ({g0.numel()} entries)", g1, g0,
+                GRAD_TOL[cfg.dtype])
+
+
+def phase_pretrain_agreement(device, sizes, attn: str = "K4",
+                             what: str = "pretrain agreement", **cfg_kw) -> None:
     """Two fp32 pretrain steps with every dropout at 0 on a 2-item batch at
-    BERT-base width and S > 512 (so K4 runs): the card (kernels) against the
-    CPU (plain twins): the loss bundle, every gradient, and the AdamW update
-    after two steps in units of lr (optax reads the schedule before the step,
-    so the first step moves nothing)."""
-    agree = {**sizes, "batch": 2, "img": sizes["agree_img"]}
+    BERT-base width and S ``text + agree_img`` (S 640: K4 runs; S 896 with
+    ``use_flash_attention``: K5f runs, and the rate-0 backward is the plain
+    recompute): the card (kernels) against the CPU (plain twins): the loss
+    bundle, every gradient, and the AdamW update after two steps in units of
+    lr (optax reads the schedule before the step, so the first step moves
+    nothing)."""
+    agree = {**sizes, "batch": 2, "img": sizes["agree_img"], "img_pad": 0}
     s = agree["text"] + agree["img"]
-    say(f"pretrain agreement: two fp32 steps, dropouts 0, card vs CPU, 2 items at S {s}")
+    say(f"{what}: two fp32 steps, dropouts 0, card vs CPU, 2 items at S {s}")
     rng = np.random.default_rng(SEED + 1)
     batches = [pretrain_batch(rng, agree, sizes["vocab"], 2054, 1601) for _ in range(2)]
     out = {}
     for dev in (device, "cpu"):
         cfg = pretrain_config(sizes, torch.float32, hidden_dropout_prob=0.0,
-                              attention_probs_dropout_prob=0.0)
+                              attention_probs_dropout_prob=0.0, **cfg_kw)
         trainer = PretrainTrainer(cfg, learning_rate=5e-5, total_steps=100, device=dev)
         state = trainer.init_state()
         p0 = [t.clone() for t in tree_leaves(state["params"])]
@@ -1273,11 +1529,15 @@ def phase_pretrain_agreement(device, sizes) -> None:
         out[dev] = (bundles, grads, torch.cat([(p1 - p0_).flatten() for p1, p0_ in
                                                zip(tree_leaves(state["params"]), p0)]).cpu())
     layers = cfg.num_hidden_layers
-    say(f"  launches on {device} (4 forward and backward passes): K4f {counts['K4f']}, "
-        f"K4b {counts['K4b']}, K1f {counts['K1f']}, K3f {counts['K3f']}")
-    if not REHEARSAL and (counts["K4f"], counts["K4b"], counts["K1f"], counts["K3b"]) != (
-            4 * layers, 4 * layers, 0, 4):
-        fail(f"the agreement run on {device} did not go through K4 and K3: {counts}")
+    # Four forward and backward passes; the flash backward at rate 0 is the
+    # plain recompute, as in the JAX package.
+    want = {f"{attn}f": 4 * layers, f"{attn}b": 0 if attn == "K5" else 4 * layers,
+            "K3f": 4, "K3b": 4, "K2f": 4 * (2 * layers + 2), "K2b": 4 * (2 * layers + 2)}
+    say(f"  launches on {device} (4 forward and backward passes): "
+        f"{', '.join(f'{k} {v}' for k, v in counts.items())}")
+    if not REHEARSAL and counts != {k: want.get(k, 0) for k in COUNTED}:
+        fail(f"the agreement run on {device} did not go through {attn} and K3 as "
+             f"expected ({want}): {counts}")
     for i in range(2):
         for key, v in out["cpu"][0][i].items():
             if key.endswith("loss"):
@@ -1306,11 +1566,48 @@ def phase_pretrain_agreement(device, sizes) -> None:
         fail("the AdamW step on the card left parameters unmoved")
 
 
-def kernels_line(times, sl, tr, pt) -> dict:
+def phase_long_dropout_agreement(device, sizes) -> None:
+    """One fp32 forward and backward at S ``text + agree_img`` with attention
+    dropout 0.1 and hidden dropouts 0, card against CPU.  The kernels' hash
+    seeds come from DropoutRng's CPU generator, seeded alike on both sides,
+    so both draw the same masks: K5f and K5b on the card, their twins on the
+    CPU."""
+    agree = {**sizes, "batch": 2, "img": sizes["agree_img"], "img_pad": 0}
+    s = agree["text"] + agree["img"]
+    say(f"long-context dropout agreement: one fp32 step, attention dropout 0.1, hidden "
+        f"dropouts 0, card vs CPU, 2 items at S {s}")
+    host = pretrain_batch(np.random.default_rng(SEED + 2), agree, sizes["vocab"], 2054, 1601)
+    out = {}
+    for dev in (device, "cpu"):
+        cfg = pretrain_config(sizes, torch.float32, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.1, use_flash_attention=True)
+        trainer = PretrainTrainer(cfg, device=dev)
+        rng = DropoutRng(masks=torch.Generator(device=dev).manual_seed(SEED + 8),
+                         seeds=torch.Generator().manual_seed(SEED + 8))
+        zero_counts()
+        bundle, grads = trainer.loss_and_grads(trainer.init_params(SEED), trainer.to_device(host),
+                                               rng)
+        if dev == device:
+            counts = read_counts()
+        out[dev] = (bundle, torch.cat([g.flatten() for g in tree_leaves(grads)]).cpu())
+    layers = cfg.num_hidden_layers
+    say(f"  launches on {device}: {', '.join(f'{k} {v}' for k, v in counts.items())}")
+    want = {"K5f": layers, "K5b": layers, "K3f": 1, "K3b": 1, "K2f": 2 * layers + 2,
+            "K2b": 2 * layers + 2}
+    if not REHEARSAL and counts != {k: want.get(k, 0) for k in COUNTED}:
+        fail(f"the dropout agreement run on {device} did not run K5f and K5b: {counts}")
+    for key, v in out["cpu"][0].items():
+        if key.endswith("loss"):
+            check_close(key, out[device][0][key].cpu(), v, AGREE_TOL)
+    check_close(f"gradients ({out['cpu'][1].numel()} entries)", out[device][1], out["cpu"][1],
+                AGREE_TOL)
+
+
+def kernels_line(times, sl, tr, pt, lc) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
     run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
-    run's."""
+    run's, K5f/K5b at the long-context shape with the long-context run's."""
     runs = sl["runs"][False]
     rows = (sl["ln_rows"], tr["ln_rows"])
     entries = (("fused_attention_packed", ATTN_SOURCE, times["k1"][sl["bucket"]],
@@ -1327,7 +1624,11 @@ def kernels_line(times, sl, tr, pt) -> dict:
                ("fused_attention", (ATTN_SOURCE[0], ATTN4_REPLACES[0]), times["k4"],
                 pt["counts"]["K4f"]),
                ("fused_attention_bwd", (ATTN_SOURCE[0], ATTN4_REPLACES[1]), times["k4b"],
-                pt["counts"]["K4b"]))
+                pt["counts"]["K4b"]),
+               ("flash_attention", (ATTN_SOURCE[0], FLASH_REPLACES[0]), times["k5"],
+                lc["counts"]["K5f"]),
+               ("flash_attention_bwd", (ATTN_SOURCE[0], FLASH_REPLACES[1]), times["k5b"],
+                lc["counts"]["K5b"]))
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -1360,6 +1661,10 @@ def main(argv=None) -> int:
         pre = {"batch": 2, "text": 128, "img": 128, "agree_img": 128, "vocab": 4099,
                "positions": 128, "steps": 2, "dtype": torch.float32,
                "bert": {**sizes["bert"], "fused_packed_max_seq": 128}}
+        # S 896 = 128 text + 768 region slots: past the fused gate, as on the card.
+        long = {**pre, "img": 768, "img_pad": 8, "agree_img": 768}
+        flash = {"batch": 2, "heads": 2, "head_dim": 64, "seq": 256, "pad": 8,
+                 "long_batch": 1, "long_seq": 512, "cross": (128, 256), "fused_seq": 256}
     else:
         device = "cuda"
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
@@ -1372,11 +1677,16 @@ def main(argv=None) -> int:
         attn4 = {"batch": 16, "heads": 12, "head_dim": 64, "seq": 768}
         pre = {"batch": 16, "text": 512, "img": 256, "agree_img": 128, "vocab": 30525,
                "positions": 768, "steps": 5, "dtype": torch.bfloat16, "bert": {}}
+        # The long-context cell: 512 text + 512 region slots (36 views x 14
+        # regions = 504, bucketed by 64) = S 1024; agreement at S 896.
+        long = {**pre, "img": 512, "img_pad": 8, "agree_img": 384}
+        flash = {"batch": 16, "heads": 12, "head_dim": 64, "seq": 1024, "pad": 8,
+                 "long_batch": 2, "long_seq": 4096, "cross": (512, 1024), "fused_seq": 768}
     dev_info = phase_device()
     phase_build()
     times = {"k1": phase_k1(device, attn), "k2": phase_k2(device, ln),
              "k1b": phase_k1b(device, attn), "k2b": phase_k2b(device, ln),
-             **phase_k3(device, ce), **phase_k4(device, attn4)}
+             **phase_k3(device, ce), **phase_k4(device, attn4), **phase_k5(device, flash)}
     sl = phase_serving(device, sizes)
     sl["ln_rows"] = sizes["batch"] * sl["bucket"]
     phase_agreement(device, sizes, sl)
@@ -1384,7 +1694,15 @@ def main(argv=None) -> int:
     tr["ln_rows"] = sizes["batch"] * tr["bucket"]
     phase_train_agreement(device, sizes, sl)
     pt = phase_pretrain(device, pre)
+    del pt["trainer"], pt["state"]  # the long-context phase's peak memory is its own
     phase_pretrain_agreement(device, pre)
+    lc = phase_pretrain(device, long, "K5", "long-context pretrain: the pretraining "
+                        f"step at S {long['text'] + long['img']}", use_flash_attention=True)
+    phase_long_eval_and_remat(device, lc)
+    del lc["trainer"], lc["state"]
+    phase_pretrain_agreement(device, long, "K5", "long-context agreement",
+                             use_flash_attention=True)
+    phase_long_dropout_agreement(device, long)
     # Kernel times at a path's bucket, where the shape phases did not cover it.
     for key, phase, bucket, rows in (("k1", phase_k1, sl["bucket"], None),
                                      ("k2", phase_k2, None, sl["ln_rows"]),
@@ -1398,7 +1716,7 @@ def main(argv=None) -> int:
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if REHEARSAL:
         return 0
-    print(json.dumps(kernels_line(times, sl, tr, pt)), flush=True)
+    print(json.dumps(kernels_line(times, sl, tr, pt, lc)), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

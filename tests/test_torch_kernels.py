@@ -273,3 +273,78 @@ def test_k4_autograd_on_card_counts_launches(cuda):
     want = tatt.fused_attention(*_views4(ref, h, d), kb.cpu(), 5, 0.1)
     (gw,) = torch.autograd.grad(want.transpose(1, 2).flatten(2).square().sum(), ref)
     torch.testing.assert_close(gq.cpu(), gw, atol=1e-4, rtol=1e-4)
+
+
+# -- K5: flash attention, Q and K lengths of their own ------------------------------
+
+FLASH_LENGTHS = [(256, 256), (128, 384), (384, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", FLASH_LENGTHS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_kernels_match_twins_on_card(cuda, dtype, d, sq, sk):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    b, h = 3, 2
+    # q/k/v as (B, H, S, D) views of packed projections, as the model has them.
+    q = _views4(torch.randn(b, sq, 3 * h * d, generator=g, device=cuda).to(dtype), h, d)[0]
+    _, k, v = _views4(torch.randn(b, sk, 3 * h * d, generator=g, device=cuda).to(dtype),
+                      h, d)
+    dout = torch.randn(b, h, sq, d, generator=g, device=cuda).to(dtype)
+    kb = torch.where(torch.arange(sk, device=cuda)[None] < torch.tensor(
+        [[sk], [sk - 100], [1]], device=cuda), 0.0, NEG_INF).float()
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+    gatol, grtol = _grad_tol(dtype)
+    for rate, seed in ((0.0, None), (0.1, 99)):
+        out, lse = tatt._flash_forward(q, k, v, kb, seed, rate, need_lse=True)
+        want, want_lse = tatt.flash_attention_reference(q, k, v, kb, seed, rate, True)
+        assert out.shape == (b, h, sq, d)
+        torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+        assert torch.equal(tatt.flash_attention(q, k, v, kb, seed, rate), out)
+        if sq == sk:  # one body with K4f: equal bit for bit on the same data
+            assert torch.equal(tatt.fused_attention(q, k, v, kb, seed, rate), out)
+        grads = tatt.flash_attention_bwd(q, k, v, kb, out, dout, lse, seed, rate)
+        wants = tatt.flash_attention_bwd_reference(q, k, v, kb, out, dout, lse, seed, rate)
+        for name, x, y in zip(("dq", "dk", "dv"), grads, wants):
+            assert x.shape == y.shape
+            torch.testing.assert_close(x.float(), y.float(), atol=gatol, rtol=grtol,
+                                       msg=lambda m: f"{name} rate {rate}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate,seed", [(0.1, 5), (0.0, None)])
+def test_k5_autograd_on_card_counts_launches(cuda, rate, seed):
+    """K5f forward; K5b backward at rate > 0, the plain recompute at rate 0."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    h, d = 2, 64
+    qkv = torch.randn(2, 1024, 3 * h * d, generator=g, device=cuda, requires_grad=True)
+    kb = torch.zeros(2, 1024, device=cuda)
+    kb[1, 1000:] = NEG_INF
+    counters = (tatt.flash_attention, tatt.flash_attention_bwd, tatt.fused_attention,
+                tatt.fused_attention_bwd)
+    before = [c.launches for c in counters]
+    out = tatt.flash_attention(*_views4(qkv, h, d), kb, seed, rate)
+    (gq,) = torch.autograd.grad(out.transpose(1, 2).flatten(2).square().sum(), qkv)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, int(rate > 0), 0, 0]
+    ref = qkv.detach().cpu().requires_grad_()
+    want = tatt.flash_attention(*_views4(ref, h, d), kb.cpu(), seed, rate)
+    (gw,) = torch.autograd.grad(want.transpose(1, 2).flatten(2).square().sum(), ref)
+    torch.testing.assert_close(gq.cpu(), gw, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_k5_refuses_unsupported_cuda_tensors(cuda):
+    q = torch.zeros(1, 2, 256, 64, device=cuda)
+    kb = torch.zeros(1, 256, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tatt.flash_attention(q[:, :, :200], q, q, kb)
+    with pytest.raises(ValueError, match="key_bias"):
+        tatt.flash_attention(q, q, q, kb[:, :128])
+    with pytest.raises(ValueError, match="dtype"):
+        tatt.flash_attention(q.half(), q.half(), q.half(), kb)
+    base = torch.zeros(1, 2, 256, 72, dtype=torch.bfloat16, device=cuda)
+    x = base[..., 4:68]  # rows 8 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        tatt.flash_attention(x, x, x, kb)

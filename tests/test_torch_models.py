@@ -13,6 +13,8 @@ from torch.func import functional_call
 
 from visitron_torch import convert
 from visitron_torch import models as tm
+from visitron_torch.models import bert as tbert
+from visitron_torch.models.layers import init_module_params
 from visitron_tpu import models as jm
 from visitron_tpu.models import lstm as jlstm
 
@@ -120,15 +122,30 @@ def test_convert_refuses_missing_and_extra_keys():
         convert.flax_to_state_dict(wrong, module)
 
 
-def test_port_modules_refuse_unported_paths():
+def test_port_modules_refuse_unported_paths(monkeypatch):
     bert = tm.VisitronBert(tm.BertConfig(**CFG))
     ids = torch.zeros(1, 8, dtype=torch.int64)
-    # Image fusion is ported; the flash kernels (K5), which the JAX package
-    # runs where the fused gate refuses a shape, are not.
+    # Image fusion and the flash kernels (K5), which the JAX package runs
+    # where the fused gate refuses a shape, are ported: with the fused
+    # kernels off, S 128 goes through flash and matches plain attention
+    # (fp32, dropouts off) on the same parameters.
     flash = tm.VisitronBert(tm.BertConfig(**{**CFG, "use_fused_attention": False,
                                              "use_flash_attention": True}))
-    with pytest.raises(NotImplementedError, match="flash"):
-        flash(torch.zeros(1, S, dtype=torch.int64))
+    plain = tm.VisitronBert(tm.BertConfig(**{**CFG, "use_fused_attention": False}))
+    sd = init_module_params(flash, torch.Generator().manual_seed(4))
+    ids_s, segs, lengths = (_t(a) for a in _dialog(5))
+    kw = {"token_type_ids": segs,
+          "attention_mask": (torch.arange(S)[None] < lengths[:, None]).int()}
+    calls = []
+    real = tbert.flash_attention
+    monkeypatch.setattr(tbert, "flash_attention",
+                        lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    with torch.inference_mode():
+        got = functional_call(flash, sd, (ids_s,), kw)
+        want = functional_call(plain, sd, (ids_s,), kw)
+    assert len(calls) == CFG["num_hidden_layers"]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=ATOL, rtol=0)
     with pytest.raises(NotImplementedError):
         bert(ids, history_states=[torch.zeros(1, 2, 128)] * 2)
     with pytest.raises(NotImplementedError):

@@ -7,11 +7,17 @@ relative, every gradient 1e-4), two ``PretrainTrainer`` steps against the
 JAX trainer on a one-device mesh, and a short training run whose loss falls.
 
 Tiny config: 2 layers, hidden 128 (2 heads of 64), image features of 24
-dims.  Two joint lengths: 128 text + 128 image tokens with
+dims.  Joint lengths: 128 text + 128 image tokens with
 ``fused_packed_max_seq`` 128, where the port takes the fused gate and runs
-its (B, H, S, D) attention (K4's twin here), and 64 + 40, which the gate
-refuses, so the plain attention runs; the JAX package runs its plain
-attention on the CPU in both.
+its (B, H, S, D) attention (K4's twin here); 64 + 40, which the gate
+refuses, so the plain attention runs; and, with ``use_flash_attention``,
+512 + 384 = S 896 (the shortest length the fused gate refuses) and 128 +
+128 with the fused kernels off, where the port runs the flash attention
+(K5's twin).  The JAX package runs its plain attention on the CPU in all.
+The long-context slice adds ``PretrainDataset`` batches at S 1024 (512 text
++ 14 x 36 = 504 regions, bucketed to 512) and per-layer rematerialisation
+(``remat``): on and off agree to 1e-6 with the training dropouts, and
+against the JAX package's ``remat=True``.
 """
 
 import jax
@@ -25,6 +31,8 @@ from visitron_torch import data as td
 from visitron_torch import geometry as tgeo
 from visitron_torch.convert import convert_pretrain_params
 from visitron_torch.models import BertConfig as TConfig
+from visitron_torch.models import bert as tbert
+from visitron_torch.models.layers import DropoutRng
 from visitron_torch.ops import attention as tatt
 from visitron_torch.pipelines import generate_pretrain_examples as t_generate
 from visitron_torch.testing import SyntheticWorld as TWorld
@@ -100,12 +108,31 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-CASES = {"fused": dict(s_text=128, s_img=128, cfg={"fused_packed_max_seq": 128}),
-         "plain": dict(s_text=64, s_img=40, cfg={})}
+CASES = {"fused": dict(s_text=128, s_img=128, cfg={"fused_packed_max_seq": 128},
+                       route="fused_attention"),
+         "plain": dict(s_text=64, s_img=40, cfg={}, route="multi_head_attention"),
+         "flash": dict(s_text=512, s_img=384, cfg={"use_flash_attention": True},
+                       route="flash_attention"),
+         "flash_unfused": dict(s_text=128, s_img=128,
+                               cfg={"use_fused_attention": False,
+                                    "use_flash_attention": True},
+                               route="flash_attention")}
+ROUTES = ("fused_attention_packed", "fused_attention", "flash_attention",
+          "multi_head_attention")
+
+
+def _spy_routes(monkeypatch) -> list:
+    """The names of the attention cores BertSelfAttention calls, in order."""
+    calls = []
+    for name in ROUTES:
+        fn = getattr(tbert, name)
+        monkeypatch.setattr(tbert, name, lambda *a, _fn=fn, _n=name, **k: (
+            calls.append(_n), _fn(*a, **k))[1])
+    return calls
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_pretrain_model_and_loss_match_jax(case):
+def test_pretrain_model_and_loss_match_jax(case, monkeypatch):
     c = CASES[case]
     s = c["s_text"] + c["s_img"]
     kw = {**SMALL, "max_position_embeddings": c["s_text"], **c["cfg"]}
@@ -120,14 +147,16 @@ def test_pretrain_model_and_loss_match_jax(case):
                               batch["img_location_embeddings"][:1]))
     trainer = TTrainer(tcfg, device="cpu")
     params = convert_pretrain_params(_np_tree(jparams), trainer.model)
-    assert tatt.attention_supports_fused(s, s, 64) == (case == "fused")
+    assert tatt.attention_supports_fused(s, s, 64) == (case in ("fused", "flash_unfused"))
 
     jout = _jax_forward(jmodel, jparams, batch)
     tb = trainer.to_device(batch)
+    calls = _spy_routes(monkeypatch)
     with torch.no_grad():
         tout = functional_call(trainer.model, params, (tb["input_ids"],),
                                {k: tb[k] for k in ("token_type_ids", "attention_mask",
                                                    "img_feats", "img_location_embeddings")})
+    assert calls == [c["route"]] * kw["num_hidden_layers"]
     for key in ("mlm_logits", "action_logits", "token_logits", "sequence_output"):
         np.testing.assert_allclose(tout[key].numpy(), np.asarray(jout[key]), atol=1e-4,
                                    rtol=0, err_msg=key)
@@ -156,7 +185,20 @@ def test_two_trainer_steps_match_the_jax_trainer():
     agrees to 1e-2 lr where both gradients exceed 1e-4 (and moves there),
     and to 3 lr everywhere (Adam's second step moves a parameter by at most
     ~1.1 lr)."""
-    kw = {**SMALL, "max_position_embeddings": 128, "fused_packed_max_seq": 128}
+    _check_two_steps({**SMALL, "max_position_embeddings": 128,
+                      "fused_packed_max_seq": 128})
+
+
+def test_two_trainer_steps_with_flash_match_the_jax_trainer(monkeypatch):
+    """The same with ``use_flash_attention`` set and the fused kernels off:
+    every self-attention of the port's steps runs the flash attention."""
+    calls = _spy_routes(monkeypatch)
+    _check_two_steps({**SMALL, "max_position_embeddings": 128,
+                      "use_fused_attention": False, "use_flash_attention": True})
+    assert set(calls) == {"flash_attention"}
+
+
+def _check_two_steps(kw):
     jcfg, tcfg = jm.BertConfig(**kw), TConfig(**kw)
     batches = [_batch(seed, 2, 128, 128, kw["vocab_size"], kw["detector_classes"])
                for seed in (2, 3)]
@@ -289,3 +331,114 @@ def test_trainer_refuses_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TTrainer(cfg)
+
+
+# -- the long-context slice: S 1024 batches and rematerialisation ------------------
+
+def test_long_context_batches_match_jax_at_s1024(tmp_path_factory):
+    """``PretrainDataset(regions_per_view=14, max_img_seq_length=512)`` over a
+    world with 14 regions per view: 36 x 14 = 504 regions, bucketed by 64 to
+    512, after 512 text tokens: S 1024 with the last 8 region slots masked.
+    The two packages' batches are equal byte for byte."""
+    kw = dict(seed=6, num_scans=1, viewpoints_per_scan=10, scene_feat_dim=8,
+              region_feat_dim=IMG_DIM, regions_per_view=14)
+    vocab = jd.build_wordpiece_vocab([" ".join(_WORDS), " ".join(_TARGETS)], vocab_size=256)
+    hfov = tgeo.camera_hfov(640, 480, np.radians(60))
+    batches = {}
+    for name, world_cls, pkg, store_cls, generate, ds_cls in (
+            ("jax", JWorld, jd, JStore, j_generate, JDataset),
+            ("torch", TWorld, td, td.RegionFeatureStore, t_generate, td.PretrainDataset)):
+        world = world_cls(**kw)
+        root = world.write_task_data(str(tmp_path_factory.mktemp(name)), counts={"train": 3})
+        records = generate(root, ["train"], "NDH", world.graphs,
+                           pkg.build_candidate_tables(world.graphs, hfov))
+        ds = ds_cls(records, pkg.WordPieceTokenizer(vocab),
+                    region_store=store_cls(*world.region_features()),
+                    detector_classes=["__background__"] + _TARGETS,
+                    masked_token_prediction=True, max_seq_length=512,
+                    max_img_seq_length=512, regions_per_view=14,
+                    region_feat_dim=IMG_DIM, seed=4)
+        batches[name] = list(ds.epoch_batches(2))
+    assert len(batches["torch"]) == len(batches["jax"]) >= 2
+    for jb, tb in zip(batches["jax"], batches["torch"]):
+        assert jb.keys() == tb.keys()
+        for key in jb:
+            assert tb[key].dtype == jb[key].dtype, key
+            np.testing.assert_array_equal(tb[key], jb[key], err_msg=key)
+    assert tb["labels"].shape == (2, 1024) and tb["img_feats"].shape == (2, 512, IMG_DIM)
+    assert (tb["attention_mask"][:, 512:1016] == 1).all()
+    assert (tb["attention_mask"][:, 1016:] == 0).all()
+    assert tatt.attention_supports_flash(1024, 1024, 64)
+    assert not tatt.attention_supports_fused(1024, 1024, 64)
+
+
+def _remat_run(cfg_kw, batch, remat: bool, seed: int = 21):
+    """(bundle, grads) of the port's trainer at ``remat`` from one parameter
+    seed and one ``DropoutRng`` seed."""
+    trainer = TTrainer(TConfig(**{**cfg_kw, "remat": remat}), device="cpu")
+    params = trainer.init_params(seed)
+    rng = DropoutRng(masks=torch.Generator().manual_seed(seed + 1),
+                     seeds=torch.Generator().manual_seed(seed + 1))
+    return trainer.loss_and_grads(params, trainer.to_device(batch), rng)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_remat_on_and_off_agree_with_the_dropouts(flash, monkeypatch):
+    """Dropouts at 0.1 and one DropoutRng seed: the recompute replays the
+    layer's kernel seeds and hidden-dropout masks, so the loss and every
+    gradient agree (1e-6).  With flash at S 256 (fused off) the attention is
+    K5's twin; without, S 104 takes the plain attention, whose mask comes
+    from the mask generator too."""
+    s_text, s_img = (128, 128) if flash else (64, 40)
+    kw = {**SMALL, "max_position_embeddings": s_text, "hidden_dropout_prob": 0.1,
+          "attention_probs_dropout_prob": 0.1, "use_fused_attention": not flash,
+          "use_flash_attention": flash}
+    batch = _batch(7, 2, s_text, s_img, kw["vocab_size"], kw["detector_classes"])
+    calls = _spy_routes(monkeypatch)
+    plain_bundle, plain_grads = _remat_run(kw, batch, remat=False)
+    n = len(calls)
+    remat_bundle, remat_grads = _remat_run(kw, batch, remat=True)
+    # The remat run's forward calls each layer's attention once, and its
+    # backward once more (the recompute).
+    assert calls[:n] == calls[n:n + n] and len(calls) == 3 * n
+    assert set(calls) == {"flash_attention" if flash else "multi_head_attention"}
+    for key, v in plain_bundle.items():
+        np.testing.assert_allclose(float(remat_bundle[key]), float(v), rtol=1e-6,
+                                   atol=1e-6, err_msg=key)
+    assert set(remat_grads) == set(plain_grads)
+    for name, g in plain_grads.items():
+        np.testing.assert_allclose(remat_grads[name].numpy(), g.numpy(), atol=1e-6,
+                                   rtol=0, err_msg=name)
+    # Another DropoutRng seed draws other masks: the loss moves.
+    other, _ = _remat_run(kw, batch, remat=True, seed=22)
+    assert float(other["loss"]) != float(remat_bundle["loss"])
+
+
+def test_remat_matches_jax_remat():
+    """``remat=True`` in both packages at dropouts 0, through flash at S 256
+    (fused off): loss bundle 1e-5 relative, every gradient 1e-4."""
+    kw = {**SMALL, "max_position_embeddings": 128, "use_fused_attention": False,
+          "use_flash_attention": True, "remat": True}
+    jcfg, tcfg = jm.BertConfig(**kw), TConfig(**kw)
+    batch = _batch(8, 2, 128, 128, kw["vocab_size"], kw["detector_classes"])
+    jmodel = jm.PretrainModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(3), *(jnp.asarray(batch[k][:1]) for k in (
+        "input_ids",)), token_type_ids=jnp.asarray(batch["token_type_ids"][:1]),
+        attention_mask=jnp.asarray(batch["attention_mask"][:1]),
+        img_feats=jnp.asarray(batch["img_feats"][:1]),
+        img_location_embeddings=jnp.asarray(batch["img_location_embeddings"][:1]))
+
+    def jloss(p):
+        bundle = _jax_bundle(jmodel, jcfg, p, batch)
+        return bundle["loss"], bundle
+
+    (_, jbundle), jgrads = jax.value_and_grad(jloss, has_aux=True)(jparams)
+    trainer = TTrainer(tcfg, device="cpu")
+    params = convert_pretrain_params(_np_tree(jparams), trainer.model)
+    tbundle, tgrads = trainer.loss_and_grads(params, trainer.to_device(batch), None)
+    for key, v in jbundle.items():
+        np.testing.assert_allclose(float(tbundle[key]), float(v), rtol=1e-5, err_msg=key)
+    jgrads = convert_pretrain_params(_np_tree(jgrads), trainer.model)
+    for name, g in tgrads.items():
+        np.testing.assert_allclose(g.numpy(), jgrads[name].numpy(), atol=1e-4, rtol=0,
+                                   err_msg=name)

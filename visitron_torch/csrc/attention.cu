@@ -1,5 +1,13 @@
-// Fused self-attention for Hopper (sm_90a): forward (K1f, K4f) and, further
-// down, backward (K1b, K4b).
+// Attention for Hopper (sm_90a): forward (K1f, K4f, K5f) and, further down,
+// backward (K1b, K4b, K5b).
+//
+// The fused self-attention kernels (K1, K4) and the flash kernels (K5) share
+// one set of device bodies.  Every kernel takes the query length SQ and the
+// key length SK separately; K1 and K4 pass SQ = SK = S (self-attention), K5
+// any pair (both multiples of 128 at its gate; the kernels themselves take
+// any length and are not sized by it).  The entries differ in the
+// backward's D_i (see the backward's note): K1b/K4b sum it in the dq kernel,
+// K5b reads the rowsum(out * dO) that its wrapper computed.
 //
 // Replaces: visitron_tpu/ops/attention.py:_fused_packed_fwd_kernel, reached
 // through _fused_packed_forward (the Pallas call of fused_attention_packed),
@@ -17,13 +25,21 @@
 //   a = where(keep(q, k), a, 0) / (1 - rate)  (optional hash dropout)
 //   out_h = a.astype(v.dtype) @ v_h           (fp32 accumulation)
 // plus, on request, lse = m + log(l) per row as (B*H, S) fp32.
+// K5f (visitron_tpu/ops/attention.py:_fwd_kernel, reached through
+// _flash_forward, the Pallas call of flash_attention) computes the same
+// function with Q and K lengths of their own: p = exp(s - m) unnormalised,
+// dropped, rounded to v's dtype for the PV product, out = acc / l and
+// lse = m + log(l), both guarded where l == 0.  It is the same body: the TPU
+// flash kernel's 128 x 128 blocks are an online softmax over key blocks too,
+// and the mask hashes absolute coordinates, so any tiling gives its bits.
 //
 // What bounds it on an H100: at the serving shapes (B = 64, S = 256..512,
 // H = 12, D = 64, bf16) the bytes (q/k/v/out once each) and the arithmetic
 // (4*B*H*S^2*D at the bf16 tensor-core rate) give bounds of the same order,
 // a few tens of microseconds; bytes are the larger.  At the pretraining
 // shapes of K4 (B 16, S 768, 12 x 64, bf16) the operations are: 29 GFLOP
-// against 75 MB.
+// against 75 MB; at K5's long-context shape (B 16, S 1024) 51.5 GFLOP
+// against 101 MB.
 //
 // Design against what the TPU kernel relied on: the Pallas kernel keeps a
 // whole (S, S) fp32 score matrix per head in VMEM (1 MB at S = 512), which no
@@ -100,8 +116,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v,
                           const float* __restrict__ key_bias,
-                          float* __restrict__ out, float* __restrict__ lse, int S,
-                          int H, AttnStrides st, uint32_t seed, uint32_t thr,
+                          float* __restrict__ out, float* __restrict__ lse, int SQ,
+                          int SK, int H, AttnStrides st, uint32_t seed, uint32_t thr,
                           float inv_keep, int dropout, float sm_scale) {
   constexpr int DP = D + 4;      // padded fp32 row: 16-byte aligned, conflict-free float4
   constexpr int PP = kBK + 4;
@@ -119,7 +135,7 @@ attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  const float* bias = key_bias + static_cast<long long>(b) * S;
+  const float* bias = key_bias + static_cast<long long>(b) * SK;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
   // This block's head: every operand from here on is its (S, D) slice.
   q += head_off(st.q, b, h);
@@ -129,7 +145,7 @@ attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, s = q0 + r;
-    Qs[r * DP + d] = s < S ? q[s * st.q.s + d] : 0.f;
+    Qs[r * DP + d] = s < SQ ? q[s * st.q.s + d] : 0.f;
   }
 
   float m[kRows], l[kRows], o[kRows][DPL];
@@ -143,11 +159,11 @@ attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const float* qrow0 = Qs + (warp * kRows) * DP;
   float* prow0 = Ps + (warp * kRows) * PP;
 
-  for (int k0 = 0; k0 < S; k0 += kBK) {
+  for (int k0 = 0; k0 < SK; k0 += kBK) {
     __syncthreads();  // the previous tile's K/V reads are done
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, d = i % D, s = k0 + r;
-      const bool ok = s < S;
+      const bool ok = s < SK;
       Ks[r * DP + d] = ok ? k[s * st.k.s + d] : 0.f;
       Vs[r * D + d] = ok ? v[s * st.v.s + d] : 0.f;
     }
@@ -170,17 +186,17 @@ attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     const int c0 = k0 + lane, c1 = k0 + lane + 32;
-    const float b0 = c0 < S ? bias[c0] : 0.f;
-    const float b1 = c1 < S ? bias[c1] : 0.f;
+    const float b0 = c0 < SK ? bias[c0] : 0.f;
+    const float b1 = c1 < SK ? bias[c1] : 0.f;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float s0 = c0 < S ? sc[r][0] * sm_scale + b0 : -INFINITY;
-      const float s1 = c1 < S ? sc[r][1] * sm_scale + b1 : -INFINITY;
+      const float s0 = c0 < SK ? sc[r][0] * sm_scale + b0 : -INFINITY;
+      const float s1 = c1 < SK ? sc[r][1] * sm_scale + b1 : -INFINITY;
       float mx = fmaxf(s0, s1);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);  // finite: key k0 < S is in every tile
+      const float m_new = fmaxf(m[r], mx);  // finite: key k0 < SK is in every tile
       const float corr = expf(m[r] - m_new);
       float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       float ps = p0 + p1;
@@ -236,32 +252,33 @@ attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int s = q0 + warp * kRows + r;
-    if (s >= S) continue;
-    const float inv = 1.f / l[r];
+    if (s >= SQ) continue;
+    const float lr = l[r] == 0.f ? 1.f : l[r];  // the TPU kernels' l == 0 guard
+    const float inv = 1.f / lr;
     float* orow = out + s * st.o.s + lane * DPL;
 #pragma unroll
     for (int t = 0; t < DPL; ++t) orow[t] = o[r][t] * inv;
     if (lse != nullptr && lane == 0)
-      lse[(static_cast<long long>(b) * H + h) * S + s] = m[r] + logf(l[r]);
+      lse[(static_cast<long long>(b) * H + h) * SQ + s] = m[r] + logf(lr);
   }
 }
 
 template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
-                        const void* key_bias, void* out, void* lse, int B, int S,
-                        int H, const AttnStrides& st, uint32_t seed, uint32_t thr,
-                        float inv_keep, int dropout, float sm_scale,
+                        const void* key_bias, void* out, void* lse, int B, int SQ,
+                        int SK, int H, const AttnStrides& st, uint32_t seed,
+                        uint32_t thr, float inv_keep, int dropout, float sm_scale,
                         cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((SQ + kBQ - 1) / kBQ, H, B);
   attention_fwd_fp32<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(key_bias),
-      static_cast<float*>(out),
-      static_cast<float*>(lse), S, H, st, seed, thr, inv_keep, dropout, sm_scale);
+      static_cast<float*>(out), static_cast<float*>(lse), SQ, SK, H, st, seed, thr,
+      inv_keep, dropout, sm_scale);
   return cudaGetLastError();
 }
 
@@ -339,8 +356,8 @@ attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ v,
                          const float* __restrict__ key_bias,
                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                         int S, int H, AttnStrides st, uint32_t seed, uint32_t thr,
-                         float inv_keep, int dropout, float sm_scale) {
+                         int SQ, int SK, int H, AttnStrides st, uint32_t seed,
+                         uint32_t thr, float inv_keep, int dropout, float sm_scale) {
   constexpr int LD = D + 8;
   constexpr int KSTEPS = D / 16;  // k-steps of the QK^T product
   constexpr int NT = D / 8;       // n-tiles of the output
@@ -358,7 +375,7 @@ attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // fragment column pair
-  const float* bias = key_bias + static_cast<long long>(b) * S;
+  const float* bias = key_bias + static_cast<long long>(b) * SK;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
   // This block's head: every operand from here on is its (S, D) slice.
   q += head_off(st.q, b, h);
@@ -366,7 +383,7 @@ attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
   v += head_off(st.v, b, h);
   out += head_off(st.o, b, h);
 
-  load_tile<D>(Qs, q, st.q.s, q0, S, tid);
+  load_tile<D>(Qs, q, st.q.s, q0, SQ, tid);
   __syncthreads();
   uint32_t qa[KSTEPS][4];
   const __nv_bfloat16* qw = Qs + (warp * 16) * LD;
@@ -384,10 +401,10 @@ attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  for (int k0 = 0; k0 < S; k0 += kBK) {
+  for (int k0 = 0; k0 < SK; k0 += kBK) {
     __syncthreads();  // the previous tile's K/V reads are done
-    load_tile<D>(Ks, k, st.k.s, k0, S, tid);
-    load_tile<D>(Vs, v, st.v.s, k0, S, tid);
+    load_tile<D>(Ks, k, st.k.s, k0, SK, tid);
+    load_tile<D>(Vs, v, st.v.s, k0, SK, tid);
     __syncthreads();
 
     float sc[KT][4];
@@ -407,7 +424,7 @@ attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = k0 + j * 8 + 2 * t + e;
-        const bool ok = key < S;
+        const bool ok = key < SK;
         const float kb = ok ? bias[key] : 0.f;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -422,7 +439,7 @@ attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);  // finite: key k0 < S is in every tile
+      const float m_new = fmaxf(m[r], mx[r]);  // finite: key k0 < SK is in every tile
       corr[r] = expf(m[r] - m_new);
       m[r] = m_new;
     }
@@ -476,34 +493,35 @@ attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= S) continue;
-    const float inv = 1.f / l[r];
+    if (rows[r] >= SQ) continue;
+    const float lr = l[r] == 0.f ? 1.f : l[r];  // the TPU kernels' l == 0 guard
+    const float inv = 1.f / lr;
     __nv_bfloat16* orow = out + rows[r] * st.o.s + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
           pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
     if (lse != nullptr && t == 0)
-      lse[(static_cast<long long>(b) * H + h) * S + rows[r]] = m[r] + logf(l[r]);
+      lse[(static_cast<long long>(b) * H + h) * SQ + rows[r]] = m[r] + logf(lr);
   }
 }
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const void* key_bias, void* out, void* lse, int B, int S,
-                       int H, const AttnStrides& st, uint32_t seed, uint32_t thr,
-                       float inv_keep, int dropout, float sm_scale,
+                       const void* key_bias, void* out, void* lse, int B, int SQ,
+                       int SK, int H, const AttnStrides& st, uint32_t seed,
+                       uint32_t thr, float inv_keep, int dropout, float sm_scale,
                        cudaStream_t stream) {
   const int smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((SQ + kBQ - 1) / kBQ, H, B);
   attention_fwd_mma<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, st, seed,
-      thr, inv_keep, dropout, sm_scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), SQ, SK, H, st,
+      seed, thr, inv_keep, dropout, sm_scale);
   return cudaGetLastError();
 }
 
@@ -522,6 +540,13 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 //   ds   = (a * (da - D_i) * scale).astype(dtype)
 //   dq   = ds k,  dk = ds^T q            (fp32 accumulation, stored in dtype)
 // The key bias gets no gradient.
+// K5b (visitron_tpu/ops/attention.py:_bwd_dkv_kernel and _bwd_dq_kernel,
+// reached through _flash_bwd_rule) computes the same with Q and K lengths of
+// their own and one difference: D_i = rowsum(out * dO) in fp32 from the
+// rounded output, which its wrapper computes with one torch reduction, as
+// the rule computes di in XLA outside its two Pallas kernels.  Given D_i,
+// the dq kernel skips its first walk, so the two launches do 7 products per
+// head (the TPU kernels' 7; 5 are the minimum).
 //
 // What bounds it on an H100: at the train shapes (B 64, S 256..512, 12 x 64,
 // bf16) the operations.  Reading q, k, v, dO and the lse and writing dq, dk,
@@ -533,12 +558,13 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // one program.  No SM has room for that, and blocks cannot carry sums across
 // the grid, so the work is split flash-style into two launches that need no
 // atomics (results are the same run to run):
-//   1. dq, one block per (b, h, 64-query tile): a first walk over the key
-//      tiles sums D_i = sum_j a_eff dp (the TPU kernel's formula, not the
-//      flash shortcut rowsum(dO * out): with out rounded to bf16 that
-//      shortcut leaves ds = O(2^-9 |dp|) where the exact ds is 0, e.g. for a
-//      query with a single unmasked key) and writes it; a second walk forms
-//      ds and accumulates dq;
+//   1. dq, one block per (b, h, 64-query tile): for K1b/K4b a first walk
+//      over the key tiles sums D_i = sum_j a_eff dp (the fused TPU kernels'
+//      formula, not the flash shortcut rowsum(dO * out): with out rounded
+//      to bf16 that shortcut leaves ds = O(2^-9 |dp|) where the exact ds is
+//      0, e.g. for a query with a single unmasked key) and writes it; for
+//      K5b, whose TPU kernels take the shortcut, D_i comes in; a second
+//      walk forms ds and accumulates dq;
 //   2. dk/dv, one block per (b, h, 64-key tile), looping over query tiles
 //      and reading D_i.
 // Both recompute s, a and the murmur3 keep mask from q, k, the bias, the lse
@@ -546,8 +572,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // addressed through its own strides: q, k, v are views of the fused QKV
 // projection, dO is what autograd hands back, dq, dk, dv are allocated
 // (B, S, H, D) by the wrapper.  At S = 768 (K4b) both passes of the dq kernel
-// walk 12 key tiles and the dk/dv kernel 12 query tiles; nothing in the
-// kernels is sized by S.
+// walk 12 key tiles and the dk/dv kernel 12 query tiles; at S = 1024 (K5b)
+// the one pass walks 16; nothing in the kernels is sized by S.
 // bf16: mma.sync m16n8k16 as in the forward, four warps of 16 rows; tiles in
 // padded shared memory, A fragments read from it per k-step.  fp32: FMA on the
 // CUDA cores, 256 threads, each owning a 4 x 4 block of the score tile and a
@@ -615,8 +641,9 @@ attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ dout,
                             const float* __restrict__ lse,
                             __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
-                            int S, int H, AttnStrides st, uint32_t seed, uint32_t thr,
-                            float inv_keep, int dropout, float sm_scale) {
+                            int delta_given, int SQ, int SK, int H, AttnStrides st,
+                            uint32_t seed, uint32_t thr, float inv_keep, int dropout,
+                            float sm_scale) {
   constexpr int LD = D + 8;
   constexpr int NT = D / 8;
   constexpr int KT = kBK / 8;
@@ -634,8 +661,8 @@ attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const long long row_bh = (static_cast<long long>(b) * H + h) * S;
-  const float* bias = key_bias + static_cast<long long>(b) * S;
+  const long long row_bh = (static_cast<long long>(b) * H + h) * SQ;
+  const float* bias = key_bias + static_cast<long long>(b) * SK;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
   // This block's head: every operand from here on is its (S, D) slice.
   q += head_off(st.q, b, h);
@@ -644,24 +671,29 @@ attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
   dout += head_off(st.dout, b, h);
   dq += head_off(st.dq, b, h);
 
-  load_tile<D>(Qs, q, st.q.s, q0, S, tid);
-  load_tile<D>(dOs, dout, st.dout.s, q0, S, tid);
+  load_tile<D>(Qs, q, st.q.s, q0, SQ, tid);
+  load_tile<D>(dOs, dout, st.dout.s, q0, SQ, tid);
   const __nv_bfloat16* Qw = Qs + (warp * 16) * LD;
   const __nv_bfloat16* dOw = dOs + (warp * 16) * LD;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const float ls[2] = {rows[0] < S ? lse[row_bh + rows[0]] : 0.f,
-                       rows[1] < S ? lse[row_bh + rows[1]] : 0.f};
+  const float ls[2] = {rows[0] < SQ ? lse[row_bh + rows[0]] : 0.f,
+                       rows[1] < SQ ? lse[row_bh + rows[1]] : 0.f};
 
-  float dl[2] = {0.f, 0.f};  // pass 0: D_i = sum_j a_eff dp over the lane's keys
+  // D_i: given (K5b), or summed by pass 0 over the lane's keys (K1b/K4b).
+  float dl[2] = {0.f, 0.f};
+  if (delta_given) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) dl[r] = rows[r] < SQ ? delta[row_bh + rows[r]] : 0.f;
+  }
   float acc_dq[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n) acc_dq[n][0] = acc_dq[n][1] = acc_dq[n][2] = acc_dq[n][3] = 0.f;
 
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < S; k0 += kBK) {
+  for (int pass = delta_given ? 1 : 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < SK; k0 += kBK) {
       __syncthreads();  // the previous tile's K/V reads are done
-      load_tile<D>(Ks, k, st.k.s, k0, S, tid);
-      load_tile<D>(Vs, v, st.v.s, k0, S, tid);
+      load_tile<D>(Ks, k, st.k.s, k0, SK, tid);
+      load_tile<D>(Vs, v, st.v.s, k0, SK, tid);
       __syncthreads();
 
       float sc[KT][4], dp[KT][4];
@@ -672,7 +704,7 @@ attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + j * 8 + 2 * t + e;
-          const bool ok = key < S;
+          const bool ok = key < SK;
           const float kb = ok ? bias[key] : 0.f;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
@@ -700,14 +732,14 @@ attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
       for (int r = 0; r < 2; ++r) {
         dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
         dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
-        if (rows[r] < S && t == 0) delta[row_bh + rows[r]] = dl[r];
+        if (rows[r] < SQ && t == 0) delta[row_bh + rows[r]] = dl[r];
       }
     }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= S) continue;
+    if (rows[r] >= SQ) continue;
     __nv_bfloat16* drow = dq + rows[r] * st.dq.s + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -726,7 +758,7 @@ attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, int S, int H,
+                             __nv_bfloat16* __restrict__ dv, int SQ, int SK, int H,
                              AttnStrides st, uint32_t seed, uint32_t thr,
                              float inv_keep, int dropout, float sm_scale) {
   constexpr int LD = D + 8;
@@ -748,8 +780,8 @@ attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const long long row_bh = (static_cast<long long>(b) * H + h) * S;
-  const float* bias = key_bias + static_cast<long long>(b) * S;
+  const long long row_bh = (static_cast<long long>(b) * H + h) * SQ;
+  const float* bias = key_bias + static_cast<long long>(b) * SK;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
   // This block's head: every operand from here on is its (S, D) slice.
   q += head_off(st.q, b, h);
@@ -759,13 +791,13 @@ attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
   dk += head_off(st.dk, b, h);
   dv += head_off(st.dv, b, h);
 
-  load_tile<D>(Ks, k, st.k.s, k0, S, tid);
-  load_tile<D>(Vs, v, st.v.s, k0, S, tid);
+  load_tile<D>(Ks, k, st.k.s, k0, SK, tid);
+  load_tile<D>(Vs, v, st.v.s, k0, SK, tid);
   const __nv_bfloat16* Kw = Ks + (warp * 16) * LD;
   const __nv_bfloat16* Vw = Vs + (warp * 16) * LD;
   const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const float kb[2] = {keys[0] < S ? bias[keys[0]] : 0.f,
-                       keys[1] < S ? bias[keys[1]] : 0.f};
+  const float kb[2] = {keys[0] < SK ? bias[keys[0]] : 0.f,
+                       keys[1] < SK ? bias[keys[1]] : 0.f};
 
   float acc_dk[NT][4], acc_dv[NT][4];
 #pragma unroll
@@ -774,14 +806,14 @@ attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
     acc_dv[n][0] = acc_dv[n][1] = acc_dv[n][2] = acc_dv[n][3] = 0.f;
   }
 
-  for (int q0 = 0; q0 < S; q0 += kBQ) {
+  for (int q0 = 0; q0 < SQ; q0 += kBQ) {
     __syncthreads();  // the previous tile's Q/dO reads are done
-    load_tile<D>(Qs, q, st.q.s, q0, S, tid);
-    load_tile<D>(dOs, dout, st.dout.s, q0, S, tid);
+    load_tile<D>(Qs, q, st.q.s, q0, SQ, tid);
+    load_tile<D>(dOs, dout, st.dout.s, q0, SQ, tid);
     if (tid < kBQ) {
       const int s = q0 + tid;
-      lse_s[tid] = s < S ? lse[row_bh + s] : 0.f;
-      dl_s[tid] = s < S ? delta[row_bh + s] : 0.f;
+      lse_s[tid] = s < SQ ? lse[row_bh + s] : 0.f;
+      dl_s[tid] = s < SQ ? delta[row_bh + s] : 0.f;
     }
     __syncthreads();
 
@@ -798,7 +830,7 @@ attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
         const float lq = lse_s[qi], dq_i = dl_s[qi];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const bool ok = query < S && keys[r] < S;
+          const bool ok = query < SQ && keys[r] < SK;
           const float a = ok ? expf(sc_t[j][2 * r + e] * sm_scale + kb[r] - lq) : 0.f;
           float a_eff = a, da = pt[j][2 * r + e];
           if (dropout) {
@@ -818,7 +850,7 @@ attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (keys[r] >= S) continue;
+    if (keys[r] >= SK) continue;
     __nv_bfloat16* dkr = dk + keys[r] * st.dk.s + 2 * t;
     __nv_bfloat16* dvr = dv + keys[r] * st.dv.s + 2 * t;
 #pragma unroll
@@ -860,9 +892,9 @@ attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ key_bias,
                              const float* __restrict__ dout,
                              const float* __restrict__ lse, float* __restrict__ dq,
-                             float* __restrict__ delta, int S, int H, AttnStrides st,
-                             uint32_t seed, uint32_t thr, float inv_keep, int dropout,
-                             float sm_scale) {
+                             float* __restrict__ delta, int delta_given, int SQ,
+                             int SK, int H, AttnStrides st, uint32_t seed, uint32_t thr,
+                             float inv_keep, int dropout, float sm_scale) {
   constexpr int P = D + 1;
   constexpr int PS = kBK + 1;
   constexpr int CT = D / 16;  // output columns per thread
@@ -880,8 +912,8 @@ attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const long long row_bh = (static_cast<long long>(b) * H + h) * S;
-  const float* bias = key_bias + static_cast<long long>(b) * S;
+  const long long row_bh = (static_cast<long long>(b) * H + h) * SQ;
+  const float* bias = key_bias + static_cast<long long>(b) * SK;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
   // This block's head: every operand from here on is its (S, D) slice.
   q += head_off(st.q, b, h);
@@ -890,9 +922,13 @@ attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
   dout += head_off(st.dout, b, h);
   dq += head_off(st.dq, b, h);
 
-  load_tile_f32<D>(Qs, q, st.q.s, q0, S, tid);
-  load_tile_f32<D>(dOs, dout, st.dout.s, q0, S, tid);
-  if (tid < kBQ) lse_s[tid] = q0 + tid < S ? lse[row_bh + q0 + tid] : 0.f;
+  load_tile_f32<D>(Qs, q, st.q.s, q0, SQ, tid);
+  load_tile_f32<D>(dOs, dout, st.dout.s, q0, SQ, tid);
+  if (tid < kBQ) {
+    const bool ok = q0 + tid < SQ;
+    lse_s[tid] = ok ? lse[row_bh + q0 + tid] : 0.f;
+    if (delta_given) dl_s[tid] = ok ? delta[row_bh + q0 + tid] : 0.f;  // K5b
+  }
 
   float dl[4] = {0.f, 0.f, 0.f, 0.f};  // pass 0: partial D_i of the thread's rows
   float acc[4][CT];
@@ -901,11 +937,11 @@ attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CT; ++c) acc[i][c] = 0.f;
 
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < S; k0 += kBK) {
+  for (int pass = delta_given ? 1 : 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < SK; k0 += kBK) {
       __syncthreads();  // the previous tile's reads are done
-      load_tile_f32<D>(Ks, k, st.k.s, k0, S, tid);
-      load_tile_f32<D>(Vs, v, st.v.s, k0, S, tid);
+      load_tile_f32<D>(Ks, k, st.k.s, k0, SK, tid);
+      load_tile_f32<D>(Vs, v, st.v.s, k0, SK, tid);
       __syncthreads();
       float sc[4][4], dp[4][4];
 #pragma unroll
@@ -933,7 +969,7 @@ attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = k0 + tx + 16 * c;
-        const bool ok = key < S;
+        const bool ok = key < SK;
         const float kb = ok ? bias[key] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -977,7 +1013,7 @@ attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
         const int r = ty * 4 + i;
         if (tx == 0) {
           dl_s[r] = dl[i];
-          if (q0 + r < S) delta[row_bh + q0 + r] = dl[i];
+          if (q0 + r < SQ) delta[row_bh + q0 + r] = dl[i];
         }
       }
     }
@@ -986,7 +1022,7 @@ attention_bwd_dq_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + ty * 4 + i;
-    if (s >= S) continue;
+    if (s >= SQ) continue;
     float* drow = dq + s * st.dq.s;
 #pragma unroll
     for (int c = 0; c < CT; ++c) drow[tx + 16 * c] = acc[i][c];
@@ -1001,9 +1037,9 @@ attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ dout,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta, float* __restrict__ dk,
-                              float* __restrict__ dv, int S, int H, AttnStrides st,
-                              uint32_t seed, uint32_t thr, float inv_keep, int dropout,
-                              float sm_scale) {
+                              float* __restrict__ dv, int SQ, int SK, int H,
+                              AttnStrides st, uint32_t seed, uint32_t thr,
+                              float inv_keep, int dropout, float sm_scale) {
   constexpr int P = D + 1;
   constexpr int PS = kBQ + 1;
   constexpr int CT = D / 16;
@@ -1022,8 +1058,8 @@ attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const long long row_bh = (static_cast<long long>(b) * H + h) * S;
-  const float* bias = key_bias + static_cast<long long>(b) * S;
+  const long long row_bh = (static_cast<long long>(b) * H + h) * SQ;
+  const float* bias = key_bias + static_cast<long long>(b) * SK;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
   // This block's head: every operand from here on is its (S, D) slice.
   q += head_off(st.q, b, h);
@@ -1033,13 +1069,13 @@ attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
   dk += head_off(st.dk, b, h);
   dv += head_off(st.dv, b, h);
 
-  load_tile_f32<D>(Ks, k, st.k.s, k0, S, tid);
-  load_tile_f32<D>(Vs, v, st.v.s, k0, S, tid);
+  load_tile_f32<D>(Ks, k, st.k.s, k0, SK, tid);
+  load_tile_f32<D>(Vs, v, st.v.s, k0, SK, tid);
   float kb[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
-    kb[i] = key < S ? bias[key] : 0.f;
+    kb[i] = key < SK ? bias[key] : 0.f;
   }
   float acc_dk[4][CT], acc_dv[4][CT];
 #pragma unroll
@@ -1047,14 +1083,14 @@ attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CT; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
 
-  for (int q0 = 0; q0 < S; q0 += kBQ) {
+  for (int q0 = 0; q0 < SQ; q0 += kBQ) {
     __syncthreads();  // the previous tile's reads are done
-    load_tile_f32<D>(Qs, q, st.q.s, q0, S, tid);
-    load_tile_f32<D>(dOs, dout, st.dout.s, q0, S, tid);
+    load_tile_f32<D>(Qs, q, st.q.s, q0, SQ, tid);
+    load_tile_f32<D>(dOs, dout, st.dout.s, q0, SQ, tid);
     if (tid < kBQ) {
       const int s = q0 + tid;
-      lse_s[tid] = s < S ? lse[row_bh + s] : 0.f;
-      dl_s[tid] = s < S ? delta[row_bh + s] : 0.f;
+      lse_s[tid] = s < SQ ? lse[row_bh + s] : 0.f;
+      dl_s[tid] = s < SQ ? delta[row_bh + s] : 0.f;
     }
     __syncthreads();
     float sc_t[4][4], dpt[4][4];
@@ -1088,7 +1124,7 @@ attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         const int r = ty * 4 + i;
         const int key = k0 + r;
-        const bool ok = query < S && key < S;
+        const bool ok = query < SQ && key < SK;
         const float a = ok ? expf(sc_t[i][c] * sm_scale + kb[i] - lse_s[qi]) : 0.f;
         float a_eff = a, da = dpt[i][c];
         if (dropout) {
@@ -1126,7 +1162,7 @@ attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
-    if (key >= S) continue;
+    if (key >= SK) continue;
     float* dkr = dk + key * st.dk.s;
     float* dvr = dv + key * st.dv.s;
 #pragma unroll
@@ -1137,21 +1173,23 @@ attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Launches the dq pass (which writes D_i) and then the dk/dv pass.
+// Launches the dq pass (which writes D_i unless it is given) and then the
+// dk/dv pass: one block per 64 queries, then one per 64 keys.
 template <typename T, int kThreadsT, int kSmem>
 cudaError_t launch_bwd(void (*dq_kernel)(const T*, const T*, const T*, const float*,
                                          const T*, const float*, T*, float*, int, int,
-                                         AttnStrides, uint32_t, uint32_t, float, int,
-                                         float),
+                                         int, int, AttnStrides, uint32_t, uint32_t,
+                                         float, int, float),
                        void (*dkv_kernel)(const T*, const T*, const T*, const float*,
                                           const T*, const float*, const float*, T*, T*,
-                                          int, int, AttnStrides, uint32_t, uint32_t,
-                                          float, int, float),
+                                          int, int, int, AttnStrides, uint32_t,
+                                          uint32_t, float, int, float),
                        const void* q, const void* k, const void* v,
                        const void* key_bias, const void* dout,
                        const void* lse, void* dq, void* dk, void* dv, void* delta,
-                       int B, int S, int H, const AttnStrides& st, uint32_t seed,
-                       uint32_t thr, float inv_keep, int dropout, float sm_scale,
+                       int delta_given, int B, int SQ, int SK, int H,
+                       const AttnStrides& st, uint32_t seed, uint32_t thr,
+                       float inv_keep, int dropout, float sm_scale,
                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -1159,7 +1197,6 @@ cudaError_t launch_bwd(void (*dq_kernel)(const T*, const T*, const T*, const flo
   err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -1167,14 +1204,14 @@ cudaError_t launch_bwd(void (*dq_kernel)(const T*, const T*, const T*, const flo
   const T* dot = static_cast<const T*>(dout);
   const float* lt = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  dq_kernel<<<grid, kThreadsT, kSmem, stream>>>(
-      qt, kt, vt, kbt, dot, lt, static_cast<T*>(dq), dl, S, H, st, seed, thr,
-      inv_keep, dropout, sm_scale);
+  dq_kernel<<<dim3((SQ + kBQ - 1) / kBQ, H, B), kThreadsT, kSmem, stream>>>(
+      qt, kt, vt, kbt, dot, lt, static_cast<T*>(dq), dl, delta_given, SQ, SK, H, st,
+      seed, thr, inv_keep, dropout, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<grid, kThreadsT, kSmem, stream>>>(
-      qt, kt, vt, kbt, dot, lt, dl, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
-      st, seed, thr, inv_keep, dropout, sm_scale);
+  dkv_kernel<<<dim3((SK + kBK - 1) / kBK, H, B), kThreadsT, kSmem, stream>>>(
+      qt, kt, vt, kbt, dot, lt, dl, static_cast<T*>(dk), static_cast<T*>(dv), SQ, SK,
+      H, st, seed, thr, inv_keep, dropout, sm_scale);
   return cudaGetLastError();
 }
 
@@ -1187,27 +1224,18 @@ AttnStrides read_strides(const long long* s) {
   return st;
 }
 
-}  // namespace
-
-// dtype: 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels).
-// Every operand is (B, H, S, D) through its strides (see read_strides), with
-// D contiguous; lse is the forward's (B*H, S) fp32 lse; delta is (B*H, S)
-// fp32 scratch for D_i.  bf16 q, k, v and dout rows are read as 16-byte
-// vectors and dq, dk, dv written as 4-byte pairs: base pointers 16-byte
-// aligned, input strides multiples of 8, output strides even.
-extern "C" int vt_attention_bwd(const void* q, const void* k, const void* v,
-                                const void* key_bias, const void* dout,
-                                const void* lse, void* dq,
-                                void* dk, void* dv, void* delta, int B, int S,
-                                int H, int D, const long long* strides, int dtype,
-                                unsigned int seed, unsigned int thr, float inv_keep,
-                                int dropout, float sm_scale, void* stream) {
+int attention_bwd(const void* q, const void* k, const void* v, const void* key_bias,
+                  const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                  void* delta, int delta_given, int B, int SQ, int SK, int H, int D,
+                  const long long* strides, int dtype, unsigned int seed,
+                  unsigned int thr, float inv_keep, int dropout, float sm_scale,
+                  void* stream) {
   const cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
   const AttnStrides st = read_strides(strides);
 #define VT_ATTN_BWD(T, DD, THREADS, SMEM, DQK, DKVK)                                 \
   launch_bwd<T, THREADS, SMEM>(DQK<DD>, DKVK<DD>, q, k, v, key_bias, dout, lse, dq,  \
-                               dk, dv, delta, B, S, H, st, seed, thr, inv_keep,      \
-                               dropout, sm_scale, stream_)
+                               dk, dv, delta, delta_given, B, SQ, SK, H, st, seed,   \
+                               thr, inv_keep, dropout, sm_scale, stream_)
   if (dtype == 0 && D == 64)
     return VT_ATTN_BWD(float, 64, kBwdThreads, bwd_fp32_smem_floats<64>() * 4,
                        attention_bwd_dq_fp32, attention_bwd_dkv_fp32);
@@ -1224,25 +1252,77 @@ extern "C" int vt_attention_bwd(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
-// Strides as for vt_attention_bwd (q, k, v and out are read).  bf16 q/k/v rows
-// are read as 16-byte vectors and out is written as 4-byte pairs: base
-// pointers 16-byte aligned, input strides multiples of 8, output strides even.
-extern "C" int vt_attention_fwd(const void* q, const void* k, const void* v,
-                                const void* key_bias, void* out, void* lse,
-                                int B, int S, int H, int D, const long long* strides,
-                                int dtype, unsigned int seed, unsigned int thr,
-                                float inv_keep, int dropout, float sm_scale,
-                                void* stream) {
+int attention_fwd(const void* q, const void* k, const void* v, const void* key_bias,
+                  void* out, void* lse, int B, int SQ, int SK, int H, int D,
+                  const long long* strides, int dtype, unsigned int seed,
+                  unsigned int thr, float inv_keep, int dropout, float sm_scale,
+                  void* stream) {
   const cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
   const AttnStrides st = read_strides(strides);
-#define VT_ATTN_LAUNCH(FN, DD)                                                   \
-  FN<DD>(q, k, v, key_bias, out, lse, B, S, H, st, seed, thr, inv_keep, dropout, \
-         sm_scale, stream_)
+#define VT_ATTN_LAUNCH(FN, DD)                                                     \
+  FN<DD>(q, k, v, key_bias, out, lse, B, SQ, SK, H, st, seed, thr, inv_keep,       \
+         dropout, sm_scale, stream_)
   if (dtype == 0 && D == 64) return VT_ATTN_LAUNCH(launch_fp32, 64);
   if (dtype == 0 && D == 128) return VT_ATTN_LAUNCH(launch_fp32, 128);
   if (dtype == 1 && D == 64) return VT_ATTN_LAUNCH(launch_mma, 64);
   if (dtype == 1 && D == 128) return VT_ATTN_LAUNCH(launch_mma, 128);
 #undef VT_ATTN_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// The C entries.  dtype: 0 = float32 (FMA kernels), 1 = bfloat16
+// (tensor-core kernels).  Every operand is (B, H, S, D) through its strides
+// (see read_strides), with D contiguous.  bf16 q, k, v and dout rows are read
+// as 16-byte vectors and out, dq, dk, dv written as 4-byte pairs: base
+// pointers 16-byte aligned, input strides multiples of 8, output strides
+// even.  lse is (B*H, S) fp32, written by the forward when not null and read
+// by the backward.
+
+// K1b / K4b: self-attention (S queries and keys); delta is (B*H, S) fp32
+// scratch into which the dq kernel sums D_i.
+extern "C" int vt_attention_bwd(const void* q, const void* k, const void* v,
+                                const void* key_bias, const void* dout,
+                                const void* lse, void* dq,
+                                void* dk, void* dv, void* delta, int B, int S,
+                                int H, int D, const long long* strides, int dtype,
+                                unsigned int seed, unsigned int thr, float inv_keep,
+                                int dropout, float sm_scale, void* stream) {
+  return attention_bwd(q, k, v, key_bias, dout, lse, dq, dk, dv, delta, 0, B, S, S, H,
+                       D, strides, dtype, seed, thr, inv_keep, dropout, sm_scale, stream);
+}
+
+// K1f / K4f: self-attention (S queries and keys).
+extern "C" int vt_attention_fwd(const void* q, const void* k, const void* v,
+                                const void* key_bias, void* out, void* lse,
+                                int B, int S, int H, int D, const long long* strides,
+                                int dtype, unsigned int seed, unsigned int thr,
+                                float inv_keep, int dropout, float sm_scale,
+                                void* stream) {
+  return attention_fwd(q, k, v, key_bias, out, lse, B, S, S, H, D, strides, dtype,
+                       seed, thr, inv_keep, dropout, sm_scale, stream);
+}
+
+// K5f: SQ queries against SK keys; key_bias is (B, SK) fp32.
+extern "C" int vt_flash_fwd(const void* q, const void* k, const void* v,
+                            const void* key_bias, void* out, void* lse, int B, int SQ,
+                            int SK, int H, int D, const long long* strides, int dtype,
+                            unsigned int seed, unsigned int thr, float inv_keep,
+                            int dropout, float sm_scale, void* stream) {
+  return attention_fwd(q, k, v, key_bias, out, lse, B, SQ, SK, H, D, strides, dtype,
+                       seed, thr, inv_keep, dropout, sm_scale, stream);
+}
+
+// K5b: SQ queries against SK keys; di is the (B*H, SQ) fp32 rowsum(out * dO)
+// that the wrapper computed, read by both kernels.
+extern "C" int vt_flash_bwd(const void* q, const void* k, const void* v,
+                            const void* key_bias, const void* dout, const void* lse,
+                            const void* di, void* dq, void* dk, void* dv, int B, int SQ,
+                            int SK, int H, int D, const long long* strides, int dtype,
+                            unsigned int seed, unsigned int thr, float inv_keep,
+                            int dropout, float sm_scale, void* stream) {
+  return attention_bwd(q, k, v, key_bias, dout, lse, dq, dk, dv, const_cast<void*>(di),
+                       1, B, SQ, SK, H, D, strides, dtype, seed, thr, inv_keep, dropout,
+                       sm_scale, stream);
 }

@@ -9,9 +9,14 @@ checkpoint (visitron_torch/convert.py) loads one to one:
     (BertSelfAttention): where ``attention_supports_fused`` takes the shape
     (128 <= S <= 768, S % 128 == 0, head dim 64 or 128), the packed kernel
     K1 runs for S <= ``fused_packed_max_seq`` and the (B, H, S, D) kernel K4
-    on views of the same projection above it; other shapes take the plain
-    ``multi_head_attention``, as the JAX package does; a shape that only the
-    flash kernels (K5, not ported) would take raises;
+    on views of the same projection above it; where the fused gate refuses
+    and ``use_flash_attention`` is set, the flash kernels K5 take every
+    shape ``attention_supports_flash`` takes (S % 128 == 0: the long joint
+    sequences past S 768), on the same views; other shapes take the plain
+    ``multi_head_attention``, as the JAX package does;
+  * ``remat``: each layer runs under a selective checkpoint that keeps only
+    its Denses' outputs and recomputes the rest in the backward, replaying
+    the layer's dropout draws;
   * image-region fusion (``embed_joint``): projected region features plus
     location embeddings, dropped out and concatenated after the text, and
     ``attend_vocab``, the tied MLM decoder (a plain product);
@@ -37,15 +42,19 @@ draws its mask from ``rng.masks``).  ``rng=None`` is the deterministic
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from visitron_torch.models.layers import Dense, DropoutRng, Embed, maybe_drop
 from visitron_torch.ops.attention import (attention_supports_flash,
-                                          attention_supports_fused, fused_attention,
-                                          fused_attention_packed,
+                                          attention_supports_fused, flash_attention,
+                                          fused_attention, fused_attention_packed,
                                           multi_head_attention)
 from visitron_torch.ops.layernorm import fused_add_layernorm
 from visitron_torch.ops.masking import make_attention_bias
@@ -73,8 +82,10 @@ class BertConfig:
     dtype: torch.dtype = torch.float32  # activation dtype (bfloat16 on the card)
     # Attention dispatch (BertSelfAttention): the fused kernels where
     # attention_supports_fused takes the shape, packed (K1) up to
-    # fused_packed_max_seq and (B, H, S, D) (K4) above; flash (K5) is not
-    # ported, so a shape only it would take raises.
+    # fused_packed_max_seq and (B, H, S, D) (K4) above; with
+    # use_flash_attention, the flash kernels (K5) where the fused gate
+    # refuses and attention_supports_flash takes the shape (the long joint
+    # sequences, S > 768).
     use_fused_attention: bool = True
     fused_packed_layout: bool = True
     fused_packed_max_seq: int = 512
@@ -82,6 +93,11 @@ class BertConfig:
     # The MLM loss through the fused masked softmax-CE kernel (K3), with the
     # MLM logits kept in ``dtype`` (models/pretrain.py).
     use_fused_mlm_ce: bool = True
+    # Recompute each transformer layer in the backward, keeping only the
+    # outputs of its 2-D products (the Denses): the JAX package's
+    # nn.remat(policy=dots_with_no_batch_dims_saveable).  More operations for
+    # less activation memory.
+    remat: bool = False
 
     def replace(self, **kw) -> "BertConfig":
         return dataclasses.replace(self, **kw)
@@ -172,17 +188,17 @@ class BertSelfAttention(nn.Module):
         q, k, v = self.qkv(hidden).split(cfg.hidden_size, dim=-1)
         rate = 0.0 if rng is None else float(cfg.attention_probs_dropout_prob)
         fused = cfg.use_fused_attention and attention_supports_fused(s, s, d)
-        if not fused and cfg.use_flash_attention and attention_supports_flash(s, s, d):
-            raise NotImplementedError(
-                f"flash attention (S {s}) is not ported yet; the JAX package runs "
-                "its Pallas flash kernels here")
+        flash = (not fused and cfg.use_flash_attention
+                 and attention_supports_flash(s, s, d))
         split = lambda t: t.unflatten(-1, (h, d)).transpose(1, 2)  # noqa: E731
+        seed = rng.seed() if (fused or flash) and rate > 0.0 else None
         if fused:
-            seed = rng.seed() if rate > 0.0 else None
             if cfg.fused_packed_layout and s <= cfg.fused_packed_max_seq:
                 return fused_attention_packed(q, k, v, key_bias, h, seed,
                                               rate).to(cfg.dtype)
             ctx = fused_attention(split(q), split(k), split(v), key_bias, seed, rate)
+        elif flash:
+            ctx = flash_attention(split(q), split(k), split(v), key_bias, seed, rate)
         else:
             ctx = multi_head_attention(split(q), split(k), split(v),
                                        bias=key_bias[:, None, None, :],
@@ -214,10 +230,57 @@ class BertLayer(nn.Module):
         return self.output_layer_norm(out, hidden).to(dt)
 
 
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy of ``remat``: keep the outputs of the 2-D
+    products (jax.checkpoint_policies.dots_with_no_batch_dims_saveable: the
+    Denses), recompute everything else (attention, LayerNorms, gelu,
+    dropout)."""
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_layer(layer: nn.Module, hidden, key_bias, rng: DropoutRng | None):
+    """``layer(hidden, key_bias, rng=rng)`` under a selective checkpoint.
+
+    The recompute runs in the backward, after any ``functional_call`` around
+    the model has put its parameters back, so the layer's parameters (the
+    live tensors, under such a call) go in as arguments.  Its randomness
+    must replay too: the kernels' seeds and the hidden-dropout masks come
+    from ``rng``'s generators, which checkpoint's RNG preservation does not
+    cover.  So the layer draws from generators that start at ``rng``'s
+    states on every run, and ``rng`` then moves on as one run moved it."""
+    names, params = zip(*layer.named_parameters())
+    replay = None
+    if rng is not None:
+        states = (rng.masks.get_state(), rng.seeds.get_state())
+        replay = DropoutRng(masks=torch.Generator(device=rng.masks.device),
+                            seeds=torch.Generator())
+
+    def run(h, kb, *ps):
+        if replay is not None:
+            replay.masks.set_state(states[0])
+            replay.seeds.set_state(states[1])
+        return functional_call(layer, dict(zip(names, ps)), (h, kb), {"rng": replay})
+
+    out = checkpoint(run, hidden, key_bias, *params, use_reentrant=False,
+                     preserve_rng_state=False,
+                     context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                  _save_products))
+    if rng is not None:
+        rng.masks.set_state(replay.masks.get_state())
+        rng.seeds.set_state(replay.seeds.get_state())
+    return out
+
+
 class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.num_layers = cfg.num_hidden_layers
+        self.remat = cfg.remat
         for i in range(cfg.num_hidden_layers):
             setattr(self, f"layer_{i}", BertLayer(cfg))
 
@@ -226,7 +289,11 @@ class BertEncoder(nn.Module):
         if history_states is not None:
             raise NotImplementedError("history_states are not ported yet")
         for i in range(self.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, key_bias, rng=rng)
+            layer = getattr(self, f"layer_{i}")
+            if self.remat and torch.is_grad_enabled():
+                hidden = _remat_layer(layer, hidden, key_bias, rng)
+            else:
+                hidden = layer(hidden, key_bias, rng=rng)
         return hidden
 
 

@@ -1,18 +1,22 @@
-"""Fused self-attention: the Hopper kernels' wrappers for the packed layout
-(K1: forward K1f, backward K1b) and the (B, H, S, D) layout (K4: forward
-K4f, backward K4b), their plain PyTorch twins, the autograd Functions that
-join them, the shape gates, the (B, H, S, D) ``multi_head_attention`` core
-and the position-hash dropout helpers.
+"""Attention: the Hopper kernels' wrappers for fused self-attention on the
+packed layout (K1: forward K1f, backward K1b) and on the (B, H, S, D) layout
+(K4: forward K4f, backward K4b), and for the blockwise flash attention of
+long joint sequences (K5: forward K5f, backward K5b); their plain PyTorch
+twins, the autograd Functions that join them, the shape gates, the
+(B, H, S, D) ``multi_head_attention`` core and the position-hash dropout
+helpers.
 
 Counterpart of visitron_tpu/ops/attention.py: ``fused_attention_packed``
 (Pallas ``_fused_packed_fwd_kernel`` and, through its custom VJP,
 ``_fused_packed_bwd_kernel``), ``fused_attention`` (``_fused_fwd_kernel`` /
-``_fused_bwd_kernel``), ``attention_supports_fused`` /
-``attention_supports_flash`` (without their backend test),
-``multi_head_attention`` and ``_keep_mask`` / ``_threshold`` / ``_mix_seed``.
-One set of CUDA kernels in ``csrc/attention.cu`` serves both layouts: each
-operand is read through its own (batch, head, sequence) strides.  K1 and K4
-have their own wrappers and launch counters.
+``_fused_bwd_kernel``), ``flash_attention`` (``_fwd_kernel`` and, through
+``_flash_bwd_rule``, ``_bwd_dkv_kernel`` / ``_bwd_dq_kernel``),
+``attention_supports_fused`` / ``attention_supports_flash`` (without their
+backend test), ``multi_head_attention`` and ``_keep_mask`` / ``_threshold``
+/ ``_mix_seed``.  One set of CUDA kernels in ``csrc/attention.cu`` serves
+every layout: each operand is read through its own (batch, head, sequence)
+strides, and the query and key lengths are separate.  K1, K4 and K5 have
+their own C entries, wrappers and launch counters.
 
 Dropout on the attention probabilities is a counter-based hash of the
 absolute (query, key) position inside each head (murmur3 finaliser), seeded
@@ -23,9 +27,11 @@ for bit.
 
 The wrappers take the plain twins only for tensors on the CPU.  For a CUDA
 tensor they launch the kernels or raise; there is no fallback.  When a
-gradient is needed they record ``_PackedAttention`` / ``_Attention``, whose
-forward also keeps the lse and whose backward runs K1b / K4b.  The twins
-compute in fp32, or in fp64 for fp64 inputs (gradcheck).
+gradient is needed they record ``_PackedAttention`` / ``_Attention`` /
+``_FlashAttention``, whose forward also keeps the lse and whose backward
+runs K1b / K4b / K5b (K5 at rate 0 recomputes through the plain
+``multi_head_attention`` instead, as ``_flash_bwd_rule`` does through XLA).
+The twins compute in fp32, or in fp64 for fp64 inputs (gradcheck).
 """
 
 from __future__ import annotations
@@ -121,10 +127,13 @@ def _merge_heads(t):
     return t.transpose(1, 2).flatten(2)
 
 
-def _head_keep_mask(seed, b: int, h: int, s: int, rate: float, device):
-    """(B, H, S, S) keep mask of every head, head id b*H + h."""
+def _head_keep_mask(seed, b: int, h: int, s: int, rate: float, device,
+                    cols: int | None = None):
+    """(B, H, S, cols) keep mask of every head (cols = S by default), head
+    id b*H + h."""
     bh = torch.arange(b * h, device=device).reshape(b, h)
-    return _keep_mask(_mix_seed(seed, bh).to(device), 0, 0, (s, s), _threshold(rate))
+    return _keep_mask(_mix_seed(seed, bh).to(device), 0, 0,
+                      (s, s if cols is None else cols), _threshold(rate))
 
 
 def fused_attention_reference(q, k, v, key_bias, seed=None, rate: float = 0.0,
@@ -210,42 +219,124 @@ def fused_attention_packed_bwd_reference(q, k, v, key_bias, dout, lse,
     return tuple(_merge_heads(t) for t in grads)
 
 
+def flash_attention_reference(q, k, v, key_bias, seed=None, rate: float = 0.0,
+                              need_lse: bool = False):
+    """Plain twin of the flash forward on q (B, H, Q, D) and k, v (B, H, K, D)
+    with a (B, K) key bias (visitron_tpu/ops/attention.py:_fwd_kernel).
+
+    The TPU kernel's math in full rows: fp32 scores s = q k^T / sqrt(D) +
+    bias, p = exp(s - max) unnormalised, hash dropout at the absolute (q, k)
+    coordinates (head id b*H + h) with the 1/(1 - rate) scale, p cast to v's
+    dtype, fp32 PV product, out = acc * (1/l) in q's dtype, where l sums
+    every p before the dropout and l == 0 counts as 1; ``need_lse`` adds
+    (B*H, Q) fp32 lse = max + log(l)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    ct = _compute_dtype(q.dtype)
+    scores = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * (1.0 / (d ** 0.5))
+    scores = scores + key_bias.to(ct)[:, None, None, :]
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(dim=-1)
+    l = torch.where(l == 0.0, 1.0, l)
+    if rate > 0.0:
+        keep = _head_keep_mask(seed, b, h, sq, rate, q.device, cols=sk)
+        p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - rate))
+    acc = torch.matmul(p.to(v.dtype).to(ct), v.to(ct))
+    out = (acc * (1.0 / l)[..., None]).to(q.dtype)
+    if need_lse:
+        return out, (m + torch.log(l)).reshape(b * h, sq)
+    return out
+
+
+def flash_attention_bwd_reference(q, k, v, key_bias, out, dout, lse, seed=None,
+                                  rate: float = 0.0):
+    """Plain twin of the flash backward: (dq, dk, dv) in q's dtype from the
+    forward's inputs, its output ``out``, the output gradient ``dout`` and
+    the lse (visitron_tpu/ops/attention.py:_bwd_dkv_kernel, _bwd_dq_kernel).
+
+    The TPU kernels' formula in full rows: di = rowsum(out * dout) in fp32
+    from the rounded output (as _flash_bwd_rule computes it), a = exp(s -
+    lse), dpe = dout v^T, a_eff and da masked and scaled by 1/(1 - rate),
+    dv = a_eff.astype(dtype)^T dout, ds = (a (da - di) scale).astype(dtype),
+    dq = ds k, dk = ds^T q."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    ct = _compute_dtype(q.dtype)
+    sm_scale = 1.0 / (d ** 0.5)
+    qh, kh, vh, doh = (t.to(ct) for t in (q, k, v, dout))
+    di = torch.sum(out.to(ct) * doh, dim=-1, keepdim=True)
+    scores = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale
+    scores = scores + key_bias.to(ct)[:, None, None, :]
+    a = torch.exp(scores - lse.reshape(b, h, sq, 1).to(ct))
+    dpe = torch.matmul(doh, vh.transpose(-1, -2))
+    if rate > 0.0:
+        keep = _head_keep_mask(seed, b, h, sq, rate, q.device, cols=sk)
+        inv_keep = 1.0 / (1.0 - rate)
+        a_eff = torch.where(keep, a, 0.0) * inv_keep
+        da = torch.where(keep, dpe, 0.0) * inv_keep
+    else:
+        a_eff, da = a, dpe
+    dv = torch.matmul(a_eff.to(dout.dtype).to(ct).transpose(-1, -2), doh)
+    ds = (a * (da - di) * sm_scale).to(q.dtype).to(ct)
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
 # -- the kernels' launches ------------------------------------------------------
 #
-# Both layouts reach one pair of C entries.  Every operand goes in as a
-# (B, H, S, D) view with D contiguous; the C side reads each through its own
-# (batch, head, sequence) strides.  Outputs are allocated (B, S, H, D)
-# contiguous: the packed (B, S, H*D) result itself, or, for K4, a buffer whose
-# (B, H, S, D) view is returned, so merging the heads back is free.
+# Every layout reaches one set of kernels through its own C entries.  Every
+# operand goes in as a (B, H, S, D) view with D contiguous; the C side reads
+# each through its own (batch, head, sequence) strides.  Outputs are
+# allocated (B, S, H, D) contiguous: the packed (B, S, H*D) result itself, or,
+# for K4 and K5, a buffer whose (B, H, S, D) view is returned, so merging the
+# heads back is free.
 
-def _check_cuda(name: str, q4, k4, v4, key_bias, rate: float) -> None:
-    """Raise on what the kernels do not take; q4/k4/v4 are (B, H, S, D)."""
+def _check_cuda(name: str, q4, k4, v4, key_bias, rate: float,
+                cross: bool = False) -> None:
+    """Raise on what the kernels do not take; q4 is (B, H, Q, D) and k4/v4
+    (B, H, K, D), with K == Q unless ``cross`` (K5)."""
     if q4.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q4.device}")
     if q4.dtype not in _DTYPE_CODES or k4.dtype != q4.dtype or v4.dtype != q4.dtype:
         raise ValueError(f"{name}: dtype {q4.dtype} not supported "
                          "(fp32 or bf16, the same for q, k, v)")
-    b, h, s, d = q4.shape
+    b, h, _, d = q4.shape
     if d not in (64, 128):
         raise ValueError(f"{name}: head dim {d} not in (64, 128)")
-    for tname, t in (("q", q4), ("k", k4), ("v", v4)):
-        _check_operand(name, tname, t, q4)
-    if (key_bias.dtype != torch.float32 or key_bias.shape != (b, s)
+    if k4.ndim != 4 or (k4.shape[:2], k4.shape[3]) != ((b, h), d) or (
+            not cross and k4.shape != q4.shape):
+        raise ValueError(f"{name}: k {tuple(k4.shape)} does not match q "
+                         f"{tuple(q4.shape)}")
+    for tname, t, like in (("q", q4, q4), ("k", k4, k4), ("v", v4, k4)):
+        _check_operand(name, tname, t, like)
+    sk = k4.shape[2]
+    if (key_bias.dtype != torch.float32 or key_bias.shape != (b, sk)
             or not key_bias.is_contiguous() or key_bias.device != q4.device):
         raise ValueError(f"{name}: key_bias must be a contiguous "
-                         f"fp32 ({b}, {s}) tensor on {q4.device}")
+                         f"fp32 ({b}, {sk}) tensor on {q4.device}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"{name}: rate {rate} not in [0, 1)")
 
 
-def _check_operand(name: str, tname: str, t, q4) -> None:
-    if t.shape != q4.shape or t.device != q4.device or t.stride(-1) != 1:
-        raise ValueError(f"{name}: {tname} must be a {tuple(q4.shape)} tensor on "
-                         f"{q4.device} with a contiguous last dim")
+def _check_operand(name: str, tname: str, t, like) -> None:
+    """``t`` must have ``like``'s shape and device and a contiguous last dim."""
+    if t.shape != like.shape or t.device != like.device or t.stride(-1) != 1:
+        raise ValueError(f"{name}: {tname} must be a {tuple(like.shape)} tensor on "
+                         f"{like.device} with a contiguous last dim")
     # The bf16 kernels read rows as 16-byte vectors.
     if t.dtype == torch.bfloat16 and not _vector_aligned(t):
         raise ValueError(f"{name}: bf16 {tname} needs a 16-byte aligned base and "
                          "batch/head/row strides that are multiples of 8")
+
+
+def _check_rows(name: str, tname: str, t, rows: tuple, device) -> None:
+    """A per-row fp32 statistic (lse, di) must be contiguous ``rows``."""
+    if (t.shape != rows or t.dtype != torch.float32 or not t.is_contiguous()
+            or t.device != device):
+        raise ValueError(f"{name}: {tname} must be a contiguous fp32 {rows} tensor "
+                         f"on {device}")
 
 
 def _vector_aligned(t) -> bool:
@@ -260,25 +351,27 @@ def _strides(q4, k4, v4, out4=None, dout4=None, dq4=None, dk4=None, dv4=None):
     return (ctypes.c_longlong * 24)(*flat)
 
 
+def _tail_args(q4, seed, rate: float) -> tuple:
+    """The C entries' trailing arguments: dtype code, seed, keep threshold,
+    1/(1 - rate), dropout on, softmax scale and the current stream."""
+    return (_DTYPE_CODES[q4.dtype], 0 if seed is None else int(seed) & _M32,
+            _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            1.0 / (q4.shape[-1] ** 0.5), torch.cuda.current_stream(q4.device).cuda_stream)
+
+
 def _launch_fwd(name: str, q4, k4, v4, key_bias, out4, lse, seed, rate: float) -> None:
     b, h, s, d = q4.shape
     err = _build.load().vt_attention_fwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), key_bias.data_ptr(),
         out4.data_ptr(), None if lse is None else lse.data_ptr(), b, s, h, d,
-        _strides(q4, k4, v4, out4), _DTYPE_CODES[q4.dtype],
-        0 if seed is None else int(seed) & _M32, _threshold(rate),
-        1.0 / (1.0 - rate), int(rate > 0.0), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q4.device).cuda_stream)
+        _strides(q4, k4, v4, out4), *_tail_args(q4, seed, rate))
     _build.check(err, name)
 
 
 def _launch_bwd(name: str, q4, k4, v4, key_bias, dout4, lse, dq4, dk4, dv4,
                 seed, rate: float) -> None:
     b, h, s, d = q4.shape
-    if (lse.shape != (b * h, s) or lse.dtype != torch.float32
-            or not lse.is_contiguous() or lse.device != q4.device):
-        raise ValueError(f"{name}: lse must be a contiguous "
-                         f"fp32 ({b * h}, {s}) tensor on {q4.device}")
+    _check_rows(name, "lse", lse, (b * h, s), q4.device)
     if dout4.dtype != q4.dtype:
         raise ValueError(f"{name}: dout must be {q4.dtype}")
     _check_operand(name, "dout", dout4, q4)
@@ -287,10 +380,8 @@ def _launch_bwd(name: str, q4, k4, v4, key_bias, dout4, lse, dq4, dk4, dv4,
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), key_bias.data_ptr(),
         dout4.data_ptr(), lse.data_ptr(), dq4.data_ptr(), dk4.data_ptr(),
         dv4.data_ptr(), delta.data_ptr(), b, s, h, d,
-        _strides(q4, k4, v4, dout4=dout4, dq4=dq4, dk4=dk4, dv4=dv4), _DTYPE_CODES[q4.dtype],
-        0 if seed is None else int(seed) & _M32, _threshold(rate),
-        1.0 / (1.0 - rate), int(rate > 0.0), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q4.device).cuda_stream)
+        _strides(q4, k4, v4, dout4=dout4, dq4=dq4, dk4=dk4, dv4=dv4),
+        *_tail_args(q4, seed, rate))
     _build.check(err, name)
 
 
@@ -501,6 +592,136 @@ def fused_attention_bwd(q, k, v, key_bias, dout, lse, seed=None, rate: float = 0
 fused_attention_bwd.launches = 0
 
 
+# -- K5: flash attention on (B, H, Q, D) x (B, H, K, D) ---------------------------
+
+def _check_flash_shape(name: str, q, k, v) -> None:
+    """The flash function's contract on every device, as the JAX package
+    states it: q (B, H, Q, D), k and v (B, H, K, D), Q and K multiples of
+    128, D 64 or 128 (its gate, attention_supports_flash)."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or (
+            k.shape[:2], k.shape[3]) != (q.shape[:2], q.shape[3]):
+        raise ValueError(f"{name}: q must be (B, H, Q, D) and k, v (B, H, K, D); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not attention_supports_flash(q.shape[2], k.shape[2], q.shape[3]):
+        raise ValueError(f"{name}: Q {q.shape[2]} and K {k.shape[2]} must be "
+                         f"multiples of 128 and the head dim {q.shape[3]} 64 or 128")
+
+
+def _flash_forward(q, k, v, key_bias, seed, rate: float, need_lse: bool):
+    """K5f, or its twin for CPU tensors; returns (out, lse or None)."""
+    if q.device.type == "cpu":
+        if need_lse:
+            return flash_attention_reference(q, k, v, key_bias, seed, rate, True)
+        return flash_attention_reference(q, k, v, key_bias, seed, rate), None
+    _check_cuda("flash_attention", q, k, v, key_bias, rate, cross=True)
+    b, h, sq, d = q.shape
+    (out,) = _bshd_buffers(q, 1)
+    lse = (torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    err = _build.load().vt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, sq, k.shape[2], h, d,
+        _strides(q, k, v, out), *_tail_args(q, seed, rate))
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K5f forward with the lse (B*H, Q) kept; the backward of
+    _flash_bwd_rule: at rate 0 the plain ``multi_head_attention`` recomputed
+    under autograd (the rule's XLA recompute), else K5b.  Saves q, k, v
+    (views of the caller's tensors), the key bias, the output and the lse;
+    the key bias gets no gradient (the rule returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, seed, rate):
+        out, lse = _flash_forward(q, k, v, key_bias, seed, rate, need_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        ctx.seed, ctx.rate = seed, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        if ctx.rate == 0.0:
+            with torch.enable_grad():
+                live = [t.detach().requires_grad_() for t in (q, k, v)]
+                ref = multi_head_attention(*live, bias=key_bias[:, None, None, :])
+                dq, dk, dv = torch.autograd.grad(ref, live, dout)
+        else:
+            # Past the public wrapper's checks (the twins take any shape).
+            dq, dk, dv = _flash_backward(q, k, v, key_bias, out, _kernel_dout(dout), lse,
+                                         ctx.seed, ctx.rate)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, key_bias, seed=None, rate: float = 0.0):
+    """Blockwise attention of q (B, H, Q, D) against k, v (B, H, K, D) with a
+    (B, K) additive key bias and the position-hash dropout at ``rate``
+    (visitron_tpu/ops/attention.py:flash_attention, K5): the long-context
+    path, Q and K of any multiple of 128 on the card.  Returns (B, H, Q, D)
+    in q's dtype (on the card a view of a (B, Q, H, D) buffer).  q/k/v may be
+    strided views, e.g. of the fused QKV projection, with a contiguous last
+    dim.  Differentiable in q, k and v (K5b, or at rate 0 the plain
+    recompute)."""
+    if rate > 0.0 and seed is None:
+        raise ValueError(
+            "flash_attention: rate > 0 requires an explicit seed (varied per "
+            "step and layer); a constant one would reuse one dropout mask")
+    _check_flash_shape("flash_attention", q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, key_bias, seed, rate)
+    return _flash_forward(q, k, v, key_bias, seed, rate, need_lse=False)[0]
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, key_bias, out, dout, lse, seed=None,
+                        rate: float = 0.0):
+    """(dq, dk, dv) of :func:`flash_attention` in q's dtype (on the card
+    views of (B, S, H, D) buffers), from the forward's inputs, its output
+    ``out``, the output gradient ``dout`` and the forward's (B*H, Q) lse.
+    CPU tensors take :func:`flash_attention_bwd_reference`; CUDA tensors get
+    di = rowsum(out * dout) in fp32 from one torch reduction (the rule's XLA
+    reduction) and launch K5b (a dk/dv kernel over key tiles and a dq kernel
+    over query tiles, both reading di) or raise."""
+    if rate > 0.0 and seed is None:
+        raise ValueError("flash_attention_bwd: rate > 0 requires an explicit seed")
+    _check_flash_shape("flash_attention_bwd", q, k, v)
+    return _flash_backward(q, k, v, key_bias, out, dout, lse, seed, rate)
+
+
+flash_attention_bwd.launches = 0
+
+
+def _flash_backward(q, k, v, key_bias, out, dout, lse, seed, rate: float):
+    """K5b, or its twin for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, key_bias, out, dout, lse, seed,
+                                             rate)
+    name = "flash_attention_bwd"
+    _check_cuda(name, q, k, v, key_bias, rate, cross=True)
+    b, h, sq, d = q.shape
+    _check_rows(name, "lse", lse, (b * h, sq), q.device)
+    for tname, t in (("out", out), ("dout", dout)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name}: {tname} must be {q.dtype}")
+    _check_operand(name, "dout", dout, q)
+    di = torch.sum(out.float() * dout.float(), dim=-1).reshape(b * h, sq).contiguous()
+    (dq,) = _bshd_buffers(q, 1)
+    dk, dv = _bshd_buffers(k, 2)
+    err = _build.load().vt_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, k.shape[2], h, d,
+        _strides(q, k, v, dout4=dout, dq4=dq, dk4=dk, dv4=dv), *_tail_args(q, seed, rate))
+    _build.check(err, name)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
 def attention_supports_fused(q_len: int, k_len: int, head_dim: int) -> bool:
     """The fused kernels' shape gate (visitron_tpu/ops/attention.py:
     attention_supports_fused without its backend test): self-attention,
@@ -511,5 +732,7 @@ def attention_supports_fused(q_len: int, k_len: int, head_dim: int) -> bool:
 
 def attention_supports_flash(q_len: int, k_len: int, head_dim: int) -> bool:
     """The flash kernels' shape gate (attention_supports_flash without its
-    backend test); the flash kernels (K5) are not ported."""
+    backend test): Q and K multiples of 128, head dim 64 or 128.  Where the
+    fused gate refuses a shape (S > 768) and ``use_flash_attention`` is set,
+    BertSelfAttention runs K5 through :func:`flash_attention`."""
     return q_len % 128 == 0 and k_len % 128 == 0 and head_dim in (64, 128)
