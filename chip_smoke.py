@@ -20,9 +20,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               F.layer_norm as the yardstick;
   5. K1b      the attention backward vs its plain twin at the train shapes
               (B 64, S 256 and 512, 12 heads of 64, bf16 with padded keys,
-              fp32, and hash dropout at rate 0.1, whose masks are K1f's);
-              times of the kernel, the twin, the autograd backward of torch's
-              scaled_dot_product_attention as a yardstick, and the bound;
+              fp32, and hash dropout at rate 0.1, whose masks are K1f's), and
+              two bf16 launches on the same inputs equal bit for bit; times
+              of the kernel, the twin, the autograd backward of torch's
+              scaled_dot_product_attention as a yardstick, and the bound,
+              then the device time of the kernel (by kernel: dq, dk/dv) and
+              of the yardstick from torch.profiler, which leaves out the
+              host's time to issue a call;
   6. K2b      the add+LayerNorm backward vs its twin (R = 64*256 and 64*512,
               H 768, bf16 and fp32, with and without a residual; dh, dgamma,
               dbeta); times and the autograd backward of F.layer_norm(x + res);
@@ -34,16 +38,21 @@ Phases, one or more lines each; any failure raises and exits non-zero:
   8. K4       the fused attention on (B, H, S, D) views of a packed QKV
               projection, forward and backward, vs its twins at the
               pretraining shape (B 16, S 768, 12 heads of 64, padded keys,
-              bf16 and fp32, rates 0 and 0.1), and K4 against K1 on the same
-              data (equal bit for bit); times with SDPA as the yardstick;
+              bf16 and fp32, rates 0 and 0.1; bf16 also in 6 heads of 128),
+              K4 against K1 on the same data (equal bit for bit), and two
+              bf16 backward launches equal bit for bit; times with SDPA as
+              the yardstick, and the backward's device times as in phase 5;
   9. K5       the flash attention, forward (with its lse) and backward, vs its
               twins on (B, H, S, D) views of packed projections: at the
               long-context shape (B 16, S 1024, 12 heads of 64, the last 8 of
-              512 region slots masked, bf16 and fp32, rates 0 and 0.1), at
-              B 2 x S 4096 (bf16, rate 0.1: no length ceiling) and Q 512 x
-              K 1024; K5f against K4f on the same data at S 768; times of
-              the kernels, the twins, SDPA forward and backward as the
-              yardstick, and the bounds;
+              512 region slots masked, bf16 and fp32, rates 0 and 0.1; bf16
+              at rate 0.1 also in 6 heads of 128), at B 2 x S 4096 (bf16,
+              rate 0.1: no length ceiling) and Q 512 x K 1024; two backward
+              launches equal bit for bit; K5f against K4f on the same data at
+              S 768; times of the kernels (K5b also at rate 0, like for like
+              with the SDPA backward), the twins, SDPA forward and backward
+              as the yardstick, and the bounds; the backward's device times
+              (di, dq, dk/dv) as in phase 5, at rates 0.1 and 0;
  10. serving  the NDH argmax serving rollout, ViewpointAgent.test, at BERT-base
               width and depth (bf16, batch 64, 10-step episodes, 2048-d
               features, rnn 512, random weights from a seed), with and without
@@ -211,6 +220,17 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
+def check_deterministic(name: str, fn) -> None:
+    """Two launches of a backward on the same inputs give dq, dk, dv equal
+    bit for bit (no atomics: the result does not depend on block order)."""
+    first, second = fn(), fn()
+    sync()
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    say(f"  {name}: dq/dk/dv of two launches equal bit for bit: {same}")
+    if not same:
+        fail(f"{name}: two launches on the same inputs disagree")
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean ms per call: CUDA events around ``iters`` calls after warm-up."""
     for _ in range(warmup):
@@ -229,6 +249,49 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls: int = 5) -> dict:
+    """Device time of one call, by kernel name: the durations of the kernels
+    ``fn`` launches under torch.profiler (CUPTI), averaged over ``calls``
+    calls.  Unlike time_ms it leaves out the host: back-to-back calls whose
+    host work outlasts their kernels time the host's issue rate instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    return by_name
+
+
+# The attention backward's kernels, by a part of their names.
+BWD_KERNELS = (("di", "attention_bwd_di"), ("dq", "attention_bwd_dq"),
+               ("dk/dv", "attention_bwd_dkv"))
+
+
+def say_bwd_device_ms(tag: str, kernel, library) -> dict:
+    """Print the device times (device_ms) of a backward, split into its
+    kernels, and of its SDPA yardstick; return them.  Nothing in a rehearsal."""
+    if REHEARSAL:
+        return {}
+    split = device_ms(kernel)
+    parts = {short: sum(ms for name, ms in split.items() if key in name)
+             for short, key in BWD_KERNELS}
+    parts["other"] = sum(ms for name, ms in split.items()
+                         if not any(key in name for _, key in BWD_KERNELS))
+    total = sum(split.values())
+    lib = sum(device_ms(library).values())
+    say(f"  device time {tag} (torch.profiler, mean of 5 calls): kernel {total:.4f} ms ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items() if v) + f"), sdpa backward "
+        f"{lib:.4f} ms, kernel / sdpa {total / lib:.2f}")
+    return {"device_ms": total, "device_split": parts, "library_device_ms": lib}
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
@@ -439,6 +502,9 @@ def phase_k1b(device, shapes) -> dict:
             if rate > 0:
                 say("  (the twin's keep mask is K1f's, checked in phase K1: the two "
                     "kernels' masks agree)")
+            if dtype == torch.bfloat16:
+                check_deterministic(f"K1b {tag}",
+                                    lambda: fused_attention_packed_bwd(*args, h, seed, rate))
             if dtype != torch.bfloat16 or rate > 0:
                 continue
             elt = args[0].element_size()
@@ -467,16 +533,17 @@ def phase_k1b(device, shapes) -> dict:
             ms = time_ms(kernel)
             plain_ms = time_ms(plain, iters=3, warmup=1)
             lib_ms = time_ms(library)
-            del graphs
             nbytes = 7 * b * s * h * d * elt + b * h * s * 4 + b * s * 4
             ops = 10 * b * h * s * s * d
             bms, by = bound_ms(nbytes, ops, dtype)
             say(f"  time {tag}: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
                 f"sdpa backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
                 f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; the two kernels "
-                f"do {1.8 * ops / 1e9:.2f})")
+                f"do {1.8 * ops / 1e9:.2f}, {1.8 * ops / ms / 1e9:.1f} TFLOP/s)")
             out[s] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+                      "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                      **say_bwd_device_ms(tag, kernel, library)}
+            del graphs
     return out
 
 
@@ -671,6 +738,9 @@ def phase_k4(device, shapes) -> dict:
         say(f"  K4 out == K1 out on the same data: {same}")
         if not same:
             fail(f"K4 and K1 disagree on the same data ({tag})")
+        if dtype == torch.bfloat16:
+            check_deterministic(f"K4b {tag}", lambda: fused_attention_bwd(
+                q4, k4, v4, bias, do4, lse, seed, rate))
         if dtype != torch.bfloat16 or rate > 0:
             continue
         elt = qkv.element_size()
@@ -728,7 +798,29 @@ def phase_k4(device, shapes) -> dict:
                 f"{ops / 1e9:.2f} GFLOP{'; the two kernels do ' + f'{1.8 * ops / 1e9:.2f}' if bwd else ''})")
             out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+        out["k4b"].update(say_bwd_device_ms(f"backward {tag}", kernel_b, library_b))
         del graphs
+
+    # Head dim 128 (the same width in 6 heads): K4f and K4b against their twins.
+    h2, d2 = h * d // 128, 128
+    g2 = torch.Generator(device=device).manual_seed(SEED + 9)
+    for rate in (0.0, 0.1):
+        seed = 4321 if rate > 0 else None
+        qkv, bias = attention_inputs(b, s, h2, d2, torch.bfloat16, device, g2)
+        q4, k4, v4 = (t.unflatten(-1, (h2, d2)).transpose(1, 2)
+                      for t in qkv.split(h2 * d2, dim=-1))
+        do4 = torch.randn(b, s, h2, d2, generator=g2, device=device).to(
+            torch.bfloat16).transpose(1, 2)
+        got, lse = fused_attention(q4, k4, v4, bias, seed, rate, need_lse=True)
+        want = fused_attention_reference(q4, k4, v4, bias, seed, rate)
+        grads = fused_attention_bwd(q4, k4, v4, bias, do4, lse, seed, rate)
+        wants = fused_attention_bwd_reference(q4, k4, v4, bias, do4, lse, seed, rate)
+        sync()
+        tag = f"B{b} S{s} H{h2} D{d2} bfloat16 rate {rate}"
+        check_close(f"out {tag}", got, want, TOL[torch.bfloat16])
+        for name, x, y in zip(("dq", "dk", "dv"), grads, wants):
+            check_close(f"{name} {tag}", x, y, GRAD_TOL[torch.bfloat16])
+        del grads, wants
     return out
 
 
@@ -757,14 +849,16 @@ def phase_k5(device, shapes) -> dict:
     path's setting (the backward runs K5b only at rate > 0)."""
     say("K5 flash_attention (forward and backward) vs plain twins")
     g = torch.Generator(device=device).manual_seed(SEED + 6)
-    b, h, d, s, pad = (shapes[k] for k in ("batch", "heads", "head_dim", "seq", "pad"))
-    cases = [(b, s, s, dtype, rate) for dtype in (torch.bfloat16, torch.float32)
+    b, h0, d0, s, pad = (shapes[k] for k in ("batch", "heads", "head_dim", "seq", "pad"))
+    h128 = h0 * d0 // 128  # the same width in heads of 128
+    cases = [(b, s, s, h0, d0, dtype, rate) for dtype in (torch.bfloat16, torch.float32)
              for rate in (0.0, 0.1)]
-    cases += [(shapes["long_batch"], shapes["long_seq"], shapes["long_seq"],
+    cases += [(b, s, s, h128, 128, torch.bfloat16, 0.1),
+              (shapes["long_batch"], shapes["long_seq"], shapes["long_seq"], h0, d0,
                torch.bfloat16, 0.1),
-              (b, shapes["cross"][0], shapes["cross"][1], torch.bfloat16, 0.1)]
+              (b, shapes["cross"][0], shapes["cross"][1], h0, d0, torch.bfloat16, 0.1)]
     out = {}
-    for bb, sq, sk, dtype, rate in cases:
+    for bb, sq, sk, h, d, dtype, rate in cases:
         seed = 2468 if rate > 0 else None
         q, k, v, kb, dout = flash_inputs(bb, h, sq, sk, d, pad, dtype, device, g)
         got, lse = attn_ops._flash_forward(q, k, v, kb, seed, rate, need_lse=True)
@@ -778,8 +872,10 @@ def phase_k5(device, shapes) -> dict:
         err_b = max(check_close(f"{name} {tag}", x, y, GRAD_TOL[dtype])
                     for name, x, y in zip(("dq", "dk", "dv"), grads, wants))
         del want, wants, grads
-        if (bb, sq, sk, dtype, rate) != (b, s, s, torch.bfloat16, 0.1):
+        if (bb, sq, sk, h, dtype, rate) != (b, s, s, h0, torch.bfloat16, 0.1):
             continue
+        check_deterministic(f"K5b {tag}", lambda: flash_attention_bwd(
+            q, k, v, kb, got, dout, lse, seed, rate))
         elt = q.element_size()
         io = bb * sq * h * d * elt
         n = 1 if REHEARSAL else copies_for_cold_l2(5 * io)
@@ -811,6 +907,10 @@ def phase_k5(device, shapes) -> dict:
             q_, k_, v_, kb_, do_, o_, l_ = pick()
             flash_attention_bwd(q_, k_, v_, kb_, o_, do_, l_, seed, rate)
 
+        def kernel_b0():  # rate 0, like for like with the SDPA backward
+            q_, k_, v_, kb_, do_, o_, l_ = pick()
+            flash_attention_bwd(q_, k_, v_, kb_, o_, do_, l_)
+
         def plain_b():
             q_, k_, v_, kb_, do_, o_, l_ = pick()
             flash_attention_bwd_reference(q_, k_, v_, kb_, o_, do_, l_, seed, rate)
@@ -827,6 +927,7 @@ def phase_k5(device, shapes) -> dict:
             torch.autograd.grad(o4, four, do_, retain_graph=True)
 
         eval_ms = time_ms(kernel_eval)
+        rate0_ms = time_ms(kernel_b0)
         stats = bb * h * sq * 4
         fwd_ops = 4 * bb * h * sq * sk * d
         for key, fns, nb, ops, e in (
@@ -838,8 +939,9 @@ def phase_k5(device, shapes) -> dict:
             lib_ms = time_ms(fns[2])
             bms, by = bound_ms(nb, ops, dtype)
             bwd = key == "k5b"
-            extra = (f"; the two kernels do {1.4 * ops / 1e9:.2f}, and the time includes "
-                     "the wrapper's di reduction" if bwd else
+            extra = (f"; the two kernels do {1.4 * ops / 1e9:.2f}, {1.4 * ops / ms / 1e9:.1f} "
+                     f"TFLOP/s, and the time includes the di pre-pass; at rate 0, like "
+                     f"for like with the sdpa backward: {rate0_ms:.4f} ms" if bwd else
                      f"; eval call (rate 0, no lse) {eval_ms:.4f} ms")
             say(f"  time {'backward' if bwd else 'forward'} {tag}: kernel {ms:.4f} ms, "
                 f"plain twin {plain_ms:.4f} ms, sdpa{' backward' if bwd else ''} (rate 0) "
@@ -847,6 +949,10 @@ def phase_k5(device, shapes) -> dict:
                 f"{ops / 1e9:.2f} GFLOP{extra})")
             out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+        out["k5b"]["rate0_ms"] = rate0_ms
+        out["k5b"].update(say_bwd_device_ms(f"backward {tag}", kernel_b, library_b))
+        rate0 = say_bwd_device_ms(f"backward {tag[:-3]}0.0", kernel_b0, library_b)
+        out["k5b"]["rate0_device_ms"] = rate0.get("device_ms")
         del graphs, sets
 
     # K5f and K4f on the same data, at the fused gate's top length.  The TPU
@@ -856,7 +962,7 @@ def phase_k5(device, shapes) -> dict:
     # does), so they should.
     s4 = shapes["fused_seq"]
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, kb, _ = flash_inputs(b, h, s4, s4, d, pad, dtype, device, g)
+        q, k, v, kb, _ = flash_inputs(b, h0, s4, s4, d0, pad, dtype, device, g)
         k5 = flash_attention(q, k, v, kb, 99, 0.1)
         k4 = fused_attention(q, k, v, kb, 99, 0.1)
         sync()

@@ -222,11 +222,12 @@ def _views4(qkv, h, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s", [768, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k4_kernels_match_twins_and_k1_on_card(cuda, dtype, s):
+def test_k4_kernels_match_twins_and_k1_on_card(cuda, dtype, s, d):
     g = torch.Generator(device=cuda).manual_seed(8)
-    b, h, d = 3, 4, 64
+    b, h = 3, 4
     qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype)
     dout = torch.randn(b, s, h * d, generator=g, device=cuda).to(dtype)
     kb = torch.where(torch.arange(s, device=cuda)[None] < torch.tensor(
@@ -273,6 +274,32 @@ def test_k4_autograd_on_card_counts_launches(cuda):
     want = tatt.fused_attention(*_views4(ref, h, d), kb.cpu(), 5, 0.1)
     (gw,) = torch.autograd.grad(want.transpose(1, 2).flatten(2).square().sum(), ref)
     torch.testing.assert_close(gq.cpu(), gw, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K1b", "K4b", "K5b"])
+@pytest.mark.parametrize("rate,seed", [(0.1, 13), (0.0, None)])
+def test_attention_backward_is_bit_identical_run_to_run_on_card(cuda, kernel, rate, seed):
+    """No atomics: two launches on the same bf16 inputs give equal dq/dk/dv."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    b, s, h, d = 2, 384, 4, 64
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(torch.bfloat16)
+    dout = torch.randn(b, s, h * d, generator=g, device=cuda).to(torch.bfloat16)
+    kb = torch.zeros(b, s, device=cuda)
+    kb[1, 300:] = NEG_INF
+    q4, k4, v4 = _views4(qkv, h, d)
+    do4 = dout.unflatten(-1, (h, d)).transpose(1, 2)
+    out, lse = tatt._flash_forward(q4, k4, v4, kb, seed, rate, need_lse=True)
+    if kernel == "K1b":
+        run = lambda: tatt.fused_attention_packed_bwd(  # noqa: E731
+            *qkv.split(h * d, dim=-1), kb, dout, lse, h, seed, rate)
+    elif kernel == "K4b":
+        run = lambda: tatt.fused_attention_bwd(q4, k4, v4, kb, do4, lse, seed, rate)  # noqa: E731
+    else:
+        run = lambda: tatt.flash_attention_bwd(  # noqa: E731
+            q4, k4, v4, kb, out, do4, lse, seed, rate)
+    first, second = run(), run()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 # -- K5: flash attention, Q and K lengths of their own ------------------------------

@@ -39,7 +39,7 @@ SIGNATURES = {
     "vt_attention_fwd": [_P] * 6 + [_I] * 4 + [_LLP, _I, _U, _U, _F, _I, _F, _P],
     "vt_attention_bwd": [_P] * 10 + [_I] * 4 + [_LLP, _I, _U, _U, _F, _I, _F, _P],
     "vt_flash_fwd": [_P] * 6 + [_I] * 5 + [_LLP, _I, _U, _U, _F, _I, _F, _P],
-    "vt_flash_bwd": [_P] * 10 + [_I] * 5 + [_LLP, _I, _U, _U, _F, _I, _F, _P],
+    "vt_flash_bwd": [_P] * 11 + [_I] * 5 + [_LLP, _I, _U, _U, _F, _I, _F, _P],
     "vt_ce_fwd": [_P] * 4 + [_I, _I, _I, _P],
     "vt_ce_bwd": [_P] * 5 + [_I, _I, _I, _P],
     "vt_layernorm_fwd": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],

@@ -7,7 +7,7 @@
 // any pair (both multiples of 128 at its gate; the kernels themselves take
 // any length and are not sized by it).  The entries differ in the
 // backward's D_i (see the backward's note): K1b/K4b sum it in the dq kernel,
-// K5b reads the rowsum(out * dO) that its wrapper computed.
+// K5b reads the rowsum(out * dO) that its pre-pass kernel writes.
 //
 // Replaces: visitron_tpu/ops/attention.py:_fused_packed_fwd_kernel, reached
 // through _fused_packed_forward (the Pallas call of fused_attention_packed),
@@ -76,16 +76,24 @@ constexpr int kBQ = 64;  // query rows per block
 constexpr int kBK = 64;  // keys per tile
 
 // murmur3 finaliser over the absolute (row, col) coordinate of the head:
-// visitron_tpu/ops/attention.py:_keep_mask, in native uint32 arithmetic.
-__device__ __forceinline__ bool keep_bit(uint32_t r, uint32_t c, uint32_t seed,
-                                         uint32_t thr) {
-  uint32_t x = (r * 0x9E3779B1u) ^ (c * 0x85EBCA77u) ^ seed;
-  x ^= x >> 16;
+// visitron_tpu/ops/attention.py:_keep_mask, in native uint32 arithmetic:
+// keep_tail(mix16(x)) for x = (r * 0x9E3779B1) ^ (c * 0x85EBCA77) ^ seed.
+// The first step, mix16, distributes over ^, so a kernel may apply it to the
+// row term (with the seed) and the column term once each and pass keep_tail
+// the ^ of the two.
+__device__ __forceinline__ uint32_t mix16(uint32_t x) { return x ^ (x >> 16); }
+
+__device__ __forceinline__ bool keep_tail(uint32_t x, uint32_t thr) {
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x >= thr;
+}
+
+__device__ __forceinline__ bool keep_bit(uint32_t r, uint32_t c, uint32_t seed,
+                                         uint32_t thr) {
+  return keep_tail(mix16((r * 0x9E3779B1u) ^ (c * 0x85EBCA77u) ^ seed), thr);
 }
 
 // Element strides of one operand seen as (B, H, S, D); D is contiguous.
@@ -526,7 +534,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 }
 
 // ============================================================================
-// Backward (K1b, K4b).
+// Backward (K1b, K4b, K5b).
 //
 // Replaces: visitron_tpu/ops/attention.py:_fused_packed_bwd_kernel, reached
 // through _fused_packed_bwd_rule, and _fused_bwd_kernel, reached through
@@ -543,127 +551,274 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // K5b (visitron_tpu/ops/attention.py:_bwd_dkv_kernel and _bwd_dq_kernel,
 // reached through _flash_bwd_rule) computes the same with Q and K lengths of
 // their own and one difference: D_i = rowsum(out * dO) in fp32 from the
-// rounded output, which its wrapper computes with one torch reduction, as
-// the rule computes di in XLA outside its two Pallas kernels.  Given D_i,
-// the dq kernel skips its first walk, so the two launches do 7 products per
-// head (the TPU kernels' 7; 5 are the minimum).
+// rounded output, which the rule computes in XLA outside its two Pallas
+// kernels.  Here a pre-pass kernel (attention_bwd_di) reads out and dO and
+// writes it before the two main kernels.  Given D_i, the dq kernel skips its
+// first walk, so K5b runs 7 S x S x D products per head (the TPU kernels' 7;
+// 5 are the minimum) and K1b/K4b 9.
 //
-// What bounds it on an H100: at the train shapes (B 64, S 256..512, 12 x 64,
-// bf16) the operations.  Reading q, k, v, dO and the lse and writing dq, dk,
-// dv is about 7*B*S*H*D bf16 elements; the two launches below do 9 S x S x D
-// products per head (five are the minimum), 18*B*H*S^2*D FLOPs.
+// What bounds it on an H100: at the NDH train shape (K1b: B 64, S 256,
+// 12 x 64, bf16) the bytes: reading q, k, v, dO and the lse and writing dq,
+// dk, dv takes 0.0528 ms at 3.35 TB/s against 0.0326 ms for the 5 minimum
+// products at the bf16 tensor-core rate.  From about S 512 on it is the
+// operations (K4b at B 16, S 768: 72.5 GFLOP, 0.0733 ms; K5b at S 1024:
+// 128.8 GFLOP, 0.1303 ms).  Beside the products, every score element costs
+// one exp2, a dozen scalar operations and, at rate > 0, the murmur3 hash,
+// which the tensor-core work has to cover.
 //
 // Design against what the TPU kernel relied on: the Pallas kernel holds the
 // whole (S, S) score matrix of a head in VMEM and produces dq, dk and dv in
 // one program.  No SM has room for that, and blocks cannot carry sums across
 // the grid, so the work is split flash-style into two launches that need no
 // atomics (results are the same run to run):
-//   1. dq, one block per (b, h, 64-query tile): for K1b/K4b a first walk
-//      over the key tiles sums D_i = sum_j a_eff dp (the fused TPU kernels'
-//      formula, not the flash shortcut rowsum(dO * out): with out rounded
-//      to bf16 that shortcut leaves ds = O(2^-9 |dp|) where the exact ds is
-//      0, e.g. for a query with a single unmasked key) and writes it; for
-//      K5b, whose TPU kernels take the shortcut, D_i comes in; a second
+//   1. dq, one block per (b, h, 64-query tile), Q and dO resident in shared
+//      memory, K and V streaming: for K1b/K4b a first walk over the key tiles
+//      sums D_i = sum_j a_eff dp (the fused TPU kernels' formula, not the
+//      flash shortcut rowsum(dO * out): with out rounded to bf16 that shortcut
+//      leaves ds = O(2^-9 |dp|) where the exact ds is 0, e.g. for a query with
+//      a single unmasked key) and writes it; for K5b D_i comes in; a second
 //      walk forms ds and accumulates dq;
-//   2. dk/dv, one block per (b, h, 64-key tile), looping over query tiles
-//      and reading D_i.
+//   2. dk/dv, one block per (b, h, 64-key tile), K and V resident, the Q,
+//      dO, lse and D_i tiles streaming.
 // Both recompute s, a and the murmur3 keep mask from q, k, the bias, the lse
 // and the per-head seed, bit for bit as the forward does.  Every operand is
 // addressed through its own strides: q, k, v are views of the fused QKV
 // projection, dO is what autograd hands back, dq, dk, dv are allocated
-// (B, S, H, D) by the wrapper.  At S = 768 (K4b) both passes of the dq kernel
-// walk 12 key tiles and the dk/dv kernel 12 query tiles; at S = 1024 (K5b)
-// the one pass walks 16; nothing in the kernels is sized by S.
-// bf16: mma.sync m16n8k16 as in the forward, four warps of 16 rows; tiles in
-// padded shared memory, A fragments read from it per k-step.  fp32: FMA on the
-// CUDA cores, 256 threads, each owning a 4 x 4 block of the score tile and a
-// 4 x D/16 block of the output.
+// (B, S, H, D) by the wrapper.  Nothing is sized by the lengths.
+//
+// bf16, built for Hopper (sm_90a):
+//   * Products on wgmma.  A block is one warpgroup, which owns the 64 rows of
+//     its resident tile.  S = Q K^T and dP = dO V^T in the dq
+//     kernel, S^T = K Q^T and dP^T = V dO^T in the dk/dv kernel read both
+//     operands from shared memory.  dq += dS K, dv += P^T dO and dk += dS^T Q
+//     take the computed tile from registers (the accumulator layout of one
+//     product is the A-fragment layout of the next) and the streamed tile
+//     through wgmma's transpose bit: no operand is copied transposed.
+//   * Tiles sit in shared memory in the 128-byte swizzle that wgmma reads
+//     (64-column blocks of 128-byte rows; 16-byte chunk c of row r at
+//     c ^ (r % 8)), written by cp.async 16-byte copies.  The streamed tiles go
+//     through a three-stage ring, one barrier a tile: the copy of tile i + 1
+//     is in flight while the products and exponentials of tile i run, and
+//     the last product batch of tile i runs on into tile i + 1's barrier.
+//     cp.async rather than TMA: q, k and v are strided views that change
+//     every call, and cp.async needs no tensor map encoded on the host per
+//     operand and call (nor libcuda), while a tile is 8-16 KB, a
+//     few copy instructions a thread.
+//   * exp2 on pre-scaled operands: log2(e) is folded into the score scale,
+//     the key bias and the lse (each converted once per row or tile), so a
+//     score element costs one FMA, one subtraction and one ex2.approx.
+//   * Ragged tiles cost nothing per element: rows past a length are
+//     zero-filled by the copies, and the key bias / lse of those rows are
+//     -inf / +inf, so their probabilities are exactly 0.  Any length is taken
+//     (the gates admit multiples of 128).
+//   * The exponentials of one block overlap the products of the others: at
+//     D 64 three blocks share an SM (168 registers a thread); there is no
+//     warp specialisation.
+// fp32 (a tight reference on the card): FMA on the CUDA cores, 256 threads,
+// each owning a 4 x 4 block of the score tile and a 4 x D/16 block of the
+// output.
 
-// c[j] (j < 8): the 16 x 64 product of the warp's 16 rows of X (padded
-// tile, row pitch D + 8) with the 64 rows of Y, contracted over D.
+constexpr float kLog2e = 1.4426950408889634f;
+// Threads of a backward block: one warpgroup of 64 rows.  With three blocks
+// an SM at D 64 (a budget of 168 registers a thread) this measured faster on
+// an H100 than two warpgroups sharing the streamed tiles in a block of 256
+// threads, which fits once an SM (PERF.md).
+constexpr int kBwdThreadsWg = 128;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for this thread's copies and orders them before wgmma's reads; the
+// tiles are the block's once it has passed a barrier.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copies rows [r0, r0 + 64) of an (S, D) bf16 operand with row stride
+// `stride` (elements) into a 128-byte-swizzled tile at shared address `dst`:
+// D / 64 column blocks of 64 rows x 128 bytes, 16-byte chunk c of row r at
+// c ^ (r % 8).  Rows at or beyond S are zero-filled (their source address is
+// row S - 1, of which no byte is read).  The block's threads share it.
 template <int D>
-__device__ __forceinline__ void mma_rows_by_rows(float (&c)[kBK / 8][4],
-                                                 const __nv_bfloat16* Xw,
-                                                 const __nv_bfloat16* Y, int g,
-                                                 int t) {
-  constexpr int LD = D + 8;
+__device__ __forceinline__ void cp_tile(uint32_t dst, const __nv_bfloat16* src,
+                                        long long stride, int r0, int S, int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  constexpr int NT = kBwdThreadsWg;
 #pragma unroll
-  for (int j = 0; j < kBK / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t a[4] = {ld32(Xw + g * LD + kk * 16 + 2 * t),
-                           ld32(Xw + (g + 8) * LD + kk * 16 + 2 * t),
-                           ld32(Xw + g * LD + kk * 16 + 8 + 2 * t),
-                           ld32(Xw + (g + 8) * LD + kk * 16 + 8 + 2 * t)};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      const __nv_bfloat16* yr = Y + (j * 8 + g) * LD + kk * 16 + 2 * t;
-      mma_16816(c[j], a, ld32(yr), ld32(yr + 8));
-    }
+  for (int j = 0; j < 64 * CPR / NT; ++j) {
+    const int ci = tid + j * NT;
+    const int row = ci / CPR, cc = ci % CPR, s = r0 + row;
+    const uint32_t off = (cc >> 3) * (64 * 128) + row * 128 + (((cc & 7) ^ (row & 7)) << 4);
+    cp_async16(dst + off, src + static_cast<long long>(min(s, S - 1)) * stride + cc * 8,
+               s < S ? 16 : 0);
   }
 }
 
-// o += P Z: P is a 16 x 64 fp32 accumulator tile (the layout c of
-// mma_rows_by_rows), rounded to bf16 as the A operand; Z is a padded
-// (64, D) tile.
-template <int D>
-__device__ __forceinline__ void mma_acc_by_tile(float (&o)[D / 8][4],
-                                                const float (&p)[kBK / 8][4],
-                                                const __nv_bfloat16* Z, int g,
-                                                int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    const __nv_bfloat16* zr = Z + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const __nv_bfloat16* zc = zr + n * 8;
-      mma_16816(o[n], pa, ld_pair(zc, zc + LD), ld_pair(zc + 8 * LD, zc + 9 * LD));
-    }
-  }
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile at `addr`.
+// K-major operands (the contracted dim contiguous) ignore `lead`; MN-major
+// ones (wgmma's transpose bit) take the bytes between 64-column blocks.
+// Either way 8-row groups are 1024 bytes apart.  Tile bases are 1024-byte
+// aligned, so the base-offset field stays 0 where a k-step starts 32, 64 or
+// 96 bytes into a row.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lead) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-template <int D>
-constexpr int bwd_mma_smem_bytes() {
-  return 4 * kBQ * (D + 8) * 2 + 2 * kBQ * 4;  // four bf16 tiles, lse and D_i
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const float* __restrict__ key_bias,
-                            const __nv_bfloat16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
-                            int delta_given, int SQ, int SK, int H, AttnStrides st,
-                            uint32_t seed, uint32_t thr, float inv_keep, int dropout,
-                            float sm_scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = D / 8;
-  constexpr int KT = kBK / 8;
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* dOs = Qs + kBQ * LD;
-  __nv_bfloat16* Ks = dOs + kBQ * LD;
-  __nv_bfloat16* Vs = Ks + kBK * LD;
+// Keeps the compiler from moving accesses of wgmma's registers across the
+// asynchronous product, which it cannot see: applied to the accumulators and
+// A fragments before each wgmma_fence (else ptxas finds their definitions
+// inside the product batch and serialises it) and after each wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
 
-  const int q0 = blockIdx.x * kBQ;
+#define VT_ACC32                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define VT_ACC32_OPS(d)                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),            \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+      "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64 fp32; overwritten unless `acc`) += A B^T over one k-step of 16:
+// A and B from shared memory, both K-major.  Thread (warp w, lane) holds
+// d[4j + 2h + e] = row 16w + lane/4 + 8h, column 8j + 2(lane%4) + e.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VT_ACC32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : VT_ACC32_OPS(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 64 fp32) += A B over one k-step of 16: A from registers (the
+// m16n8k16 A fragment of the warp's 16 rows), B from shared memory,
+// MN-major (rows along the contracted dim).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VT_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : VT_ACC32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The 64 x 64 fp32 tile x (wgmma_ss's layout) rounded to bf16 as the A
+// fragments of four k-steps (columns 16kk .. 16kk + 15).
+__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// d[cb] += F Z for the 64-row streamed tile Z (64 x D, at `tile`) and the
+// fragments F of a 64 x 64 computed tile: four k-steps along Z's rows, one
+// n64 product per 64-column block.
+template <int NCB>
+__device__ __forceinline__ void wgmma_frags_by_tile(float (&d)[NCB][32],
+                                                    const uint32_t (&f)[4][4], uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+      wgmma_rs(d[cb], f[kk], gmma_desc(tile + cb * 8192 + kk * 2048, 8192));
+}
+
+// The streamed tiles' ring: the copy of tile i + 1 goes to the stage that
+// tile i - 2 used, whose products the warpgroups have waited for (the last
+// product batch of tile i - 1 may still be reading its stage).
+constexpr int kStages = 3;
+
+// The shared-memory layout of both main kernels: two resident (64, D)
+// tiles, the ring of pairs of streamed (64, D) tiles, three words of
+// streamed per-row values for each of the 64 rows of a stage, and slack for
+// aligning the tiles to 1024 bytes.
+template <int D>
+constexpr int bwd_wgmma_smem_bytes() {
+  return 1024 + 2 * 64 * D * 2 + kStages * (2 * 64 * D * 2 + 3 * 64 * 4);
+}
+
+// dq (and, for K1b/K4b, D_i): one block per (b, h, 64 queries).
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kBwdThreadsWg, D == 64 ? 3 : 1)
+attention_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ key_bias,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
+                       float* __restrict__ delta, int delta_given, int SQ, int SK, int H,
+                       AttnStrides st, uint32_t seed, uint32_t thr, float inv_keep,
+                       float sm_scale) {
+  constexpr int NCB = D / 64;
+  constexpr int TILE = 64 * D * 2;  // bytes of a tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sQ = base, sdO = base + TILE, ring = base + 2 * TILE;  // stage s: K, V
+  // Per stage and key of the tile: the bias (times log2 e), then the key's
+  // hash term mix16(key * 0x85EBCA77).
+  float* kb_s = reinterpret_cast<float*>(smem_raw + (ring + kStages * 2 * TILE - raw));
+  uint32_t* km_s = reinterpret_cast<uint32_t*>(kb_s + kStages * 64);
+
+  const int q0 = blockIdx.x * 64;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wl = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
   const long long row_bh = (static_cast<long long>(b) * H + h) * SQ;
   const float* bias = key_bias + static_cast<long long>(b) * SK;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  const float scale2 = sm_scale * kLog2e;
   // This block's head: every operand from here on is its (S, D) slice.
   q += head_off(st.q, b, h);
   k += head_off(st.k, b, h);
@@ -671,118 +826,175 @@ attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
   dout += head_off(st.dout, b, h);
   dq += head_off(st.dq, b, h);
 
-  load_tile<D>(Qs, q, st.q.s, q0, SQ, tid);
-  load_tile<D>(dOs, dout, st.dout.s, q0, SQ, tid);
-  const __nv_bfloat16* Qw = Qs + (warp * 16) * LD;
-  const __nv_bfloat16* dOw = dOs + (warp * 16) * LD;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const float ls[2] = {rows[0] < SQ ? lse[row_bh + rows[0]] : 0.f,
-                       rows[1] < SQ ? lse[row_bh + rows[1]] : 0.f};
-
-  // D_i: given (K5b), or summed by pass 0 over the lane's keys (K1b/K4b).
-  float dl[2] = {0.f, 0.f};
-  if (delta_given) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) dl[r] = rows[r] < SQ ? delta[row_bh + rows[r]] : 0.f;
+  cp_tile<D>(sQ, q, st.q.s, q0, SQ, tid);
+  cp_tile<D>(sdO, dout, st.dout.s, q0, SQ, tid);
+  cp_tile<D>(ring, k, st.k.s, 0, SK, tid);
+  cp_tile<D>(ring + TILE, v, st.v.s, 0, SK, tid);
+  cp_async_commit();
+  if (tid < 64) {
+    kb_s[tid] = tid < SK ? bias[tid] * kLog2e : -INFINITY;
+    km_s[tid] = mix16(static_cast<uint32_t>(tid) * 0x85EBCA77u);
   }
-  float acc_dq[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc_dq[n][0] = acc_dq[n][1] = acc_dq[n][2] = acc_dq[n][3] = 0.f;
 
-  for (int pass = delta_given ? 1 : 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < SK; k0 += kBK) {
-      __syncthreads();  // the previous tile's K/V reads are done
-      load_tile<D>(Ks, k, st.k.s, k0, SK, tid);
-      load_tile<D>(Vs, v, st.v.s, k0, SK, tid);
-      __syncthreads();
+  const int rows[2] = {q0 + 16 * wl + g, q0 + 16 * wl + g + 8};
+  float lse2[2], dl[2];
+  uint32_t rmix[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = rows[r] < SQ;
+    lse2[r] = ok ? lse[row_bh + rows[r]] * kLog2e : INFINITY;
+    dl[r] = ok && delta_given ? delta[row_bh + rows[r]] : 0.f;
+    rmix[r] = mix16((static_cast<uint32_t>(rows[r]) * 0x9E3779B1u) ^ hseed);
+  }
+  float acc[NCB][32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) acc[cb][i] = 0.f;
+    s[i] = dp[i] = 0.f;
+  }
 
-      float sc[KT][4], dp[KT][4];
-      mma_rows_by_rows<D>(sc, Qw, Ks, g, t);
-      mma_rows_by_rows<D>(dp, dOw, Vs, g, t);
+  // Key tiles, walked once (K5b) or twice (K1b/K4b: D_i, then dq).
+  const int nk = (SK + 63) / 64;
+  const int n = delta_given ? nk : 2 * nk;
+  // A do-while: n >= 1, and a path that skipped the loop would leave the
+  // accumulators defined by plain moves before the final wait, for which
+  // ptxas serialises every product batch.
+  int i = 0, stage = 0;
+  do {
+    const int next = stage + 1 == kStages ? 0 : stage + 1;
+    const int k0 = (i < nk ? i : i - nk) * 64;
+    const bool pass0 = !delta_given && i < nk;
+    const uint32_t sK = ring + stage * 2 * TILE, sV = sK + TILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; tile i - 2's stage is free
+    float kb_next = 0.f;
+    const int kn = (i + 1 < nk ? i + 1 : i + 1 - nk) * 64;
+    if (i + 1 < n) {
+      const uint32_t nK = ring + next * 2 * TILE;
+      cp_tile<D>(nK, k, st.k.s, kn, SK, tid);
+      cp_tile<D>(nK + TILE, v, st.v.s, kn, SK, tid);
+      if (tid < 64) kb_next = kn + tid < SK ? bias[kn + tid] * kLog2e : -INFINITY;
+    }
+    cp_async_commit();
+
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < KT; ++j) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ko = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      wgmma_ss(s, gmma_desc(sQ + ko, 16), gmma_desc(sK + ko, 16), kk > 0);
+      wgmma_ss(dp, gmma_desc(sdO + ko, 16), gmma_desc(sV + ko, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();  // also the previous tile's dq batch
+    reg_fence(s);
+    reg_fence(dp);
+
+    const float* kbs = kb_s + stage * 64;
+    const uint32_t* kms = km_s + stage * 64;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + j * 8 + 2 * t + e;
-          const bool ok = key < SK;
-          const float kb = ok ? bias[key] : 0.f;
+    for (int j = 0; j < 8; ++j) {
+      const float2 kb = *reinterpret_cast<const float2*>(kbs + 8 * j + 2 * t);
+      const uint2 km = *reinterpret_cast<const uint2*>(kms + 8 * j + 2 * t);
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float& x = sc[j][2 * r + e];
-            const float a = ok ? expf(x * sm_scale + kb - ls[r]) : 0.f;
-            const float dpv = dp[j][2 * r + e];
-            float a_eff = a, da = dpv;
-            if (dropout) {
-              const bool keep = keep_bit(static_cast<uint32_t>(rows[r]),
-                                         static_cast<uint32_t>(key), hseed, thr);
-              a_eff = keep ? a * inv_keep : 0.f;
-              da = keep ? dpv * inv_keep : 0.f;
-            }
-            if (pass == 0)
-              dl[r] = fmaf(a_eff, dpv, dl[r]);
-            else
-              x = a * (da - dl[r]) * sm_scale;  // ds
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& x = s[4 * j + 2 * r + e];
+          const float a = ex2(fmaf(x, scale2, e ? kb.y : kb.x) - lse2[r]);
+          const float dpv = dp[4 * j + 2 * r + e];
+          float a_eff = a, da = dpv;
+          if (kDropout) {
+            const float m = keep_tail(rmix[r] ^ (e ? km.y : km.x), thr) ? inv_keep : 0.f;
+            a_eff = a * m;
+            da = dpv * m;
           }
+          if (pass0)
+            dl[r] = fmaf(a_eff, dpv, dl[r]);
+          else
+            x = a * (da - dl[r]) * sm_scale;  // ds
         }
       }
-      if (pass == 1) mma_acc_by_tile<D>(acc_dq, sc, Ks, g, t);
     }
-    if (pass == 0) {
+    if (pass0) {
+      if (i == nk - 1) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
-        dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
-        if (rows[r] < SQ && t == 0) delta[row_bh + rows[r]] = dl[r];
+        for (int r = 0; r < 2; ++r) {
+          dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
+          dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
+          if (rows[r] < SQ && t == 0) delta[row_bh + rows[r]] = dl[r];
+        }
       }
+    } else {
+      uint32_t f[4][4];
+      to_frags(f, s);
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) reg_fence(acc[cb]);
+      reg_fence(f);
+      wgmma_fence();
+      wgmma_frags_by_tile<NCB>(acc, f, sK);  // dq += ds k, waited for by the next tile
+      wgmma_commit();
     }
-  }
+    if (i + 1 < n && tid < 64) {
+      kb_s[next * 64 + tid] = kb_next;
+      km_s[next * 64 + tid] = mix16(static_cast<uint32_t>(kn + tid) * 0x85EBCA77u);
+    }
+    stage = next;
+  } while (++i < n);
+  wgmma_wait();
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) reg_fence(acc[cb]);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= SQ) continue;
     __nv_bfloat16* drow = dq + rows[r] * st.dq.s + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8) =
-          pack_bf16(acc_dq[n][2 * r], acc_dq[n][2 * r + 1]);
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(drow + cb * 64 + 8 * j) =
+            pack_bf16(acc[cb][4 * j + 2 * r], acc[cb][4 * j + 2 * r + 1]);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const float* __restrict__ key_bias,
-                             const __nv_bfloat16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, int SQ, int SK, int H,
-                             AttnStrides st, uint32_t seed, uint32_t thr,
-                             float inv_keep, int dropout, float sm_scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = D / 8;
-  constexpr int QT = kBQ / 8;
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* Vs = Ks + kBK * LD;
-  __nv_bfloat16* Qs = Vs + kBK * LD;
-  __nv_bfloat16* dOs = Qs + kBQ * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + kBQ * LD);
-  float* dl_s = lse_s + kBQ;
+// dk and dv: one block per (b, h, 64 keys), walking the query tiles.
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kBwdThreadsWg, D == 64 ? 3 : 1)
+attention_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const float* __restrict__ key_bias,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                        int SQ, int SK, int H, AttnStrides st, uint32_t seed, uint32_t thr,
+                        float inv_keep, float sm_scale) {
+  constexpr int NCB = D / 64;
+  constexpr int TILE = 64 * D * 2;  // bytes of a tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sK = base, sV = base + TILE, ring = base + 2 * TILE;  // stage s: Q, dO
+  // Per stage and query of the tile: the lse (times log2 e), D_i, and the
+  // query's hash term mix16(query * 0x9E3779B1 ^ seed).
+  float* stats = reinterpret_cast<float*>(smem_raw + (ring + kStages * 2 * TILE - raw));
+  uint32_t* qm_s = reinterpret_cast<uint32_t*>(stats + kStages * 128);
 
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.x * 64;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wl = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
   const long long row_bh = (static_cast<long long>(b) * H + h) * SQ;
   const float* bias = key_bias + static_cast<long long>(b) * SK;
   const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  const float scale2 = sm_scale * kLog2e;
   // This block's head: every operand from here on is its (S, D) slice.
   q += head_off(st.q, b, h);
   k += head_off(st.k, b, h);
@@ -791,61 +1003,122 @@ attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
   dk += head_off(st.dk, b, h);
   dv += head_off(st.dv, b, h);
 
-  load_tile<D>(Ks, k, st.k.s, k0, SK, tid);
-  load_tile<D>(Vs, v, st.v.s, k0, SK, tid);
-  const __nv_bfloat16* Kw = Ks + (warp * 16) * LD;
-  const __nv_bfloat16* Vw = Vs + (warp * 16) * LD;
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const float kb[2] = {keys[0] < SK ? bias[keys[0]] : 0.f,
-                       keys[1] < SK ? bias[keys[1]] : 0.f};
-
-  float acc_dk[NT][4], acc_dv[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    acc_dk[n][0] = acc_dk[n][1] = acc_dk[n][2] = acc_dk[n][3] = 0.f;
-    acc_dv[n][0] = acc_dv[n][1] = acc_dv[n][2] = acc_dv[n][3] = 0.f;
+  cp_tile<D>(sK, k, st.k.s, k0, SK, tid);
+  cp_tile<D>(sV, v, st.v.s, k0, SK, tid);
+  cp_tile<D>(ring, q, st.q.s, 0, SQ, tid);
+  cp_tile<D>(ring + TILE, dout, st.dout.s, 0, SQ, tid);
+  cp_async_commit();
+  if (tid < 64) {
+    stats[tid] = tid < SQ ? lse[row_bh + tid] * kLog2e : INFINITY;
+    qm_s[tid] = mix16((static_cast<uint32_t>(tid) * 0x9E3779B1u) ^ hseed);
+  } else {
+    stats[tid] = tid - 64 < SQ ? delta[row_bh + tid - 64] : 0.f;
   }
 
-  for (int q0 = 0; q0 < SQ; q0 += kBQ) {
-    __syncthreads();  // the previous tile's Q/dO reads are done
-    load_tile<D>(Qs, q, st.q.s, q0, SQ, tid);
-    load_tile<D>(dOs, dout, st.dout.s, q0, SQ, tid);
-    if (tid < kBQ) {
-      const int s = q0 + tid;
-      lse_s[tid] = s < SQ ? lse[row_bh + s] : 0.f;
-      dl_s[tid] = s < SQ ? delta[row_bh + s] : 0.f;
-    }
-    __syncthreads();
-
-    // Transposed tiles: rows are this warp's keys, columns the queries.
-    float sc_t[QT][4], pt[QT][4];
-    mma_rows_by_rows<D>(sc_t, Kw, Qs, g, t);
-    mma_rows_by_rows<D>(pt, Vw, dOs, g, t);
+  // Rows of the transposed tiles are this thread's keys, columns the queries.
+  const int keys[2] = {k0 + 16 * wl + g, k0 + 16 * wl + g + 8};
+  float kb2[2];
+  uint32_t kmix[2];
 #pragma unroll
-    for (int j = 0; j < QT; ++j) {
+  for (int r = 0; r < 2; ++r) {
+    kb2[r] = keys[r] < SK ? bias[keys[r]] * kLog2e : -INFINITY;
+    kmix[r] = mix16(static_cast<uint32_t>(keys[r]) * 0x85EBCA77u);
+  }
+  float acc_dk[NCB][32], acc_dv[NCB][32], s[32], dp[32];  // s, dp: S^T and dP^T
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) acc_dk[cb][i] = acc_dv[cb][i] = 0.f;
+    s[i] = dp[i] = 0.f;
+  }
+
+  const int nq = (SQ + 63) / 64;
+  int i = 0, stage = 0;
+  do {  // nq >= 1 (see the dq kernel)
+    const int next = stage + 1 == kStages ? 0 : stage + 1;
+    const int q0 = i * 64;
+    const uint32_t sQ = ring + stage * 2 * TILE, sdO = sQ + TILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; tile i - 2's stage is free
+    float stat_next = 0.f;
+    const int qn = q0 + 64;
+    if (i + 1 < nq) {
+      const uint32_t nQ = ring + next * 2 * TILE;
+      cp_tile<D>(nQ, q, st.q.s, qn, SQ, tid);
+      cp_tile<D>(nQ + TILE, dout, st.dout.s, qn, SQ, tid);
+      if (tid < 64)
+        stat_next = qn + tid < SQ ? lse[row_bh + qn + tid] * kLog2e : INFINITY;
+      else
+        stat_next = qn + tid - 64 < SQ ? delta[row_bh + qn + tid - 64] : 0.f;
+    }
+    cp_async_commit();
+
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ko = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      wgmma_ss(s, gmma_desc(sK + ko, 16), gmma_desc(sQ + ko, 16), kk > 0);
+      wgmma_ss(dp, gmma_desc(sV + ko, 16), gmma_desc(sdO + ko, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();  // also the previous tile's dk/dv batch
+    reg_fence(s);
+    reg_fence(dp);
+
+    const float* ls = stats + stage * 128;
+    const uint32_t* qms = qm_s + stage * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+      const float2 di = *reinterpret_cast<const float2*>(ls + 64 + 8 * j + 2 * t);
+      const uint2 qm = *reinterpret_cast<const uint2*>(qms + 8 * j + 2 * t);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int qi = j * 8 + 2 * t + e;
-        const int query = q0 + qi;
-        const float lq = lse_s[qi], dq_i = dl_s[qi];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const bool ok = query < SQ && keys[r] < SK;
-          const float a = ok ? expf(sc_t[j][2 * r + e] * sm_scale + kb[r] - lq) : 0.f;
-          float a_eff = a, da = pt[j][2 * r + e];
-          if (dropout) {
-            const bool keep = keep_bit(static_cast<uint32_t>(query),
-                                       static_cast<uint32_t>(keys[r]), hseed, thr);
-            a_eff = keep ? a * inv_keep : 0.f;
-            da = keep ? da * inv_keep : 0.f;
+          float& x = s[4 * j + 2 * r + e];
+          float& y = dp[4 * j + 2 * r + e];
+          const float a = ex2(fmaf(x, scale2, kb2[r]) - (e ? lq.y : lq.x));
+          float a_eff = a, da = y;
+          if (kDropout) {
+            const float m = keep_tail((e ? qm.y : qm.x) ^ kmix[r], thr) ? inv_keep : 0.f;
+            a_eff = a * m;
+            da = y * m;
           }
-          sc_t[j][2 * r + e] = a * (da - dq_i) * sm_scale;  // ds^T
-          pt[j][2 * r + e] = a_eff;                        // a_eff^T
+          x = a * (da - (e ? di.y : di.x)) * sm_scale;  // ds^T
+          y = a_eff;                                    // a_eff^T
         }
       }
     }
-    mma_acc_by_tile<D>(acc_dv, pt, dOs, g, t);
-    mma_acc_by_tile<D>(acc_dk, sc_t, Qs, g, t);
+    uint32_t fp[4][4], fs[4][4];
+    to_frags(fp, dp);
+    to_frags(fs, s);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      reg_fence(acc_dv[cb]);
+      reg_fence(acc_dk[cb]);
+    }
+    reg_fence(fp);
+    reg_fence(fs);
+    // dv += a_eff^T dO, dk += ds^T q: waited for by the next tile's products.
+    wgmma_fence();
+    wgmma_frags_by_tile<NCB>(acc_dv, fp, sdO);
+    wgmma_frags_by_tile<NCB>(acc_dk, fs, sQ);
+    wgmma_commit();
+    if (i + 1 < nq) {
+      stats[next * 128 + tid] = stat_next;
+      if (tid < 64)
+        qm_s[next * 64 + tid] = mix16((static_cast<uint32_t>(qn + tid) * 0x9E3779B1u) ^ hseed);
+    }
+    stage = next;
+  } while (++i < nq);
+  wgmma_wait();
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) {
+    reg_fence(acc_dv[cb]);
+    reg_fence(acc_dk[cb]);
   }
 
 #pragma unroll
@@ -854,13 +1127,57 @@ attention_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* dkr = dk + keys[r] * st.dk.s + 2 * t;
     __nv_bfloat16* dvr = dv + keys[r] * st.dv.s + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<uint32_t*>(dkr + n * 8) =
-          pack_bf16(acc_dk[n][2 * r], acc_dk[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvr + n * 8) =
-          pack_bf16(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
-    }
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkr + cb * 64 + 8 * j) =
+            pack_bf16(acc_dk[cb][4 * j + 2 * r], acc_dk[cb][4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dvr + cb * 64 + 8 * j) =
+            pack_bf16(acc_dv[cb][4 * j + 2 * r], acc_dv[cb][4 * j + 2 * r + 1]);
+      }
   }
+}
+
+// Eight consecutive elements as fp32 (bf16: one 16-byte load).
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = p[i];
+}
+
+// K5b's D_i = rowsum(out * dO) in fp32 (B*H, SQ), as _flash_bwd_rule computes
+// di from the rounded output: D / 8 lanes a row, 8 elements each.
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+attention_bwd_di(const T* __restrict__ out, const T* __restrict__ dout,
+                 float* __restrict__ di, int SQ, int H, long long rows, AttnStrides st) {
+  constexpr int L = D / 8;
+  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / L;
+  const int c = (threadIdx.x % L) * 8;
+  float acc = 0.f;
+  if (row < rows) {
+    const int s = static_cast<int>(row % SQ);
+    const int bh = static_cast<int>(row / SQ);
+    const int b = bh / H, h = bh % H;
+    float x[8], y[8];
+    load8(out + head_off(st.o, b, h) + s * st.o.s + c, x);
+    load8(dout + head_off(st.dout, b, h) + s * st.dout.s + c, y);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc = fmaf(x[i], y[i], acc);
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && threadIdx.x % L == 0) di[row] = acc;
 }
 
 // ---- fp32 backward: FMA on the CUDA cores ---------------------------------
@@ -1173,8 +1490,8 @@ attention_bwd_dkv_fp32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Launches the dq pass (which writes D_i unless it is given) and then the
-// dk/dv pass: one block per 64 queries, then one per 64 keys.
+// fp32: launches the dq pass (which writes D_i unless it is given) and then
+// the dk/dv pass: one block per 64 queries, then one per 64 keys.
 template <typename T, int kThreadsT, int kSmem>
 cudaError_t launch_bwd(void (*dq_kernel)(const T*, const T*, const T*, const float*,
                                          const T*, const float*, T*, float*, int, int,
@@ -1215,6 +1532,56 @@ cudaError_t launch_bwd(void (*dq_kernel)(const T*, const T*, const T*, const flo
   return cudaGetLastError();
 }
 
+// bf16: the dq kernel (which writes D_i unless it is given), then the dk/dv
+// kernel; one block per 64 queries, then one per 64 keys.
+template <int D, bool kDropout>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* key_bias, const void* dout, const void* lse,
+                             void* dq, void* dk, void* dv, void* delta, int delta_given,
+                             int B, int SQ, int SK, int H, const AttnStrides& st,
+                             uint32_t seed, uint32_t thr, float inv_keep, float sm_scale,
+                             cudaStream_t stream) {
+  constexpr int smem = bwd_wgmma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_wgmma<D, kDropout>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_bwd_dkv_wgmma<D, kDropout>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const float* kbt = static_cast<const float*>(key_bias);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  const float* lt = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  attention_bwd_dq_wgmma<D, kDropout>
+      <<<dim3((SQ + 63) / 64, H, B), kBwdThreadsWg, smem, stream>>>(
+          qt, kt, vt, kbt, dot, lt, static_cast<bf16*>(dq), dl, delta_given, SQ, SK, H, st,
+          seed, thr, inv_keep, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkv_wgmma<D, kDropout>
+      <<<dim3((SK + 63) / 64, H, B), kBwdThreadsWg, smem, stream>>>(
+          qt, kt, vt, kbt, dot, lt, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), SQ,
+          SK, H, st, seed, thr, inv_keep, sm_scale);
+  return cudaGetLastError();
+}
+
+// K5b's pre-pass: di = rowsum(out * dO) into `di` (B*H, SQ).
+template <typename T, int D>
+cudaError_t launch_di(const void* out, const void* dout, void* di, int B, int SQ, int H,
+                      const AttnStrides& st, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * H * SQ;
+  constexpr int rows_per_block = 256 / (D / 8);
+  attention_bwd_di<T, D><<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
+                           256, 0, stream>>>(static_cast<const T*>(out),
+                                             static_cast<const T*>(dout),
+                                             static_cast<float*>(di), SQ, H, rows, st);
+  return cudaGetLastError();
+}
+
 // strides: 24 element strides, (batch, head, sequence) of q, k, v, out,
 // dout, dq, dk, dv in that order (the forward reads the first four).
 AttnStrides read_strides(const long long* s) {
@@ -1224,32 +1591,41 @@ AttnStrides read_strides(const long long* s) {
   return st;
 }
 
+// out == nullptr (K1b/K4b): the dq kernel sums D_i into `delta`; otherwise
+// (K5b) the pre-pass writes rowsum(out * dO) there first.
 int attention_bwd(const void* q, const void* k, const void* v, const void* key_bias,
-                  const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                  void* delta, int delta_given, int B, int SQ, int SK, int H, int D,
+                  const void* dout, const void* lse, const void* out, void* dq, void* dk,
+                  void* dv, void* delta, int B, int SQ, int SK, int H, int D,
                   const long long* strides, int dtype, unsigned int seed,
                   unsigned int thr, float inv_keep, int dropout, float sm_scale,
                   void* stream) {
+  if ((dtype != 0 && dtype != 1) || (D != 64 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
   const AttnStrides st = read_strides(strides);
-#define VT_ATTN_BWD(T, DD, THREADS, SMEM, DQK, DKVK)                                 \
-  launch_bwd<T, THREADS, SMEM>(DQK<DD>, DKVK<DD>, q, k, v, key_bias, dout, lse, dq,  \
-                               dk, dv, delta, delta_given, B, SQ, SK, H, st, seed,   \
-                               thr, inv_keep, dropout, sm_scale, stream_)
-  if (dtype == 0 && D == 64)
-    return VT_ATTN_BWD(float, 64, kBwdThreads, bwd_fp32_smem_floats<64>() * 4,
-                       attention_bwd_dq_fp32, attention_bwd_dkv_fp32);
-  if (dtype == 0 && D == 128)
-    return VT_ATTN_BWD(float, 128, kBwdThreads, bwd_fp32_smem_floats<128>() * 4,
-                       attention_bwd_dq_fp32, attention_bwd_dkv_fp32);
-  if (dtype == 1 && D == 64)
-    return VT_ATTN_BWD(__nv_bfloat16, 64, kMmaThreads, bwd_mma_smem_bytes<64>(),
-                       attention_bwd_dq_mma, attention_bwd_dkv_mma);
-  if (dtype == 1 && D == 128)
-    return VT_ATTN_BWD(__nv_bfloat16, 128, kMmaThreads, bwd_mma_smem_bytes<128>(),
-                       attention_bwd_dq_mma, attention_bwd_dkv_mma);
+  const int delta_given = out != nullptr;
+  if (delta_given) {
+    const cudaError_t err =
+        dtype == 0 ? (D == 64 ? launch_di<float, 64> : launch_di<float, 128>)(
+                         out, dout, delta, B, SQ, H, st, stream_)
+                   : (D == 64 ? launch_di<__nv_bfloat16, 64> : launch_di<__nv_bfloat16, 128>)(
+                         out, dout, delta, B, SQ, H, st, stream_);
+    if (err != cudaSuccess) return err;
+  }
+#define VT_ATTN_BWD(DD)                                                              \
+  launch_bwd<float, kBwdThreads, bwd_fp32_smem_floats<DD>() * 4>(                    \
+      attention_bwd_dq_fp32<DD>, attention_bwd_dkv_fp32<DD>, q, k, v, key_bias, dout, \
+      lse, dq, dk, dv, delta, delta_given, B, SQ, SK, H, st, seed, thr, inv_keep,     \
+      dropout, sm_scale, stream_)
+#define VT_ATTN_BWD_WGMMA(DD, DROP)                                                 \
+  launch_bwd_wgmma<DD, DROP>(q, k, v, key_bias, dout, lse, dq, dk, dv, delta,        \
+                             delta_given, B, SQ, SK, H, st, seed, thr, inv_keep,     \
+                             sm_scale, stream_)
+  if (dtype == 0) return D == 64 ? VT_ATTN_BWD(64) : VT_ATTN_BWD(128);
+  if (D == 64) return dropout ? VT_ATTN_BWD_WGMMA(64, true) : VT_ATTN_BWD_WGMMA(64, false);
+  return dropout ? VT_ATTN_BWD_WGMMA(128, true) : VT_ATTN_BWD_WGMMA(128, false);
 #undef VT_ATTN_BWD
-  return static_cast<int>(cudaErrorInvalidValue);
+#undef VT_ATTN_BWD_WGMMA
 }
 
 int attention_fwd(const void* q, const void* k, const void* v, const void* key_bias,
@@ -1274,11 +1650,11 @@ int attention_fwd(const void* q, const void* k, const void* v, const void* key_b
 
 // The C entries.  dtype: 0 = float32 (FMA kernels), 1 = bfloat16
 // (tensor-core kernels).  Every operand is (B, H, S, D) through its strides
-// (see read_strides), with D contiguous.  bf16 q, k, v and dout rows are read
-// as 16-byte vectors and out, dq, dk, dv written as 4-byte pairs: base
-// pointers 16-byte aligned, input strides multiples of 8, output strides
-// even.  lse is (B*H, S) fp32, written by the forward when not null and read
-// by the backward.
+// (see read_strides), with D contiguous.  bf16 q, k, v and dout rows (and
+// K5b's out) are read as 16-byte vectors and the forward's out, dq, dk, dv
+// written as 4-byte pairs: base pointers 16-byte aligned, input strides
+// multiples of 8, output strides even.  lse is (B*H, S) fp32, written by the
+// forward when not null and read by the backward.
 
 // K1b / K4b: self-attention (S queries and keys); delta is (B*H, S) fp32
 // scratch into which the dq kernel sums D_i.
@@ -1289,8 +1665,8 @@ extern "C" int vt_attention_bwd(const void* q, const void* k, const void* v,
                                 int H, int D, const long long* strides, int dtype,
                                 unsigned int seed, unsigned int thr, float inv_keep,
                                 int dropout, float sm_scale, void* stream) {
-  return attention_bwd(q, k, v, key_bias, dout, lse, dq, dk, dv, delta, 0, B, S, S, H,
-                       D, strides, dtype, seed, thr, inv_keep, dropout, sm_scale, stream);
+  return attention_bwd(q, k, v, key_bias, dout, lse, nullptr, dq, dk, dv, delta, B, S, S,
+                       H, D, strides, dtype, seed, thr, inv_keep, dropout, sm_scale, stream);
 }
 
 // K1f / K4f: self-attention (S queries and keys).
@@ -1314,15 +1690,15 @@ extern "C" int vt_flash_fwd(const void* q, const void* k, const void* v,
                        seed, thr, inv_keep, dropout, sm_scale, stream);
 }
 
-// K5b: SQ queries against SK keys; di is the (B*H, SQ) fp32 rowsum(out * dO)
-// that the wrapper computed, read by both kernels.
+// K5b: SQ queries against SK keys; out is the forward's output, read through
+// its strides; di is (B*H, SQ) fp32 scratch into which the pre-pass writes
+// rowsum(out * dO), read by both main kernels.
 extern "C" int vt_flash_bwd(const void* q, const void* k, const void* v,
                             const void* key_bias, const void* dout, const void* lse,
-                            const void* di, void* dq, void* dk, void* dv, int B, int SQ,
-                            int SK, int H, int D, const long long* strides, int dtype,
-                            unsigned int seed, unsigned int thr, float inv_keep,
+                            const void* out, void* di, void* dq, void* dk, void* dv, int B,
+                            int SQ, int SK, int H, int D, const long long* strides,
+                            int dtype, unsigned int seed, unsigned int thr, float inv_keep,
                             int dropout, float sm_scale, void* stream) {
-  return attention_bwd(q, k, v, key_bias, dout, lse, dq, dk, dv, const_cast<void*>(di),
-                       1, B, SQ, SK, H, D, strides, dtype, seed, thr, inv_keep, dropout,
-                       sm_scale, stream);
+  return attention_bwd(q, k, v, key_bias, dout, lse, out, dq, dk, dv, di, B, SQ, SK, H, D,
+                       strides, dtype, seed, thr, inv_keep, dropout, sm_scale, stream);
 }

@@ -683,10 +683,10 @@ def flash_attention_bwd(q, k, v, key_bias, out, dout, lse, seed=None,
     """(dq, dk, dv) of :func:`flash_attention` in q's dtype (on the card
     views of (B, S, H, D) buffers), from the forward's inputs, its output
     ``out``, the output gradient ``dout`` and the forward's (B*H, Q) lse.
-    CPU tensors take :func:`flash_attention_bwd_reference`; CUDA tensors get
-    di = rowsum(out * dout) in fp32 from one torch reduction (the rule's XLA
-    reduction) and launch K5b (a dk/dv kernel over key tiles and a dq kernel
-    over query tiles, both reading di) or raise."""
+    CPU tensors take :func:`flash_attention_bwd_reference`; CUDA tensors
+    launch K5b (a pre-pass writing di = rowsum(out * dout) in fp32, the rule's
+    XLA reduction, then a dq kernel over query tiles and a dk/dv kernel over
+    key tiles, both reading di) or raise."""
     if rate > 0.0 and seed is None:
         raise ValueError("flash_attention_bwd: rate > 0 requires an explicit seed")
     _check_flash_shape("flash_attention_bwd", q, k, v)
@@ -708,15 +708,15 @@ def _flash_backward(q, k, v, key_bias, out, dout, lse, seed, rate: float):
     for tname, t in (("out", out), ("dout", dout)):
         if t.dtype != q.dtype:
             raise ValueError(f"{name}: {tname} must be {q.dtype}")
-    _check_operand(name, "dout", dout, q)
-    di = torch.sum(out.float() * dout.float(), dim=-1).reshape(b * h, sq).contiguous()
+        _check_operand(name, tname, t, q)
+    di = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     (dq,) = _bshd_buffers(q, 1)
     dk, dv = _bshd_buffers(k, 2)
     err = _build.load().vt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, sq, k.shape[2], h, d,
-        _strides(q, k, v, dout4=dout, dq4=dq, dk4=dk, dv4=dv), *_tail_args(q, seed, rate))
+        lse.data_ptr(), out.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, sq, k.shape[2], h, d,
+        _strides(q, k, v, out, dout, dq, dk, dv), *_tail_args(q, seed, rate))
     _build.check(err, name)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
