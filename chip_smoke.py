@@ -9,12 +9,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
   1. device   the card's name, count, and nvidia-smi's name and power limit
               (no CUDA device: the script fails);
   2. build    nvcc builds the kernels for sm_90a from visitron_torch/csrc
-              (ptxas register/shared-memory lines, build seconds);
+              (ptxas register/spill lines and performance warnings, build
+              seconds);
   3. K1       packed fused attention vs its plain twin at the serving shapes
               (B 64, S 256 and 512, 12 heads of 64, bf16 with padding), in
               fp32, and with hash dropout at rate 0.1; times of the kernel,
               the twin, torch's scaled_dot_product_attention as a yardstick
-              (never called by the port), and the bound;
+              (never called by the port), and the bound, then the device
+              time of the kernel and of the yardstick from torch.profiler;
   4. K2       fused add+LayerNorm vs its plain twin (R = 64*256 and 64*512,
               H 768, bf16 and fp32, with and without a residual); times and
               F.layer_norm as the yardstick;
@@ -41,7 +43,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               bf16 and fp32, rates 0 and 0.1; bf16 also in 6 heads of 128),
               K4 against K1 on the same data (equal bit for bit), and two
               bf16 backward launches equal bit for bit; times with SDPA as
-              the yardstick, and the backward's device times as in phase 5;
+              the yardstick, K4f also in the S 768 step's call (rate 0.1,
+              lse), and the device times of the forward (as in phase 3) and
+              of the backward (as in phase 5);
   9. K5       the flash attention, forward (with its lse) and backward, vs its
               twins on (B, H, S, D) views of packed projections: at the
               long-context shape (B 16, S 1024, 12 heads of 64, the last 8 of
@@ -51,8 +55,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               launches equal bit for bit; K5f against K4f on the same data at
               S 768; times of the kernels (K5b also at rate 0, like for like
               with the SDPA backward), the twins, SDPA forward and backward
-              as the yardstick, and the bounds; the backward's device times
-              (di, dq, dk/dv) as in phase 5, at rates 0.1 and 0;
+              as the yardstick, and the bounds; the forward's device times
+              (the eval call against SDPA, and the train call), the
+              backward's (di, dq, dk/dv) as in phase 5, at rates 0.1 and 0;
  10. serving  the NDH argmax serving rollout, ViewpointAgent.test, at BERT-base
               width and depth (bf16, batch 64, 10-step episodes, 2048-d
               features, rnn 512, random weights from a seed), with and without
@@ -294,6 +299,25 @@ def say_bwd_device_ms(tag: str, kernel, library) -> dict:
     return {"device_ms": total, "device_split": parts, "library_device_ms": lib}
 
 
+def say_fwd_device_ms(tag: str, kernel, library, step=None) -> dict:
+    """Print the device times (device_ms) of a forward at rate 0 without the
+    lse and of its SDPA yardstick, and the factor kernel / sdpa, and, given
+    ``step``, of the forward in its train step's call (rate 0.1, the lse);
+    return them.  Nothing in a rehearsal."""
+    if REHEARSAL:
+        return {}
+    total = sum(device_ms(kernel).values())
+    lib = sum(device_ms(library).values())
+    say(f"  device time {tag} (torch.profiler, mean of 5 calls): kernel {total:.4f} ms, "
+        f"sdpa forward {lib:.4f} ms, kernel / sdpa {total / lib:.2f}")
+    out = {"device_ms": total, "library_device_ms": lib}
+    if step is not None:
+        out["step_device_ms"] = sum(device_ms(step).values())
+        say(f"  device time of the train step's call (rate 0.1, lse): kernel "
+            f"{out['step_device_ms']:.4f} ms, train / eval {out['step_device_ms'] / total:.2f}")
+    return out
+
+
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -337,6 +361,10 @@ def phase_build() -> None:
     for source, lines in info["ptxas"].items():
         for line in lines:
             say(f"  {source}: {line}")
+    if info["compiled"]:  # a reused library comes without ptxas lines
+        warnings = [ln for lines in info["ptxas"].values() for ln in lines
+                    if _build.PTXAS_WARNING.search(ln)]
+        say(f"  ptxas performance warnings (C7xxx): {len(warnings)}")
 
 
 # -- phase 3: K1 -------------------------------------------------------------------
@@ -376,6 +404,7 @@ def phase_k1(device, shapes) -> dict:
             sets = [(qkv, bias)] + [attention_inputs(b, s, h, d, dtype, device, g)
                                     for _ in range(n - 1)]
             split = [(x.split(h * d, dim=-1), kb) for x, kb in sets]
+            masks = [kb.to(dtype)[:, None, None, :] for _, kb in sets]
             it = iter(range(10 ** 9))
 
             def kernel():
@@ -387,10 +416,9 @@ def phase_k1(device, shapes) -> dict:
                 fused_attention_packed_reference(q_, k_, v_, kb, h)
 
             def library():
-                (q_, k_, v_), kb = split[next(it) % len(split)]
-                four = [t.view(b, s, h, d).transpose(1, 2) for t in (q_, k_, v_)]
-                F.scaled_dot_product_attention(
-                    *four, attn_mask=kb.to(dtype)[:, None, None, :])
+                i = next(it) % len(split)
+                four = [t.view(b, s, h, d).transpose(1, 2) for t in split[i][0]]
+                F.scaled_dot_product_attention(*four, attn_mask=masks[i])
 
             ms = time_ms(kernel)
             plain_ms = time_ms(plain, iters=5, warmup=1)
@@ -402,7 +430,8 @@ def phase_k1(device, shapes) -> dict:
                 f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
                 f"{ops / 1e9:.2f} GFLOP)")
             out[s] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+                      "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                      **say_fwd_device_ms(tag, kernel, library)}
     return out
 
 
@@ -761,9 +790,15 @@ def phase_k4(device, shapes) -> dict:
         def plain():
             fused_attention_reference(*pick()[:4])
 
+        masks = [x[3].to(dtype)[:, None, None, :] for x in sets]
+
+        def kernel_step():  # the S 768 train step's call: dropout and the lse
+            fused_attention(*pick()[:4], 4321, 0.1, need_lse=True)
+
         def library():
-            q_, k_, v_, kb_ = pick()[:4]
-            F.scaled_dot_product_attention(q_, k_, v_, attn_mask=kb_.to(dtype)[:, None, None, :])
+            i = next(it) % len(sets)
+            q_, k_, v_ = sets[i][:3]
+            F.scaled_dot_product_attention(q_, k_, v_, attn_mask=masks[i])
 
         def kernel_b():
             fused_attention_bwd(*pick())
@@ -798,6 +833,10 @@ def phase_k4(device, shapes) -> dict:
                 f"{ops / 1e9:.2f} GFLOP{'; the two kernels do ' + f'{1.8 * ops / 1e9:.2f}' if bwd else ''})")
             out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+        out["k4"]["step_ms"] = time_ms(kernel_step)
+        say(f"  time forward, the S {s} step's call (rate 0.1, lse): kernel "
+            f"{out['k4']['step_ms']:.4f} ms")
+        out["k4"].update(say_fwd_device_ms(f"forward {tag}", kernel, library, kernel_step))
         out["k4b"].update(say_bwd_device_ms(f"backward {tag}", kernel_b, library_b))
         del graphs
 
@@ -898,10 +937,12 @@ def phase_k5(device, shapes) -> dict:
         def plain():
             flash_attention_reference(*pick()[:4], seed, rate, True)
 
+        masks = [x[3].to(dtype)[:, None, None, :] for x in sets]
+
         def library():
-            q_, k_, v_, kb_ = pick()[:4]
-            F.scaled_dot_product_attention(q_, k_, v_,
-                                           attn_mask=kb_.to(dtype)[:, None, None, :])
+            i = next(it) % len(sets)
+            q_, k_, v_ = sets[i][:3]
+            F.scaled_dot_product_attention(q_, k_, v_, attn_mask=masks[i])
 
         def kernel_b():
             q_, k_, v_, kb_, do_, o_, l_ = pick()
@@ -949,6 +990,8 @@ def phase_k5(device, shapes) -> dict:
                 f"{ops / 1e9:.2f} GFLOP{extra})")
             out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+        out["k5"].update(say_fwd_device_ms(f"forward {tag[:-3]}0.0, eval call (no lse)",
+                                           kernel_eval, library, kernel))
         out["k5b"]["rate0_ms"] = rate0_ms
         out["k5b"].update(say_bwd_device_ms(f"backward {tag}", kernel_b, library_b))
         rate0 = say_bwd_device_ms(f"backward {tag[:-3]}0.0", kernel_b0, library_b)
@@ -1709,11 +1752,18 @@ def phase_long_dropout_agreement(device, sizes) -> None:
                 AGREE_TOL)
 
 
+# Device times (torch.profiler) beside the event means: of the kernel and its
+# SDPA yardstick (for the forwards at rate 0 without the lse), and of K4f's
+# and K5f's call in their train step (rate 0.1, with the lse).
+DEVICE_KEYS = ("device_ms", "library_device_ms", "step_device_ms")
+
+
 def kernels_line(times, sl, tr, pt, lc) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
     run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
-    run's, K5f/K5b at the long-context shape with the long-context run's."""
+    run's, K5f/K5b at the long-context shape with the long-context run's;
+    the attention kernels also with their device times (DEVICE_KEYS)."""
     runs = sl["runs"][False]
     rows = (sl["ln_rows"], tr["ln_rows"])
     entries = (("fused_attention_packed", ATTN_SOURCE, times["k1"][sl["bucket"]],
@@ -1739,7 +1789,8 @@ def kernels_line(times, sl, tr, pt, lc) -> dict:
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-         "library_ms": t["library_ms"]}
+         "library_ms": t["library_ms"],
+         **{k: t[k] for k in DEVICE_KEYS if k in t}}
         for name, (src, replaces), t, launches in entries]}
 
 

@@ -375,3 +375,58 @@ def test_k5_refuses_unsupported_cuda_tensors(cuda):
     x = base[..., 4:68]  # rows 8 bytes off a 16-byte boundary
     with pytest.raises(ValueError, match="aligned"):
         tatt.flash_attention(x, x, x, kb)
+
+
+# -- the bf16 forward body (K1f, K4f and K5f share it) ------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [200, 65, 1])
+@pytest.mark.parametrize("rate,seed", [(0.0, None), (0.1, 31)])
+def test_k1f_ragged_length_on_card(cuda, s, rate, seed):
+    """Lengths that are no multiple of the 64-key tile: rows past S are
+    zero-filled and their keys get a -inf bias; out and lse against the twin."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    b, h, d = 3, 4, 64
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(h * d, dim=-1)
+    kb = torch.zeros(b, s, device=cuda)
+    kb[1, s // 2 + 1:] = NEG_INF
+    out, lse = tatt.fused_attention_packed(q, k, v, kb, h, seed, rate, need_lse=True)
+    want, want_lse = tatt.fused_attention_packed_reference(q, k, v, kb, h, seed, rate,
+                                                           need_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", [(128, 384), (384, 128)])
+@pytest.mark.parametrize("rate,seed", [(0.0, None), (0.1, 57)])
+def test_k5f_query_and_key_lengths_differ_d128_on_card(cuda, sq, sk, rate, seed):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    b, h, d = 2, 3, 128
+    q = _views4(torch.randn(b, sq, 3 * h * d, generator=g, device=cuda).to(torch.bfloat16),
+                h, d)[0]
+    _, k, v = _views4(torch.randn(b, sk, 3 * h * d, generator=g, device=cuda).to(
+        torch.bfloat16), h, d)
+    kb = torch.zeros(b, sk, device=cuda)
+    kb[1, sk - 40:] = NEG_INF
+    out, lse = tatt._flash_forward(q, k, v, kb, seed, rate, need_lse=True)
+    want, want_lse = tatt.flash_attention_reference(q, k, v, kb, seed, rate, True)
+    assert out.shape == (b, h, sq, d) and lse.shape == (b * h, sq)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_k5f_equals_k4f_bit_for_bit_at_dropout_on_card(cuda, d):
+    """One device body: K5f and K4f on the same data agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    b, s, h = 2, 768, 768 // d
+    q, k, v = _views4(torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(
+        torch.bfloat16), h, d)
+    kb = torch.zeros(b, s, device=cuda)
+    kb[0, 700:] = NEG_INF
+    k5, lse5 = tatt._flash_forward(q, k, v, kb, 99, 0.1, need_lse=True)
+    k4, lse4 = tatt.fused_attention(q, k, v, kb, 99, 0.1, need_lse=True)
+    assert torch.equal(k5, k4) and torch.equal(lse5, lse4)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,7 +50,7 @@ SIGNATURES = {
 _lib = None
 _lock = threading.Lock()
 # What the last build in this process did: seconds, whether it compiled or
-# reused a cached library, and the ptxas resource lines per source.
+# reused a cached library, and the ptxas lines (ptxas_lines) per source.
 build_info: dict = {}
 
 
@@ -62,6 +63,19 @@ def nvcc_path() -> str:
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
     return path
+
+
+# ptxas's performance warnings carry a C7xxx code, e.g. "(C7515) Potential
+# Performance Loss: wgmma.mma_async instructions are serialized ...".
+PTXAS_WARNING = re.compile(r"\bC7\d{3}\b|Performance")
+
+
+def ptxas_lines(text: str) -> list[str]:
+    """The lines of nvcc's ``-Xptxas -v`` output worth reporting: each
+    kernel's name, registers and spills, and any performance warning."""
+    return [ln.strip() for ln in text.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling" in ln
+            or PTXAS_WARNING.search(ln)]
 
 
 def _key() -> str:
@@ -87,8 +101,7 @@ def _compile(nvcc: str, out: Path) -> dict:
     failed = []
     for name, (obj, proc) in procs.items():
         text, _ = proc.communicate()
-        ptxas[name] = [ln.strip() for ln in text.splitlines()
-                       if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        ptxas[name] = ptxas_lines(text)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{text}")
     if failed:

@@ -33,13 +33,17 @@
 // flash kernel's 128 x 128 blocks are an online softmax over key blocks too,
 // and the mask hashes absolute coordinates, so any tiling gives its bits.
 //
-// What bounds it on an H100: at the serving shapes (B = 64, S = 256..512,
-// H = 12, D = 64, bf16) the bytes (q/k/v/out once each) and the arithmetic
-// (4*B*H*S^2*D at the bf16 tensor-core rate) give bounds of the same order,
-// a few tens of microseconds; bytes are the larger.  At the pretraining
-// shapes of K4 (B 16, S 768, 12 x 64, bf16) the operations are: 29 GFLOP
-// against 75 MB; at K5's long-context shape (B 16, S 1024) 51.5 GFLOP
-// against 101 MB.
+// What bounds the forward on an H100 (bf16, 12 heads of 64): at K1's serving
+// shape (B 64, S 256) the bytes: q, k, v and out once each are 101 MB, 0.0301
+// ms at 3.35 TB/s, against 12.9 GFLOP, 0.0130 ms at 989 TFLOP/s.  At K4's
+// pretraining shape (B 16, S 768) and K5's long-context shape (B 16, S 1024)
+// the operations: 29.0 and 51.5 GFLOP, 0.0293 and 0.0521 ms, against 75 and
+// 101 MB.  Beside the products every score element costs one exponential,
+// and at D 64 the SM's 16 exponentials a cycle take as long as the 4 D = 256
+// product operations of the element at 4096 a cycle: the exponentials of one
+// block have to run while other blocks' products do.  At rate > 0 each
+// element also costs the murmur3 tail (two multiplies, four shifts and xors,
+// a compare), which the integer units take longer over than the products.
 //
 // Design against what the TPU kernel relied on: the Pallas kernel keeps a
 // whole (S, S) fp32 score matrix per head in VMEM (1 MB at S = 512), which no
@@ -55,13 +59,26 @@
 // differ at the dtype's rounding level).
 //
 // Two instantiations:
-//   * bf16 (the serving path): the dot products run on the tensor cores with
-//     mma.sync m16n8k16 (bf16 in, fp32 accumulate).  Four warps, 16 query
-//     rows each; Q fragments stay in registers for the whole key loop, the
-//     score accumulators are reused as the A operand of the PV product, and
-//     K/V tiles are staged in padded shared memory (conflict-free fragment
-//     loads).  Single-buffered and synchronous: no cp.async/TMA pipelining
-//     or wgmma yet, so it stays above its bound.
+//   * bf16, built for Hopper (attention_fwd_wgmma): a block is two
+//     warpgroups, each owning 64 query rows, sharing one stream of K/V tiles
+//     (half the copies and L2 reads per query of one warpgroup a block).
+//     S = Q K^T runs on wgmma m64n64k16 with both operands from shared
+//     memory, Q resident and K streamed, both K-major (this measured faster
+//     than Q's A fragments held in registers, which cost 16 of the 128
+//     registers a thread); O += P V takes P from registers (the score
+//     accumulators' layout is the A-fragment layout) and V through wgmma's
+//     transpose bit.  O (64 x D fp32 a warpgroup) and S live in registers.
+//     K/V tiles stream through a three-stage cp.async ring in the 128-byte
+//     swizzle, one barrier a tile: tile i + 1's copy is in flight while tile
+//     i's products and exponentials run, and tile i's PV batch runs on into
+//     tile i + 1's barrier.  log2 e is folded into the score scale and the
+//     key bias, so an element costs one FMA, one subtraction and one
+//     ex2.approx; the running max works in log2 units and the lse is
+//     converted back once per row.  The key bias (times log2 e) and each
+//     key's hash term are staged once per tile in shared memory, each row's
+//     hash term is computed once.  Two blocks share an SM at D 64 (one at
+//     D 128); there is no warp specialisation, so one block's exponentials
+//     run beside the other's products.
 //   * fp32 (a tight reference on the card): the same loop with fp32 FMA on
 //     the CUDA cores; eight warps of 8 rows, each lane owning two keys of a
 //     tile for the scores and D/32 output columns for the PV product.
@@ -290,19 +307,13 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// ---- bf16: tensor cores (mma.sync m16n8k16) --------------------------------
+// ---- bf16: shared by the forward and the backward --------------------------
 
-constexpr int kMmaWarps = 4;                 // 16 query rows per warp
-constexpr int kMmaThreads = kMmaWarps * 32;
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// Threads of a warpgroup, which owns 64 rows of a tile (a backward block is
+// one warpgroup).
+constexpr int kWgThreads = 128;
 
 // Two bf16 values as one fragment register: `lo` in the low half (the
 // smaller column index), rounded to nearest even.
@@ -310,320 +321,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* lo,
-                                            const __nv_bfloat16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-template <int D>
-constexpr int mma_smem_bytes() {
-  return 3 * kBQ * (D + 8) * 2;  // Q, K, V tiles of bf16, rows padded by 8
-}
-
-// Copies a (64, D) tile of rows [r0, r0 + 64) into padded shared memory with
-// 16-byte loads; rows at or beyond S are zero.  Each thread issues all of
-// its loads before it stores any, so they are in flight together: a row
-// past S is read at row S - 1 and zeroed, which keeps every load
-// unconditional (a guarded load may be compiled into a branch that waits
-// for each load in turn).
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int r0, int S,
-                                          int tid) {
-  constexpr int LD = D + 8;
-  constexpr int VPR = D / 8;                       // 16-byte vectors per row
-  constexpr int N = kBQ * VPR / kMmaThreads;       // vectors per thread
-  static_assert(kBQ * VPR % kMmaThreads == 0, "tile must split evenly");
-  uint4 val[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const int i = tid + j * kMmaThreads;
-    const int s = r0 + i / VPR;
-    val[j] = *reinterpret_cast<const uint4*>(src + min(s, S - 1) * row_stride +
-                                             (i % VPR) * 8);
-    if (s >= S) val[j] = make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const int i = tid + j * kMmaThreads;
-    *reinterpret_cast<uint4*>(dst + (i / VPR) * LD + (i % VPR) * 8) = val[j];
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-attention_fwd_mma(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const float* __restrict__ key_bias,
-                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                         int SQ, int SK, int H, AttnStrides st, uint32_t seed,
-                         uint32_t thr, float inv_keep, int dropout, float sm_scale) {
-  constexpr int LD = D + 8;
-  constexpr int KSTEPS = D / 16;  // k-steps of the QK^T product
-  constexpr int NT = D / 8;       // n-tiles of the output
-  constexpr int KT = kBK / 8;     // n-tiles of the scores (keys)
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* Ks = Qs + kBQ * LD;
-  __nv_bfloat16* Vs = Ks + kBK * LD;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // fragment column pair
-  const float* bias = key_bias + static_cast<long long>(b) * SK;
-  const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
-  // This block's head: every operand from here on is its (S, D) slice.
-  q += head_off(st.q, b, h);
-  k += head_off(st.k, b, h);
-  v += head_off(st.v, b, h);
-  out += head_off(st.o, b, h);
-
-  load_tile<D>(Qs, q, st.q.s, q0, SQ, tid);
-  __syncthreads();
-  uint32_t qa[KSTEPS][4];
-  const __nv_bfloat16* qw = Qs + (warp * 16) * LD;
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    qa[kk][0] = ld32(qw + g * LD + kk * 16 + 2 * t);
-    qa[kk][1] = ld32(qw + (g + 8) * LD + kk * 16 + 2 * t);
-    qa[kk][2] = ld32(qw + g * LD + kk * 16 + 8 + 2 * t);
-    qa[kk][3] = ld32(qw + (g + 8) * LD + kk * 16 + 8 + 2 * t);
-  }
-
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  for (int k0 = 0; k0 < SK; k0 += kBK) {
-    __syncthreads();  // the previous tile's K/V reads are done
-    load_tile<D>(Ks, k, st.k.s, k0, SK, tid);
-    load_tile<D>(Vs, v, st.v.s, k0, SK, tid);
-    __syncthreads();
-
-    float sc[KT][4];
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (j * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        mma_16816(sc[j], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-    }
-
-    // Scale, key bias, ragged-tile mask; row maxima over the 4 lanes of a row.
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + j * 8 + 2 * t + e;
-        const bool ok = key < SK;
-        const float kb = ok ? bias[key] : 0.f;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float& x = sc[j][2 * r + e];
-          x = ok ? x * sm_scale + kb : -INFINITY;
-          mx[r] = fmaxf(mx[r], x);
-        }
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);  // finite: key k0 < SK is in every tile
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-    float ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + j * 8 + 2 * t + e;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float p = expf(sc[j][2 * r + e] - m[r]);
-          ps[r] += p;
-          if (dropout)
-            p = keep_bit(static_cast<uint32_t>(rows[r]), static_cast<uint32_t>(key),
-                         hseed, thr) ? p * inv_keep : 0.f;
-          sc[j][2 * r + e] = p;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
-      l[r] = l[r] * corr[r] + ps[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-
-    // PV: the score accumulators of key tiles (2kk, 2kk+1) are the A
-    // fragment of k-step kk; B pairs come from two rows of the V tile.
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const __nv_bfloat16* vr = Vs + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vc = vr + n * 8;
-        mma_16816(o[n], pa, ld_pair(vc, vc + LD), ld_pair(vc + 8 * LD, vc + 9 * LD));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= SQ) continue;
-    const float lr = l[r] == 0.f ? 1.f : l[r];  // the TPU kernels' l == 0 guard
-    const float inv = 1.f / lr;
-    __nv_bfloat16* orow = out + rows[r] * st.o.s + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-    if (lse != nullptr && t == 0)
-      lse[(static_cast<long long>(b) * H + h) * SQ + rows[r]] = m[r] + logf(lr);
-  }
-}
-
-template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const void* key_bias, void* out, void* lse, int B, int SQ,
-                       int SK, int H, const AttnStrides& st, uint32_t seed,
-                       uint32_t thr, float inv_keep, int dropout, float sm_scale,
-                       cudaStream_t stream) {
-  const int smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((SQ + kBQ - 1) / kBQ, H, B);
-  attention_fwd_mma<D><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), SQ, SK, H, st,
-      seed, thr, inv_keep, dropout, sm_scale);
-  return cudaGetLastError();
-}
-
-// ============================================================================
-// Backward (K1b, K4b, K5b).
-//
-// Replaces: visitron_tpu/ops/attention.py:_fused_packed_bwd_kernel, reached
-// through _fused_packed_bwd_rule, and _fused_bwd_kernel, reached through
-// _fused_bwd_rule (fused_attention's VJP).  Same function, per (b, h), with the lse
-// that the forward wrote:
-//   a    = exp(s - lse)                  (s as in the forward, fp32)
-//   dp   = dO v^T                        (fp32)
-//   a_eff, da = where(keep, a, 0)/(1-r), where(keep, dp, 0)/(1-r)
-//   dv   = a_eff.astype(dtype)^T dO
-//   D_i  = sum_j a_eff_ij dp_ij
-//   ds   = (a * (da - D_i) * scale).astype(dtype)
-//   dq   = ds k,  dk = ds^T q            (fp32 accumulation, stored in dtype)
-// The key bias gets no gradient.
-// K5b (visitron_tpu/ops/attention.py:_bwd_dkv_kernel and _bwd_dq_kernel,
-// reached through _flash_bwd_rule) computes the same with Q and K lengths of
-// their own and one difference: D_i = rowsum(out * dO) in fp32 from the
-// rounded output, which the rule computes in XLA outside its two Pallas
-// kernels.  Here a pre-pass kernel (attention_bwd_di) reads out and dO and
-// writes it before the two main kernels.  Given D_i, the dq kernel skips its
-// first walk, so K5b runs 7 S x S x D products per head (the TPU kernels' 7;
-// 5 are the minimum) and K1b/K4b 9.
-//
-// What bounds it on an H100: at the NDH train shape (K1b: B 64, S 256,
-// 12 x 64, bf16) the bytes: reading q, k, v, dO and the lse and writing dq,
-// dk, dv takes 0.0528 ms at 3.35 TB/s against 0.0326 ms for the 5 minimum
-// products at the bf16 tensor-core rate.  From about S 512 on it is the
-// operations (K4b at B 16, S 768: 72.5 GFLOP, 0.0733 ms; K5b at S 1024:
-// 128.8 GFLOP, 0.1303 ms).  Beside the products, every score element costs
-// one exp2, a dozen scalar operations and, at rate > 0, the murmur3 hash,
-// which the tensor-core work has to cover.
-//
-// Design against what the TPU kernel relied on: the Pallas kernel holds the
-// whole (S, S) score matrix of a head in VMEM and produces dq, dk and dv in
-// one program.  No SM has room for that, and blocks cannot carry sums across
-// the grid, so the work is split flash-style into two launches that need no
-// atomics (results are the same run to run):
-//   1. dq, one block per (b, h, 64-query tile), Q and dO resident in shared
-//      memory, K and V streaming: for K1b/K4b a first walk over the key tiles
-//      sums D_i = sum_j a_eff dp (the fused TPU kernels' formula, not the
-//      flash shortcut rowsum(dO * out): with out rounded to bf16 that shortcut
-//      leaves ds = O(2^-9 |dp|) where the exact ds is 0, e.g. for a query with
-//      a single unmasked key) and writes it; for K5b D_i comes in; a second
-//      walk forms ds and accumulates dq;
-//   2. dk/dv, one block per (b, h, 64-key tile), K and V resident, the Q,
-//      dO, lse and D_i tiles streaming.
-// Both recompute s, a and the murmur3 keep mask from q, k, the bias, the lse
-// and the per-head seed, bit for bit as the forward does.  Every operand is
-// addressed through its own strides: q, k, v are views of the fused QKV
-// projection, dO is what autograd hands back, dq, dk, dv are allocated
-// (B, S, H, D) by the wrapper.  Nothing is sized by the lengths.
-//
-// bf16, built for Hopper (sm_90a):
-//   * Products on wgmma.  A block is one warpgroup, which owns the 64 rows of
-//     its resident tile.  S = Q K^T and dP = dO V^T in the dq
-//     kernel, S^T = K Q^T and dP^T = V dO^T in the dk/dv kernel read both
-//     operands from shared memory.  dq += dS K, dv += P^T dO and dk += dS^T Q
-//     take the computed tile from registers (the accumulator layout of one
-//     product is the A-fragment layout of the next) and the streamed tile
-//     through wgmma's transpose bit: no operand is copied transposed.
-//   * Tiles sit in shared memory in the 128-byte swizzle that wgmma reads
-//     (64-column blocks of 128-byte rows; 16-byte chunk c of row r at
-//     c ^ (r % 8)), written by cp.async 16-byte copies.  The streamed tiles go
-//     through a three-stage ring, one barrier a tile: the copy of tile i + 1
-//     is in flight while the products and exponentials of tile i run, and
-//     the last product batch of tile i runs on into tile i + 1's barrier.
-//     cp.async rather than TMA: q, k and v are strided views that change
-//     every call, and cp.async needs no tensor map encoded on the host per
-//     operand and call (nor libcuda), while a tile is 8-16 KB, a
-//     few copy instructions a thread.
-//   * exp2 on pre-scaled operands: log2(e) is folded into the score scale,
-//     the key bias and the lse (each converted once per row or tile), so a
-//     score element costs one FMA, one subtraction and one ex2.approx.
-//   * Ragged tiles cost nothing per element: rows past a length are
-//     zero-filled by the copies, and the key bias / lse of those rows are
-//     -inf / +inf, so their probabilities are exactly 0.  Any length is taken
-//     (the gates admit multiples of 128).
-//   * The exponentials of one block overlap the products of the others: at
-//     D 64 three blocks share an SM (168 registers a thread); there is no
-//     warp specialisation.
-// fp32 (a tight reference on the card): FMA on the CUDA cores, 256 threads,
-// each owning a 4 x 4 block of the score tile and a 4 x D/16 block of the
-// output.
-
-constexpr float kLog2e = 1.4426950408889634f;
-// Threads of a backward block: one warpgroup of 64 rows.  With three blocks
-// an SM at D 64 (a budget of 168 registers a thread) this measured faster on
-// an H100 than two warpgroups sharing the streamed tiles in a block of 256
-// threads, which fits once an SM (PERF.md).
-constexpr int kBwdThreadsWg = 128;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -657,12 +354,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // `stride` (elements) into a 128-byte-swizzled tile at shared address `dst`:
 // D / 64 column blocks of 64 rows x 128 bytes, 16-byte chunk c of row r at
 // c ^ (r % 8).  Rows at or beyond S are zero-filled (their source address is
-// row S - 1, of which no byte is read).  The block's threads share it.
-template <int D>
+// row S - 1, of which no byte is read).  The block's NT threads share it.
+template <int D, int NT>
 __device__ __forceinline__ void cp_tile(uint32_t dst, const __nv_bfloat16* src,
                                         long long stride, int r0, int S, int tid) {
   constexpr int CPR = D / 8;  // 16-byte chunks per row
-  constexpr int NT = kBwdThreadsWg;
 #pragma unroll
   for (int j = 0; j < 64 * CPR / NT; ++j) {
     const int ci = tid + j * NT;
@@ -771,9 +467,320 @@ __device__ __forceinline__ void wgmma_frags_by_tile(float (&d)[NCB][32],
 }
 
 // The streamed tiles' ring: the copy of tile i + 1 goes to the stage that
-// tile i - 2 used, whose products the warpgroups have waited for (the last
+// tile i - 2 used, whose products the warpgroup has waited for (the last
 // product batch of tile i - 1 may still be reading its stage).
 constexpr int kStages = 3;
+
+// ---- bf16 forward: wgmma ----------------------------------------------------
+
+// Warpgroups of a forward block, each owning 64 query rows.  They share the
+// K/V ring, which halves the tile copies and L2 reads per query against a
+// block of one warpgroup (measured faster on an H100, PERF.md).
+constexpr int kFwdWarpgroups = 2;
+constexpr int kFwdThreads = kFwdWarpgroups * kWgThreads;
+constexpr int kFwdRows = 64 * kFwdWarpgroups;
+
+// The forward's shared memory: slack for aligning the tiles to 1024 bytes,
+// the ring of (K, V) tile pairs, the warpgroups' Q tiles, and two words of
+// streamed per-key values for each of the 64 keys of a stage.
+template <int D>
+constexpr int fwd_wgmma_smem_bytes() {
+  return 1024 + kStages * (2 * 64 * D * 2 + 2 * 64 * 4) + kFwdWarpgroups * 64 * D * 2;
+}
+
+// One block per (b, h, 128 queries), walking the key tiles.  Two blocks
+// share an SM at D 64 (128 registers a thread), one at D 128.
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kFwdThreads, D == 64 ? 2 : 1)
+attention_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const float* __restrict__ key_bias, __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, int SQ, int SK, int H, AttnStrides st,
+                    uint32_t seed, uint32_t thr, float inv_keep, float sm_scale) {
+  constexpr int NCB = D / 64;
+  constexpr int TILE = 64 * D * 2;  // bytes of a tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // stage s: K, V
+  const uint32_t sQ = ring + kStages * 2 * TILE;  // warpgroup w's rows at sQ + w TILE
+  // Per stage and key of the tile: the bias (times log2 e), then the key's
+  // hash term mix16(key * 0x85EBCA77).
+  float* kb_s = reinterpret_cast<float*>(smem_raw + (sQ + kFwdWarpgroups * TILE - raw));
+  uint32_t* km_s = reinterpret_cast<uint32_t*>(kb_s + kStages * 64);
+
+  const int q0 = blockIdx.x * kFwdRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wl = (tid >> 5) & 3;  // the warp in its warpgroup
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float* bias = key_bias + static_cast<long long>(b) * SK;
+  const uint32_t hseed = seed ^ (static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  const float scale2 = sm_scale * kLog2e;
+  // This block's head: every operand from here on is its (S, D) slice.
+  q += head_off(st.q, b, h);
+  k += head_off(st.k, b, h);
+  v += head_off(st.v, b, h);
+  out += head_off(st.o, b, h);
+
+#pragma unroll
+  for (int w = 0; w < kFwdWarpgroups; ++w)
+    cp_tile<D, kFwdThreads>(sQ + w * TILE, q, st.q.s, q0 + 64 * w, SQ, tid);
+  cp_tile<D, kFwdThreads>(ring, k, st.k.s, 0, SK, tid);
+  cp_tile<D, kFwdThreads>(ring + TILE, v, st.v.s, 0, SK, tid);
+  cp_async_commit();
+  if (tid < 64) {
+    kb_s[tid] = tid < SK ? bias[tid] * kLog2e : -INFINITY;
+    if (kDropout) km_s[tid] = mix16(static_cast<uint32_t>(tid) * 0x85EBCA77u);
+  }
+  const uint32_t sQw = sQ + wg * TILE;
+  const int rows[2] = {q0 + 64 * wg + 16 * wl + g, q0 + 64 * wg + 16 * wl + g + 8};
+  uint32_t rmix[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    rmix[r] = mix16((static_cast<uint32_t>(rows[r]) * 0x9E3779B1u) ^ hseed);
+
+  // m2: the running row maxima in log2 units; l: this thread's part of the
+  // row sums (its 16 keys of each tile), summed over the row's 4 lanes at
+  // the end.
+  float o[NCB][32], s[32];
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) o[cb][i] = 0.f;
+    s[i] = 0.f;
+  }
+
+  const int nk = (SK + 63) / 64;
+  // A do-while: nk >= 1, and a path that skipped the loop would leave the
+  // accumulators defined by plain moves before the final wait, for which
+  // ptxas serialises every product batch.
+  int i = 0, stage = 0;
+  do {
+    const int next = stage + 1 == kStages ? 0 : stage + 1;
+    const uint32_t sK = ring + stage * 2 * TILE, sV = sK + TILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; tile i - 2's stage is free
+    float kb_next = 0.f;
+    const int kn = (i + 1) * 64;
+    if (i + 1 < nk) {
+      const uint32_t nK = ring + next * 2 * TILE;
+      cp_tile<D, kFwdThreads>(nK, k, st.k.s, kn, SK, tid);
+      cp_tile<D, kFwdThreads>(nK + TILE, v, st.v.s, kn, SK, tid);
+      if (tid < 64) kb_next = kn + tid < SK ? bias[kn + tid] * kLog2e : -INFINITY;
+    }
+    cp_async_commit();
+
+    reg_fence(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ko = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      wgmma_ss(s, gmma_desc(sQw + ko, 16), gmma_desc(sK + ko, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();  // also the previous tile's PV batch
+    reg_fence(s);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) reg_fence(o[cb]);
+
+    // s = q.k * scale * log2 e + bias * log2 e (-inf past SK); row maxima
+    // over the 4 lanes of a row.
+    const float* kbs = kb_s + stage * 64;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 kb = *reinterpret_cast<const float2*>(kbs + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& x = s[4 * j + 2 * r + e];
+          x = fmaf(x, scale2, e ? kb.y : kb.x);
+          mx[r] = fmaxf(mx[r], x);
+        }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m2[r], mx[r]);  // finite: key 64i < SK is in every tile
+      corr[r] = ex2(m2[r] - m_new);
+      m2[r] = m_new;
+      l[r] *= corr[r];
+    }
+    const uint32_t* kms = km_s + stage * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint2 km = make_uint2(0u, 0u);
+      if (kDropout) km = *reinterpret_cast<const uint2*>(kms + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& x = s[4 * j + 2 * r + e];
+          const float p = ex2(x - m2[r]);
+          l[r] += p;
+          x = kDropout ? p * (keep_tail(rmix[r] ^ (e ? km.y : km.x), thr) ? inv_keep : 0.f)
+                       : p;
+        }
+    }
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) o[cb][j] *= corr[(j >> 1) & 1];
+
+    // O += P V with P rounded to bf16, waited for by the next tile's wait.
+    uint32_t f[4][4];
+    to_frags(f, s);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) reg_fence(o[cb]);
+    reg_fence(f);
+    wgmma_fence();
+    wgmma_frags_by_tile<NCB>(o, f, sV);
+    wgmma_commit();
+    if (i + 1 < nk && tid < 64) {
+      kb_s[next * 64 + tid] = kb_next;
+      if (kDropout) km_s[next * 64 + tid] = mix16(static_cast<uint32_t>(kn + tid) * 0x85EBCA77u);
+    }
+    stage = next;
+  } while (++i < nk);
+  wgmma_wait();
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) reg_fence(o[cb]);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= SQ) continue;
+    const float lr = l[r] == 0.f ? 1.f : l[r];  // the TPU kernels' l == 0 guard
+    const float inv = 1.f / lr;
+    __nv_bfloat16* orow = out + rows[r] * st.o.s + 2 * t;
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + cb * 64 + 8 * j) =
+            pack_bf16(o[cb][4 * j + 2 * r] * inv, o[cb][4 * j + 2 * r + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * H + h) * SQ + rows[r]] = m2[r] * kLn2 + logf(lr);
+  }
+}
+
+template <int D, bool kDropout>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* key_bias, void* out, void* lse, int B, int SQ,
+                             int SK, int H, const AttnStrides& st, uint32_t seed,
+                             uint32_t thr, float inv_keep, float sm_scale,
+                             cudaStream_t stream) {
+  constexpr int smem = fwd_wgmma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_wgmma<D, kDropout>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  attention_fwd_wgmma<D, kDropout>
+      <<<dim3((SQ + kFwdRows - 1) / kFwdRows, H, B), kFwdThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(key_bias), static_cast<bf16*>(out), static_cast<float*>(lse),
+      SQ, SK, H, st, seed, thr, inv_keep, sm_scale);
+  return cudaGetLastError();
+}
+
+// ============================================================================
+// Backward (K1b, K4b, K5b).
+//
+// Replaces: visitron_tpu/ops/attention.py:_fused_packed_bwd_kernel, reached
+// through _fused_packed_bwd_rule, and _fused_bwd_kernel, reached through
+// _fused_bwd_rule (fused_attention's VJP).  Same function, per (b, h), with the lse
+// that the forward wrote:
+//   a    = exp(s - lse)                  (s as in the forward, fp32)
+//   dp   = dO v^T                        (fp32)
+//   a_eff, da = where(keep, a, 0)/(1-r), where(keep, dp, 0)/(1-r)
+//   dv   = a_eff.astype(dtype)^T dO
+//   D_i  = sum_j a_eff_ij dp_ij
+//   ds   = (a * (da - D_i) * scale).astype(dtype)
+//   dq   = ds k,  dk = ds^T q            (fp32 accumulation, stored in dtype)
+// The key bias gets no gradient.
+// K5b (visitron_tpu/ops/attention.py:_bwd_dkv_kernel and _bwd_dq_kernel,
+// reached through _flash_bwd_rule) computes the same with Q and K lengths of
+// their own and one difference: D_i = rowsum(out * dO) in fp32 from the
+// rounded output, which the rule computes in XLA outside its two Pallas
+// kernels.  Here a pre-pass kernel (attention_bwd_di) reads out and dO and
+// writes it before the two main kernels.  Given D_i, the dq kernel skips its
+// first walk, so K5b runs 7 S x S x D products per head (the TPU kernels' 7;
+// 5 are the minimum) and K1b/K4b 9.
+//
+// What bounds it on an H100: at the NDH train shape (K1b: B 64, S 256,
+// 12 x 64, bf16) the bytes: reading q, k, v, dO and the lse and writing dq,
+// dk, dv takes 0.0528 ms at 3.35 TB/s against 0.0326 ms for the 5 minimum
+// products at the bf16 tensor-core rate.  From about S 512 on it is the
+// operations (K4b at B 16, S 768: 72.5 GFLOP, 0.0733 ms; K5b at S 1024:
+// 128.8 GFLOP, 0.1303 ms).  Beside the products, every score element costs
+// one exp2, a dozen scalar operations and, at rate > 0, the murmur3 hash,
+// which the tensor-core work has to cover.
+//
+// Design against what the TPU kernel relied on: the Pallas kernel holds the
+// whole (S, S) score matrix of a head in VMEM and produces dq, dk and dv in
+// one program.  No SM has room for that, and blocks cannot carry sums across
+// the grid, so the work is split flash-style into two launches that need no
+// atomics (results are the same run to run):
+//   1. dq, one block per (b, h, 64-query tile), Q and dO resident in shared
+//      memory, K and V streaming: for K1b/K4b a first walk over the key tiles
+//      sums D_i = sum_j a_eff dp (the fused TPU kernels' formula, not the
+//      flash shortcut rowsum(dO * out): with out rounded to bf16 that shortcut
+//      leaves ds = O(2^-9 |dp|) where the exact ds is 0, e.g. for a query with
+//      a single unmasked key) and writes it; for K5b D_i comes in; a second
+//      walk forms ds and accumulates dq;
+//   2. dk/dv, one block per (b, h, 64-key tile), K and V resident, the Q,
+//      dO, lse and D_i tiles streaming.
+// Both recompute s, a and the murmur3 keep mask from q, k, the bias, the lse
+// and the per-head seed, bit for bit as the forward does.  Every operand is
+// addressed through its own strides: q, k, v are views of the fused QKV
+// projection, dO is what autograd hands back, dq, dk, dv are allocated
+// (B, S, H, D) by the wrapper.  Nothing is sized by the lengths.
+//
+// bf16, built for Hopper (sm_90a):
+//   * Products on wgmma.  A block is one warpgroup, which owns the 64 rows of
+//     its resident tile.  S = Q K^T and dP = dO V^T in the dq
+//     kernel, S^T = K Q^T and dP^T = V dO^T in the dk/dv kernel read both
+//     operands from shared memory.  dq += dS K, dv += P^T dO and dk += dS^T Q
+//     take the computed tile from registers (the accumulator layout of one
+//     product is the A-fragment layout of the next) and the streamed tile
+//     through wgmma's transpose bit: no operand is copied transposed.
+//   * Tiles sit in shared memory in the 128-byte swizzle that wgmma reads
+//     (64-column blocks of 128-byte rows; 16-byte chunk c of row r at
+//     c ^ (r % 8)), written by cp.async 16-byte copies.  The streamed tiles go
+//     through a three-stage ring, one barrier a tile: the copy of tile i + 1
+//     is in flight while the products and exponentials of tile i run, and
+//     the last product batch of tile i runs on into tile i + 1's barrier.
+//     cp.async rather than TMA: q, k and v are strided views that change
+//     every call, and cp.async needs no tensor map encoded on the host per
+//     operand and call (nor libcuda), while a tile is 8-16 KB, a
+//     few copy instructions a thread.
+//   * exp2 on pre-scaled operands: log2(e) is folded into the score scale,
+//     the key bias and the lse (each converted once per row or tile), so a
+//     score element costs one FMA, one subtraction and one ex2.approx.
+//   * Ragged tiles cost nothing per element: rows past a length are
+//     zero-filled by the copies, and the key bias / lse of those rows are
+//     -inf / +inf, so their probabilities are exactly 0.  Any length is taken
+//     (the gates admit multiples of 128).
+//   * The exponentials of one block overlap the products of the others: at
+//     D 64 three blocks share an SM (168 registers a thread), which measured
+//     faster on an H100 than two warpgroups sharing the streamed tiles in a
+//     block of 256 threads (PERF.md); there is no warp specialisation.
+// fp32 (a tight reference on the card): FMA on the CUDA cores, 256 threads,
+// each owning a 4 x 4 block of the score tile and a 4 x D/16 block of the
+// output.
 
 // The shared-memory layout of both main kernels: two resident (64, D)
 // tiles, the ring of pairs of streamed (64, D) tiles, three words of
@@ -786,7 +793,7 @@ constexpr int bwd_wgmma_smem_bytes() {
 
 // dq (and, for K1b/K4b, D_i): one block per (b, h, 64 queries).
 template <int D, bool kDropout>
-__global__ void __launch_bounds__(kBwdThreadsWg, D == 64 ? 3 : 1)
+__global__ void __launch_bounds__(kWgThreads, D == 64 ? 3 : 1)
 attention_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
@@ -826,10 +833,10 @@ attention_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q,
   dout += head_off(st.dout, b, h);
   dq += head_off(st.dq, b, h);
 
-  cp_tile<D>(sQ, q, st.q.s, q0, SQ, tid);
-  cp_tile<D>(sdO, dout, st.dout.s, q0, SQ, tid);
-  cp_tile<D>(ring, k, st.k.s, 0, SK, tid);
-  cp_tile<D>(ring + TILE, v, st.v.s, 0, SK, tid);
+  cp_tile<D, kWgThreads>(sQ, q, st.q.s, q0, SQ, tid);
+  cp_tile<D, kWgThreads>(sdO, dout, st.dout.s, q0, SQ, tid);
+  cp_tile<D, kWgThreads>(ring, k, st.k.s, 0, SK, tid);
+  cp_tile<D, kWgThreads>(ring + TILE, v, st.v.s, 0, SK, tid);
   cp_async_commit();
   if (tid < 64) {
     kb_s[tid] = tid < SK ? bias[tid] * kLog2e : -INFINITY;
@@ -872,8 +879,8 @@ attention_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q,
     const int kn = (i + 1 < nk ? i + 1 : i + 1 - nk) * 64;
     if (i + 1 < n) {
       const uint32_t nK = ring + next * 2 * TILE;
-      cp_tile<D>(nK, k, st.k.s, kn, SK, tid);
-      cp_tile<D>(nK + TILE, v, st.v.s, kn, SK, tid);
+      cp_tile<D, kWgThreads>(nK, k, st.k.s, kn, SK, tid);
+      cp_tile<D, kWgThreads>(nK + TILE, v, st.v.s, kn, SK, tid);
       if (tid < 64) kb_next = kn + tid < SK ? bias[kn + tid] * kLog2e : -INFINITY;
     }
     cp_async_commit();
@@ -962,7 +969,7 @@ attention_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q,
 
 // dk and dv: one block per (b, h, 64 keys), walking the query tiles.
 template <int D, bool kDropout>
-__global__ void __launch_bounds__(kBwdThreadsWg, D == 64 ? 3 : 1)
+__global__ void __launch_bounds__(kWgThreads, D == 64 ? 3 : 1)
 attention_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -1003,10 +1010,10 @@ attention_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q,
   dk += head_off(st.dk, b, h);
   dv += head_off(st.dv, b, h);
 
-  cp_tile<D>(sK, k, st.k.s, k0, SK, tid);
-  cp_tile<D>(sV, v, st.v.s, k0, SK, tid);
-  cp_tile<D>(ring, q, st.q.s, 0, SQ, tid);
-  cp_tile<D>(ring + TILE, dout, st.dout.s, 0, SQ, tid);
+  cp_tile<D, kWgThreads>(sK, k, st.k.s, k0, SK, tid);
+  cp_tile<D, kWgThreads>(sV, v, st.v.s, k0, SK, tid);
+  cp_tile<D, kWgThreads>(ring, q, st.q.s, 0, SQ, tid);
+  cp_tile<D, kWgThreads>(ring + TILE, dout, st.dout.s, 0, SQ, tid);
   cp_async_commit();
   if (tid < 64) {
     stats[tid] = tid < SQ ? lse[row_bh + tid] * kLog2e : INFINITY;
@@ -1044,8 +1051,8 @@ attention_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q,
     const int qn = q0 + 64;
     if (i + 1 < nq) {
       const uint32_t nQ = ring + next * 2 * TILE;
-      cp_tile<D>(nQ, q, st.q.s, qn, SQ, tid);
-      cp_tile<D>(nQ + TILE, dout, st.dout.s, qn, SQ, tid);
+      cp_tile<D, kWgThreads>(nQ, q, st.q.s, qn, SQ, tid);
+      cp_tile<D, kWgThreads>(nQ + TILE, dout, st.dout.s, qn, SQ, tid);
       if (tid < 64)
         stat_next = qn + tid < SQ ? lse[row_bh + qn + tid] * kLog2e : INFINITY;
       else
@@ -1557,13 +1564,13 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
   const float* lt = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   attention_bwd_dq_wgmma<D, kDropout>
-      <<<dim3((SQ + 63) / 64, H, B), kBwdThreadsWg, smem, stream>>>(
+      <<<dim3((SQ + 63) / 64, H, B), kWgThreads, smem, stream>>>(
           qt, kt, vt, kbt, dot, lt, static_cast<bf16*>(dq), dl, delta_given, SQ, SK, H, st,
           seed, thr, inv_keep, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attention_bwd_dkv_wgmma<D, kDropout>
-      <<<dim3((SK + 63) / 64, H, B), kBwdThreadsWg, smem, stream>>>(
+      <<<dim3((SK + 63) / 64, H, B), kWgThreads, smem, stream>>>(
           qt, kt, vt, kbt, dot, lt, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), SQ,
           SK, H, st, seed, thr, inv_keep, sm_scale);
   return cudaGetLastError();
@@ -1640,10 +1647,16 @@ int attention_fwd(const void* q, const void* k, const void* v, const void* key_b
          dropout, sm_scale, stream_)
   if (dtype == 0 && D == 64) return VT_ATTN_LAUNCH(launch_fp32, 64);
   if (dtype == 0 && D == 128) return VT_ATTN_LAUNCH(launch_fp32, 128);
-  if (dtype == 1 && D == 64) return VT_ATTN_LAUNCH(launch_mma, 64);
-  if (dtype == 1 && D == 128) return VT_ATTN_LAUNCH(launch_mma, 128);
 #undef VT_ATTN_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  // The bf16 body walks at least one key tile.
+  if (dtype != 1 || (D != 64 && D != 128) || SK < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define VT_ATTN_FWD_WGMMA(DD, DROP)                                                   \
+  launch_fwd_wgmma<DD, DROP>(q, k, v, key_bias, out, lse, B, SQ, SK, H, st, seed, thr, \
+                             inv_keep, sm_scale, stream_)
+  if (D == 64) return dropout ? VT_ATTN_FWD_WGMMA(64, true) : VT_ATTN_FWD_WGMMA(64, false);
+  return dropout ? VT_ATTN_FWD_WGMMA(128, true) : VT_ATTN_FWD_WGMMA(128, false);
+#undef VT_ATTN_FWD_WGMMA
 }
 
 }  // namespace
