@@ -17,9 +17,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               the twin, torch's scaled_dot_product_attention as a yardstick
               (never called by the port), and the bound, then the device
               time of the kernel and of the yardstick from torch.profiler;
-  4. K2       fused add+LayerNorm vs its plain twin (R = 64*256 and 64*512,
-              H 768, bf16 and fp32, with and without a residual); times and
-              F.layer_norm as the yardstick;
+  4. K2       fused add+LayerNorm vs its plain twin (R = 16*768, 64*256 and
+              64*512, H 768, bf16 and fp32, with and without a residual);
+              times and F.layer_norm as the yardstick, then the device time
+              of the kernel and of the yardstick from torch.profiler;
   5. K1b      the attention backward vs its plain twin at the train shapes
               (B 64, S 256 and 512, 12 heads of 64, bf16 with padded keys,
               fp32, and hash dropout at rate 0.1, whose masks are K1f's), and
@@ -29,9 +30,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               then the device time of the kernel (by kernel: dq, dk/dv) and
               of the yardstick from torch.profiler, which leaves out the
               host's time to issue a call;
-  6. K2b      the add+LayerNorm backward vs its twin (R = 64*256 and 64*512,
-              H 768, bf16 and fp32, with and without a residual; dh, dgamma,
-              dbeta); times and the autograd backward of F.layer_norm(x + res);
+  6. K2b      the add+LayerNorm backward vs its twin (R = 16*768, 64*256 and
+              64*512, H 768, bf16 and fp32, with and without a residual; dh,
+              dgamma, dbeta), and two bf16 launches on the same inputs equal
+              bit for bit; times and the autograd backward of
+              F.layer_norm(x + res) as the yardstick, then the device time of
+              the kernel (by kernel: the row kernel, the final sum) and of the
+              yardstick from torch.profiler;
   7. K3       the fused masked softmax-CE, forward and backward, vs its twins
               at the MLM head's shape (R = 16*768, V = 30525, bf16 and fp32,
               ~10% ignored rows and labels outside [0, V)); times of the
@@ -225,13 +230,13 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def check_deterministic(name: str, fn) -> None:
-    """Two launches of a backward on the same inputs give dq, dk, dv equal
+def check_deterministic(name: str, fn, outputs: str = "dq/dk/dv") -> None:
+    """Two launches of a backward on the same inputs give its outputs equal
     bit for bit (no atomics: the result does not depend on block order)."""
     first, second = fn(), fn()
     sync()
     same = all(torch.equal(x, y) for x, y in zip(first, second))
-    say(f"  {name}: dq/dk/dv of two launches equal bit for bit: {same}")
+    say(f"  {name}: {outputs} of two launches equal bit for bit: {same}")
     if not same:
         fail(f"{name}: two launches on the same inputs disagree")
 
@@ -265,51 +270,63 @@ def device_ms(fn, calls: int = 5) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
-    return by_name
+    # Now and then a profiling session records no device kernel at all; such
+    # a session is taken again rather than read as a time of 0.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / calls)
+        if by_name:
+            return by_name
+        say("  (torch.profiler recorded no device kernel; profiling again)")
+    fail("torch.profiler recorded no device kernel in three sessions")
 
 
 # The attention backward's kernels, by a part of their names.
 BWD_KERNELS = (("di", "attention_bwd_di"), ("dq", "attention_bwd_dq"),
                ("dk/dv", "attention_bwd_dkv"))
+# K2b's at H 768: the row kernel and the final sum.
+LN_BWD_KERNELS = (("rows", "add_layernorm_bwd_ring"), ("final sum", "add_layernorm_bwd_sum"))
 
 
-def say_bwd_device_ms(tag: str, kernel, library) -> dict:
+def say_bwd_device_ms(tag: str, kernel, library, parts=BWD_KERNELS,
+                      library_name: str = "sdpa backward") -> dict:
     """Print the device times (device_ms) of a backward, split into its
-    kernels, and of its SDPA yardstick; return them.  Nothing in a rehearsal."""
+    kernels (``parts``), and of its yardstick; return them.  Nothing in a
+    rehearsal."""
     if REHEARSAL:
         return {}
     split = device_ms(kernel)
-    parts = {short: sum(ms for name, ms in split.items() if key in name)
-             for short, key in BWD_KERNELS}
-    parts["other"] = sum(ms for name, ms in split.items()
-                         if not any(key in name for _, key in BWD_KERNELS))
+    by_part = {short: sum(ms for name, ms in split.items() if key in name)
+               for short, key in parts}
+    by_part["other"] = sum(ms for name, ms in split.items()
+                           if not any(key in name for _, key in parts))
     total = sum(split.values())
     lib = sum(device_ms(library).values())
     say(f"  device time {tag} (torch.profiler, mean of 5 calls): kernel {total:.4f} ms ("
-        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items() if v) + f"), sdpa backward "
-        f"{lib:.4f} ms, kernel / sdpa {total / lib:.2f}")
-    return {"device_ms": total, "device_split": parts, "library_device_ms": lib}
+        + ", ".join(f"{k} {v:.4f}" for k, v in by_part.items() if v) + f"), {library_name} "
+        f"{lib:.4f} ms, kernel / yardstick {total / lib:.2f}")
+    return {"device_ms": total, "device_split": by_part, "library_device_ms": lib}
 
 
-def say_fwd_device_ms(tag: str, kernel, library, step=None) -> dict:
-    """Print the device times (device_ms) of a forward at rate 0 without the
-    lse and of its SDPA yardstick, and the factor kernel / sdpa, and, given
-    ``step``, of the forward in its train step's call (rate 0.1, the lse);
-    return them.  Nothing in a rehearsal."""
+def say_fwd_device_ms(tag: str, kernel, library, step=None,
+                      library_name: str = "sdpa forward") -> dict:
+    """Print the device times (device_ms) of a forward (attention: at rate 0
+    without the lse) and of its yardstick, and the factor kernel / yardstick,
+    and, given ``step``, of the forward in its train step's call (rate 0.1,
+    the lse); return them.  Nothing in a rehearsal."""
     if REHEARSAL:
         return {}
     total = sum(device_ms(kernel).values())
     lib = sum(device_ms(library).values())
     say(f"  device time {tag} (torch.profiler, mean of 5 calls): kernel {total:.4f} ms, "
-        f"sdpa forward {lib:.4f} ms, kernel / sdpa {total / lib:.2f}")
+        f"{library_name} {lib:.4f} ms, kernel / yardstick {total / lib:.2f}")
     out = {"device_ms": total, "library_device_ms": lib}
     if step is not None:
         out["step_device_ms"] = sum(device_ms(step).values())
@@ -493,9 +510,11 @@ def phase_k2(device, shapes) -> dict:
                 say(f"  time {tag}: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
                     f"F.layer_norm {lib_ms:.4f} ms, bound {bms:.4f} ms "
                     f"({by}: {nbytes / 1e6:.1f} MB)")
+                dev = say_fwd_device_ms(tag, kernel, library, library_name="F.layer_norm")
                 if with_res:
                     out[rows] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                                 "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+                                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                                 **dev}
     return out
 
 
@@ -605,6 +624,8 @@ def phase_k2b(device, shapes) -> dict:
                 check_close(f"dbeta {tag}", got[2], want[2], SUM_TOL)
                 if dtype != torch.bfloat16:
                     continue
+                check_deterministic(f"K2b {tag}", lambda: fused_add_layernorm_bwd(
+                    dy, x, r, gamma, eps), "dh/dgamma/dbeta")
                 elt = x.element_size()
                 n = 1 if REHEARSAL else copies_for_cold_l2(4 * x.numel() * elt)
                 sets = [(dy, x, res)] + [inputs(rows, dtype) for _ in range(n - 1)]
@@ -637,15 +658,18 @@ def phase_k2b(device, shapes) -> dict:
                 ms = time_ms(kernel, iters=50)
                 plain_ms = time_ms(plain)
                 lib_ms = time_ms(library, iters=50)
-                del graphs
                 nbytes = (4 if with_res else 3) * rows * hidden * elt + 3 * hidden * 4
                 bms, by = bound_ms(nbytes, 20 * rows * hidden, torch.float32)
                 say(f"  time {tag}: kernel {ms:.4f} ms (with the sum of its partials), "
                     f"plain twin {plain_ms:.4f} ms, F.layer_norm backward "
                     f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
+                dev = say_bwd_device_ms(tag, kernel, library, LN_BWD_KERNELS,
+                                        "F.layer_norm backward")
+                del graphs
                 if with_res:
                     out[rows] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                                 "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+                                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                                 **dev}
     return out
 
 
@@ -1160,7 +1184,8 @@ def profile_rollout(agent, params, batch) -> None:
 # K1, K4 and K5 launch the same device kernels (csrc/attention.cu).
 KERNEL_KINDS = (("K1/K4/K5 attention", ("::attention_fwd", "::attention_bwd")),
                 ("K3 softmax-CE", ("::ce_fwd", "::ce_bwd")),
-                ("K2 add+LayerNorm", ("::add_layernorm",)),
+                ("K2f add+LayerNorm", ("::add_layernorm_fwd",)),
+                ("K2b add+LayerNorm backward", ("::add_layernorm_bwd",)),
                 ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
                 ("host-to-device copies", ("Memcpy HtoD",)),
                 ("optimizer (foreach)", ("foreach", "multi_tensor")),
@@ -1825,7 +1850,9 @@ def main(argv=None) -> int:
     else:
         device = "cuda"
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
-        ln = {"hidden": 768, "rows": (64 * 256, 64 * 512)}
+        # R 12288: the S 768 pretraining step's; 16384 and 32768: NDH at S 256
+        # and 512 (16384 also the S 1024 step's).
+        ln = {"hidden": 768, "rows": (16 * 768, 64 * 256, 64 * 512)}
         sizes = {"scans": 4, "viewpoints": 60, "feat": 2048, "instances": 128,
                  "seq": 512, "batch": 64, "episode_len": 10, "rnn": 512,
                  "dtype": torch.bfloat16, "bert": {}}

@@ -132,14 +132,36 @@ def test_k1_autograd_on_card_counts_launches(cuda):
     torch.testing.assert_close(gq.cpu(), gw, atol=1e-4, rtol=1e-4)
 
 
+def _k2b_meta_inputs(hidden=768, dy_shape=None, dy_dtype=torch.float32):
+    x = torch.empty(4, hidden, device="meta")
+    dy = torch.empty(dy_shape or (4, hidden), dtype=dy_dtype, device="meta")
+    return dy, x, None, torch.empty(hidden, device="meta")
+
+
+@pytest.mark.parametrize("case, inputs, match", [
+    ("hidden not a multiple of 8", _k2b_meta_inputs(hidden=100), "multiple of 8"),
+    ("hidden above 4096", _k2b_meta_inputs(hidden=4104), "at most 4096"),
+    ("dy of another shape", _k2b_meta_inputs(dy_shape=(4, 776)), "dy must match"),
+    ("dy of another dtype", _k2b_meta_inputs(dy_dtype=torch.bfloat16), "dy must match"),
+    ("neither CPU nor CUDA", _k2b_meta_inputs(), "unsupported device"),
+])
+def test_k2b_wrapper_refuses_what_the_kernel_does_not_take(case, inputs, match):
+    with pytest.raises(ValueError, match=match):
+        tln.fused_add_layernorm_bwd(*inputs)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("hidden", [768, 136])
+@pytest.mark.parametrize("rows", [1, 63, 65, 300, 12288])
+@pytest.mark.parametrize("hidden", [768, 136, 1024, 4096])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k2b_kernel_matches_twin_on_card(cuda, dtype, hidden):
+def test_k2b_kernel_matches_twin_on_card(cuda, dtype, hidden, rows):
+    # H <= 1024 takes the register path (H 136: 17 vectors, lanes left idle),
+    # H 4096 the general path; R 1, 63, 65 and 300 leave blocks and warps
+    # part-filled, R 12288 is the S 768 pretraining step's.
     g = torch.Generator(device=cuda).manual_seed(4)
-    x = torch.randn(300, hidden, generator=g, device=cuda).to(dtype)
-    res = torch.randn(300, hidden, generator=g, device=cuda).to(dtype)
-    dy = torch.randn(300, hidden, generator=g, device=cuda).to(dtype)
+    x = torch.randn(rows, hidden, generator=g, device=cuda).to(dtype)
+    res = torch.randn(rows, hidden, generator=g, device=cuda).to(dtype)
+    dy = torch.randn(rows, hidden, generator=g, device=cuda).to(dtype)
     gamma = torch.randn(hidden, generator=g, device=cuda)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for r in (res, None):
@@ -147,8 +169,10 @@ def test_k2b_kernel_matches_twin_on_card(cuda, dtype, hidden):
         want = tln.layernorm_bwd_reference(dy, x, r, gamma, 1e-12)
         assert got[0].dtype == dtype and got[1].dtype == torch.float32
         torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
-        for x_, y_ in zip(got[1:], want[1:]):  # sums over 300 rows
+        for x_, y_ in zip(got[1:], want[1:]):  # fp32 sums over the rows
             torch.testing.assert_close(x_, y_, atol=1e-3, rtol=1e-4)
+        again = tln.fused_add_layernorm_bwd(dy, x, r, gamma)  # no atomics
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 # -- K3: fused masked softmax-CE ------------------------------------------------

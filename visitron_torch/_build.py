@@ -45,6 +45,7 @@ SIGNATURES = {
     "vt_ce_bwd": [_P] * 5 + [_I, _I, _I, _P],
     "vt_layernorm_fwd": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "vt_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
+    "vt_layernorm_bwd_scratch": [_I] * 4,
 }
 
 _lib = None

@@ -59,8 +59,8 @@ def layernorm_bwd_reference(dy, x, residual, gamma, eps: float):
 
 
 def _check_cuda(x, residual, gamma, beta=None) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_add_layernorm: unsupported device {x.device}")
+    """Refuse what the kernels do not take.  The device comes last, so that
+    the shape checks also speak for tensors on another device."""
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"fused_add_layernorm: dtype {x.dtype} not supported")
     hidden = x.shape[-1]
@@ -85,6 +85,8 @@ def _check_cuda(x, residual, gamma, beta=None) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"fused_add_layernorm: {name} must be contiguous "
                              "and 16-byte aligned")
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_add_layernorm: unsupported device {x.device}")
 
 
 def _forward(x, residual, gamma, beta, eps: float):
@@ -138,37 +140,40 @@ def fused_add_layernorm(x, residual, gamma, beta, eps: float = 1e-12):
 
 fused_add_layernorm.launches = 0
 
-_BWD_ROWS_PER_BLOCK = 64  # rows per block of the backward kernel
-
 
 def fused_add_layernorm_bwd(dy, x, residual, gamma, eps: float = 1e-12):
     """(dh, dgamma, dbeta) of :func:`fused_add_layernorm`: dh (the gradient
     of x and of the residual) in dy's dtype, dgamma and dbeta in fp32.  CPU
     tensors take :func:`layernorm_bwd_reference`; CUDA tensors launch K2b,
-    which writes one fp32 partial row of dgamma and dbeta per block of 64
-    rows, summed here with ``torch.sum``."""
+    whose row kernel writes one fp32 partial row of dgamma and dbeta per
+    block into a scratch that the library sizes, and whose second kernel sums
+    them in a fixed order."""
     if x.device.type == "cpu":
         return layernorm_bwd_reference(dy, x, residual, gamma, eps)
-    _check_cuda(x, residual, gamma)
     if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
             or not dy.is_contiguous() or dy.data_ptr() % 16):
         raise ValueError("fused_add_layernorm_bwd: dy must match x in shape, "
                          "dtype and device, contiguous and 16-byte aligned")
+    _check_cuda(x, residual, gamma)
     lib = _build.load()
     hidden = x.shape[-1]
     rows = x.numel() // hidden
-    n_blocks = -(-rows // _BWD_ROWS_PER_BLOCK)
+    code = _DTYPE_CODES[x.dtype]
+    n_scratch = lib.vt_layernorm_bwd_scratch(rows, hidden, code, residual is not None)
+    if n_scratch < 0:
+        raise RuntimeError(f"fused_add_layernorm_bwd: CUDA error {-n_scratch} "
+                           "sizing the scratch")
     dh = torch.empty_like(dy)
-    parts = torch.empty((2, n_blocks, hidden), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, hidden), dtype=torch.float32, device=x.device)
     err = lib.vt_layernorm_bwd(
         dy.data_ptr(), x.data_ptr(), None if residual is None else residual.data_ptr(),
-        gamma.data_ptr(), dh.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-        rows, hidden, float(eps), n_blocks, _DTYPE_CODES[x.dtype],
+        gamma.data_ptr(), dh.data_ptr(), scratch.data_ptr(), sums.data_ptr(),
+        rows, hidden, float(eps), n_scratch, code,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_add_layernorm_bwd")
     fused_add_layernorm_bwd.launches += 1
-    dgamma, dbeta = torch.sum(parts, dim=1)
-    return dh, dgamma, dbeta
+    return dh, sums[0], sums[1]
 
 
 fused_add_layernorm_bwd.launches = 0
