@@ -110,18 +110,43 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               step with attention dropout 0.1 and hidden dropouts 0, whose
               kernel seeds come from one CPU generator on both sides, so K5b
               runs on the card against its twin on the CPU: loss and
-              gradients agree.
+              gradients agree;
+ 16. sampled train: the NDH student-forced train step,
+              ViewpointAgent.sample_train_step_fn("sample"), at phase 11's
+              set-up over NavEpisodeBatcher.with_sample_teacher batches: 2
+              warm-up steps and 8 timed, launches per step K1f 12, K1b 12,
+              K2f 25, K2b 25, losses finite, params changed, ms per step,
+              nav actions/s, peak memory, the idle share; then one step each
+              with argmax, topk, nucleus, temperature and penalty feedback;
+ 17. RL train: the same for rl_train_step_fn (A2C with the critic), its aux
+              values finite;
+ 18. no host sync: the decode halves of a sampled step (every strategy) and
+              of an RL step, with the batch on the card, under
+              torch.cuda.set_sync_debug_mode("error");
+ 19. student agreement: fp32 with every dropout at 0 on a 2-item batch, card
+              vs CPU: the sampled loss and gradients with argmax feedback,
+              the RL loss, aux values and gradients (critic included) under
+              one stand-in sampler (argmax of the logits plus a fixed noise
+              table);
+ 20. sampling: select_action's slot frequencies on the card for sample,
+              temperature, penalty, topk and nucleus over 65536 draws against
+              each one's distribution (5 sigma a slot), argmax equal to the
+              CPU's;
+ 21. evaluate: phase 10's argmax trajectories scored by the port's
+              Evaluator (the summary printed).
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
 K3b, K4f and K4b: pretrain; K5f and K5b: long-context pretrain), max error,
-and times; the last line is
+and times, and for the four NDH kernels their launches in the timed runs of
+phases 11, 16 and 17 (``path_launches``); the last line is
 ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -135,10 +160,12 @@ from torch.func import functional_call
 
 from visitron_torch import _build
 from visitron_torch import geometry as geo
-from visitron_torch.agents import NavEpisodeBatcher, NavRuntime, ViewpointAgent
+from visitron_torch.agents import NavEpisodeBatcher, NavRuntime, ViewpointAgent, decoding
+from visitron_torch.agents.decoding import select_action
 from visitron_torch.data import (SceneFeatureTable, WordPieceTokenizer,
                                  build_wordpiece_vocab)
 from visitron_torch.data.datasets import build_nav_instances
+from visitron_torch.evaluation import Evaluator
 from visitron_torch.models import BertConfig
 from visitron_torch.models.layers import DropoutRng
 from visitron_torch.models.lstm import masked_lstm_scan
@@ -1137,7 +1164,7 @@ def phase_serving(device, sizes) -> dict:
             f"{len(ms)} runs, range {ms[0]:.2f}-{ms[-1]:.2f}), "
             f"{sizes['batch'] / med * 1e3:.1f} episodes/s, "
             f"{sizes['batch'] * sizes['episode_len'] / med * 1e3:.1f} actions/s")
-        runs[submit] = {"ms_per_batch": med, "k1": k1, "k2": k2}
+        runs[submit] = {"ms_per_batch": med, "k1": k1, "k2": k2, "results": results}
     peak = None if REHEARSAL else torch.cuda.max_memory_allocated()
     say(f"  peak device memory: {'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}")
 
@@ -1307,17 +1334,38 @@ def phase_train(device, sizes, sl) -> dict:
     batches = list(batcher.train_batches(n_warm + n_timed,
                                          episode_len=sizes["episode_len"]))
     buckets = [agent.trim_batch(b)["ids"].shape[1] for b in batches]
-    state = agent.init_state()
-    start = [t.clone() for t in tree_leaves(state["params"])]
     step = agent.train_step_fn()
     say(f"  set-up {time.perf_counter() - t0:.1f} s: {len(sl['train_instances'])} train "
         f"instances, S buckets {buckets}, dropout hidden {cfg.hidden_dropout_prob} / "
         f"attention {cfg.attention_probs_dropout_prob} / agent {agent.dropout}, Adam lr "
         f"{agent.learning_rate}, clip {agent.max_grad_norm}")
-    losses = []
+    start, state, losses, ms, totals, peak = timed_steps(agent, step, agent.init_state,
+                                                         batches, n_warm)
+    med = check_trained(start, state, losses, ms, peak, sizes)
+    time_split(agent, state, batches[n_warm])
+    idle = None if REHEARSAL else profile_device(
+        lambda: step(state, batches[n_warm]), "train step")
+    bucket = max(set(buckets[n_warm:]), key=buckets[n_warm:].count)
+    return {"ms_per_step": med, "range": (min(ms), max(ms)), "k1b": totals["K1b"],
+            "k2b": totals["K2b"], "bucket": bucket, "peak_bytes": peak, "idle": idle,
+            "counts": totals}
+
+
+def timed_steps(agent, step, make_state, batches, n_warm: int):
+    """Run ``step`` from ``make_state()`` over ``batches``: ``n_warm`` warm-up
+    steps, then the rest one by one, each timed by the host clock around a
+    sync, with every kernel's launches counted from 0 before the timed run
+    and checked per step (an NDH step: K1f, K1b 1 a layer; K2f, K2b 2 a
+    layer + 1).  The state is made here, so that no caller keeps the initial
+    one alive through the run.  Returns (the initial parameters' copies, the
+    final state, the steps' outputs, ms, launches of the timed run, peak
+    device memory of the timed run)."""
+    state = make_state()
+    start = [t.clone() for t in tree_leaves(state["params"])]
+    outs = []
     for batch in batches[:n_warm]:
-        state, loss = step(state, batch)
-        losses.append(loss)
+        state, out = step(state, batch)
+        outs.append(out)
     if not REHEARSAL:
         torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -1325,16 +1373,24 @@ def phase_train(device, sizes, sl) -> dict:
     for batch in batches[n_warm:]:
         sync()
         t1 = time.perf_counter()
-        state, loss = step(state, batch)
+        state, out = step(state, batch)
         sync()
         ms.append((time.perf_counter() - t1) * 1e3)
-        losses.append(loss)
+        outs.append(out)
         per_step = per_step or read_counts()
     totals = read_counts()
     peak = None if REHEARSAL else torch.cuda.max_memory_allocated()
-    layers = cfg.num_hidden_layers
+    layers = agent.cfg.num_hidden_layers
     check_counts(per_step, totals, {"K1f": layers, "K1b": layers, "K2f": 2 * layers + 1,
-                                    "K2b": 2 * layers + 1}, n_timed)
+                                    "K2b": 2 * layers + 1}, len(batches) - n_warm)
+    return start, state, outs, ms, totals, peak
+
+
+def check_trained(start, state, losses, ms, peak, sizes) -> float:
+    """Losses finite, every parameter tensor but the BERT pooler's two
+    changed and finite; print the losses, ms/step (median), nav actions/s
+    (batch x episode_len a step, bench.py's count) and the peak memory;
+    return the median ms/step."""
     losses = torch.stack(losses).float().cpu()
     if not torch.isfinite(losses).all():
         fail(f"non-finite train losses {losses.tolist()}")
@@ -1346,15 +1402,10 @@ def phase_train(device, sizes, sl) -> dict:
     actions = sizes["batch"] * sizes["episode_len"]
     say(f"  losses {', '.join(f'{x:.4f}' for x in losses.tolist())}; {moved} of "
         f"{len(final)} parameter tensors changed (the BERT pooler takes no part)")
-    say(f"  {med:.2f} ms/step (median of {n_timed} steps, range {min(ms):.2f}-"
+    say(f"  {med:.2f} ms/step (median of {len(ms)} steps, range {min(ms):.2f}-"
         f"{max(ms):.2f}), {actions / med * 1e3:.1f} nav actions/s; peak device "
         f"memory {'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}")
-    time_split(agent, state, batches[n_warm])
-    idle = None if REHEARSAL else profile_device(
-        lambda: step(state, batches[n_warm]), "train step")
-    bucket = max(set(buckets[n_warm:]), key=buckets[n_warm:].count)
-    return {"ms_per_step": med, "range": (min(ms), max(ms)), "k1b": totals["K1b"],
-            "k2b": totals["K2b"], "bucket": bucket, "peak_bytes": peak, "idle": idle}
+    return med
 
 
 def time_split(agent, state, batch) -> None:
@@ -1419,10 +1470,8 @@ def time_split(agent, state, batch) -> None:
         f"tensors); alone: {'; '.join(alone)}")
 
 
-def phase_train_agreement(device, sizes, sl) -> None:
-    """One fp32 train step with every dropout at 0 on a 2-item batch: the card
-    (kernels) against the CPU (plain twins)."""
-    say("train agreement: one fp32 step, dropouts 0, card vs CPU on a 2-item batch")
+def fp32_agents(device, sizes, sl) -> dict:
+    """{device: agent} on the card and on the CPU: fp32, every dropout 0."""
     agents = {}
     for dev in (device, "cpu"):
         rt = NavRuntime.build(sl["world"].graphs, sl["table"], device_dtype=torch.float32,
@@ -1434,6 +1483,14 @@ def phase_train_agreement(device, sizes, sl) -> None:
                                      episode_len=sizes["episode_len"], rnn_dim=sizes["rnn"],
                                      encoder_hidden_size=sizes["rnn"], dropout=0.0,
                                      device=dev)
+    return agents
+
+
+def phase_train_agreement(device, sizes, sl) -> None:
+    """One fp32 train step with every dropout at 0 on a 2-item batch: the card
+    (kernels) against the CPU (plain twins)."""
+    say("train agreement: one fp32 step, dropouts 0, card vs CPU on a 2-item batch")
+    agents = fp32_agents(device, sizes, sl)
     batcher = NavEpisodeBatcher(sl["train_instances"][:2], agents["cpu"].runtime,
                                 batch_size=2, path_type="planner_path")
     batch = next(batcher.train_batches(1, episode_len=sizes["episode_len"]))
@@ -1468,6 +1525,188 @@ def phase_train_agreement(device, sizes, sl) -> None:
     if float(step[big].abs().min()) <= 0.5 * lr or not torch.equal(
             step[big].sign(), -g[big].sign()):
         fail("the Adam step on the card did not move each parameter by ~lr against its gradient")
+
+
+# -- phases 16-21: student-forced and RL fine-tuning, sampling, evaluation ---------------
+
+STRATEGIES = ("argmax", "topk", "nucleus", "temperature", "penalty")
+
+
+def phase_student(device, sizes, sl, rl: bool) -> dict:
+    """The sampled (``rl`` False) or RL train step at phase 11's set-up:
+    timed steps, launches, losses, parameters, the idle share; the sampled
+    step also once with each other strategy."""
+    agent, runtime = sl["agent"], sl["runtime"]
+    name = "RL train: rl_train_step_fn" if rl else "sampled train: sample_train_step_fn('sample')"
+    say(f"{name}, batch {sizes['batch']}, {sizes['episode_len']}-step episodes, planner_path")
+    n_warm, n_timed = 2, 8
+    batcher = NavEpisodeBatcher(sl["train_instances"], runtime, batch_size=sizes["batch"],
+                                path_type="planner_path", seed=1 + rl)
+    batches = [batcher.with_sample_teacher(b) for b in batcher.train_batches(n_warm + n_timed)]
+    step = agent.rl_train_step_fn() if rl else agent.sample_train_step_fn("sample")
+    start, state, outs, ms, totals, peak = timed_steps(
+        agent, step, lambda: agent.init_state(with_critic=rl), batches, n_warm)
+    med = check_trained(start, state, [o[0] if rl else o for o in outs], ms, peak, sizes)
+    if rl:
+        aux = {k: torch.stack([o[1][k] for o in outs]).float().cpu() for k in outs[0][1]}
+        if not all(torch.isfinite(v).all() for v in aux.values()):
+            fail(f"non-finite RL aux values {aux}")
+        say("  aux of the last step: " + ", ".join(f"{k} {float(v[-1]):.4f}"
+                                                   for k, v in aux.items()))
+    idle = None if REHEARSAL else profile_device(
+        lambda: step(state, batches[n_warm]), "RL step" if rl else "sampled step")
+    if not rl:
+        for feedback in STRATEGIES:
+            _, loss = agent.sample_train_step_fn(feedback)(state, batches[n_warm])
+            say(f"  one step with feedback {feedback}: loss {float(loss):.4f}")
+            if not torch.isfinite(loss):
+                fail(f"feedback {feedback}: non-finite loss")
+    return {"ms_per_step": med, "range": (min(ms), max(ms)), "peak_bytes": peak,
+            "idle": idle, "counts": totals, "state": state, "batch": batches[n_warm]}
+
+
+def phase_no_sync(sl, rl_run) -> None:
+    """The decode halves of a sampled step (every strategy) and of an RL
+    step, from the encoder's outputs and the batch already on the card,
+    under torch.cuda.set_sync_debug_mode("error"): any call that waits for
+    the device raises."""
+    say("no host sync: the sampled and RL decode loops under "
+        "torch.cuda.set_sync_debug_mode('error')")
+    agent, state = sl["agent"], rl_run["state"]
+    batch = agent.trim_batch(rl_run["batch"])
+    live = {part: {n: p.detach().requires_grad_() for n, p in d.items()}
+            for part, d in state["params"].items()}
+    rng, gen = state["rng"], state["sampler"]
+    enc = agent.encode(live, batch, rng)
+    d = agent.sample_inputs(batch)
+    sync()
+    if not REHEARSAL:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [agent.decode_sampled(live, d, *enc, rng, gen, feedback)
+                  for feedback in ("sample",) + STRATEGIES]
+        total, aux = agent.decode_rl(live, d, *enc, rng, gen)
+    finally:
+        if not REHEARSAL:
+            torch.cuda.set_sync_debug_mode(0)
+    got = torch.stack(losses + [total]).float().cpu()
+    say(f"  {len(losses)} sampled decode loops and one RL loop of {agent.episode_len} "
+        f"steps ran without a synchronising call; losses {got.tolist()}")
+    if not torch.isfinite(got).all():
+        fail("non-finite decode-loop losses")
+
+
+@contextlib.contextmanager
+def stand_in_sampler(noise: torch.Tensor):
+    """decoding.categorical replaced by argmax(logit + one fixed noise
+    table), on the card and on the CPU alike."""
+    real = decoding.categorical
+    decoding.categorical = lambda logit, generator=None: torch.argmax(
+        logit + noise.to(logit.device), dim=-1)
+    try:
+        yield
+    finally:
+        decoding.categorical = real
+
+
+def phase_student_agreement(device, sizes, sl) -> None:
+    """fp32 with every dropout at 0 on a 2-item batch, the card (kernels)
+    against the CPU (plain twins): the sampled loss and its gradients with
+    argmax feedback; the RL loss, its aux values and gradients (critic
+    included) under one stand-in sampler."""
+    say("student agreement: fp32, dropouts 0, card vs CPU on a 2-item batch")
+    agents = fp32_agents(device, sizes, sl)
+    batcher = NavEpisodeBatcher(sl["train_instances"][:2], agents["cpu"].runtime,
+                                batch_size=2, path_type="planner_path")
+    batch = batcher.with_sample_teacher(next(batcher.train_batches(1)))
+    k1 = agents["cpu"].runtime.max_candidates + 1
+    noise = torch.from_numpy(np.random.default_rng(SEED).gumbel(size=(2, k1)).astype(
+        np.float32))
+    out = {}
+    for dev, agent in agents.items():
+        params = agent.init_params(SEED, with_critic=True)
+        nav = {k: v for k, v in params.items() if k != "critic"}
+        tb = agent.trim_batch(batch)
+        loss, _, grads = agent.value_and_grads(nav, lambda p: (
+            agent.sampled_episode_loss(p, tb, None, None, "argmax"), None))
+        with stand_in_sampler(noise):
+            rl_loss, aux, rl_grads = agent.value_and_grads(
+                params, lambda p: agent.rl_episode_loss(p, tb, None, None))
+        flat = lambda g: torch.cat([t.flatten() for t in tree_leaves(g)]).cpu()  # noqa: E731
+        out[dev] = {"sampled loss (argmax)": loss.cpu(), "sampled gradients": flat(grads),
+                    "RL loss": rl_loss.cpu(), **{f"RL {k}": v.cpu() for k, v in aux.items()},
+                    "RL gradients (critic included)": flat(rl_grads)}
+    for name, want in out["cpu"].items():
+        check_close(name, out[device][name], want, AGREE_TOL)
+
+
+# The distribution phase 20 holds select_action to: one row of logits
+# (masked slots at -1e9), the taken slots of ``penalty`` and the temperature.
+SAMPLE_LOGIT = np.array([0.3, -0.4, 1.1, 0.9, -1e9, 0.0, -1e9, -0.8], np.float32)
+SAMPLE_TAKEN = np.array([False, True, True, False, False, False, False, False])
+SAMPLE_TEMP = 0.7
+
+
+def action_distribution(feedback: str) -> np.ndarray:
+    """The probability of each slot in one draw of ``feedback`` on
+    SAMPLE_LOGIT, from the JAX package's formulas
+    (visitron_tpu/agents/decoding.py), in float64."""
+    def softmax(x):
+        e = np.exp(np.asarray(x, np.float64) - np.max(x))
+        return e / e.sum()
+
+    x = SAMPLE_LOGIT
+    if feedback == "sample":
+        return softmax(x)
+    if feedback == "temperature":
+        return softmax(x / SAMPLE_TEMP)
+    if feedback == "penalty":
+        return softmax(np.where(SAMPLE_TAKEN, x, x / SAMPLE_TEMP))
+    if feedback == "topk":
+        top = np.argsort(-x, kind="stable")[:3]
+        p = np.zeros(len(x))
+        p[top] = softmax(x[top])
+        return p
+    return 0.4 / len(x) + 0.6 * softmax(x)  # nucleus: masked slots included
+
+
+def phase_sampling(device, draws: int) -> None:
+    """select_action's draws on the card: each sampling strategy's slot
+    frequencies over ``draws`` rows against its distribution (5 sigma a
+    slot, exactly 0 where the probability is 0); argmax equal to the CPU's."""
+    say(f"sampling: select_action on the card, {draws} draws a strategy")
+    logit = torch.from_numpy(np.tile(SAMPLE_LOGIT, (draws, 1))).to(device)
+    taken = torch.from_numpy(np.tile(SAMPLE_TAKEN, (draws, 1))).to(device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for feedback in ("sample", "temperature", "penalty", "topk", "nucleus"):
+        a = select_action(feedback, logit, g, temperature=SAMPLE_TEMP, taken_mask=taken)
+        freq = np.bincount(a.cpu().numpy(), minlength=len(SAMPLE_LOGIT)) / draws
+        want = action_distribution(feedback)
+        sigma = np.sqrt(want * (1 - want) / draws)
+        z = np.abs(freq - want)[want > 0] / sigma[want > 0]
+        say(f"  {feedback}: frequencies {np.round(freq, 4).tolist()}, max |freq - p| "
+            f"{z.max():.2f} sigma")
+        if z.max() > 5 or (freq[want == 0] != 0).any():
+            fail(f"{feedback}: frequencies {freq} disagree with {want}")
+    x = torch.randn(4096, 16, generator=torch.Generator().manual_seed(SEED))
+    x[:, 12:] = -1e9
+    if not torch.equal(select_action("argmax", x.to(device)).cpu(), select_action("argmax", x)):
+        fail("argmax on the card differs from the CPU's")
+    say("  argmax on 4096 rows equals the CPU's")
+
+
+def phase_evaluate(sl) -> None:
+    """The serving run's argmax trajectories scored by the port's Evaluator
+    (trusted_path, as the serving batches start)."""
+    gt = [it.raw for it in sl["instances"] if it.raw.get("end_panos")]
+    evaluator = Evaluator(gt, sl["world"].graphs, path_type="trusted_path")
+    summary, _ = evaluator.score_results(
+        {k: v for k, v in sl["runs"][False]["results"].items() if k in evaluator.instr_ids})
+    say(f"evaluate: the argmax serving rollout of {len(gt)} episodes, "
+        f"visitron_torch.evaluation.Evaluator: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in summary.items()))
+    if not all(np.isfinite(v) for v in summary.values()):
+        fail(f"non-finite evaluation summary {summary}")
 
 
 # -- phase 12: pretrain --------------------------------------------------------------
@@ -1783,12 +2022,16 @@ def phase_long_dropout_agreement(device, sizes) -> None:
 DEVICE_KEYS = ("device_ms", "library_device_ms", "step_device_ms")
 
 
-def kernels_line(times, sl, tr, pt, lc) -> dict:
+def kernels_line(times, sl, tr, pt, lc, st, rl) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
     run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
     run's, K5f/K5b at the long-context shape with the long-context run's;
-    the attention kernels also with their device times (DEVICE_KEYS)."""
+    the attention kernels also with their device times (DEVICE_KEYS).  The
+    four NDH kernels also carry ``path_launches``: their launches in the
+    timed runs of the teacher-forced, sampled and RL train steps."""
+    ndh = {"fused_attention_packed": "K1f", "fused_add_layernorm": "K2f",
+           "fused_attention_packed_bwd": "K1b", "fused_add_layernorm_bwd": "K2b"}
     runs = sl["runs"][False]
     rows = (sl["ln_rows"], tr["ln_rows"])
     entries = (("fused_attention_packed", ATTN_SOURCE, times["k1"][sl["bucket"]],
@@ -1815,7 +2058,10 @@ def kernels_line(times, sl, tr, pt, lc) -> dict:
          "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
          "library_ms": t["library_ms"],
-         **{k: t[k] for k in DEVICE_KEYS if k in t}}
+         **{k: t[k] for k in DEVICE_KEYS if k in t},
+         **({"path_launches": {path: run["counts"][ndh[name]] for path, run in
+                               (("train", tr), ("sampled_train", st), ("rl_train", rl))}}
+            if name in ndh else {})}
         for name, (src, replaces), t, launches in entries]}
 
 
@@ -1836,7 +2082,7 @@ def main(argv=None) -> int:
         ln = {"hidden": 128, "rows": (2 * 128,)}
         sizes = {"scans": 1, "viewpoints": 12, "feat": 32, "instances": 6, "seq": 128,
                  "batch": 4, "episode_len": 3, "rnn": 24, "dtype": torch.float32,
-                 "bert": {"num_hidden_layers": 2, "hidden_size": 128,
+                 "draws": 20_000, "bert": {"num_hidden_layers": 2, "hidden_size": 128,
                           "num_attention_heads": 2, "intermediate_size": 256}}
         ce = {"rows": 64, "vocab": 4099}
         attn4 = {"batch": 2, "heads": 2, "head_dim": 64, "seq": 256}
@@ -1855,7 +2101,7 @@ def main(argv=None) -> int:
         ln = {"hidden": 768, "rows": (16 * 768, 64 * 256, 64 * 512)}
         sizes = {"scans": 4, "viewpoints": 60, "feat": 2048, "instances": 128,
                  "seq": 512, "batch": 64, "episode_len": 10, "rnn": 512,
-                 "dtype": torch.bfloat16, "bert": {}}
+                 "dtype": torch.bfloat16, "draws": 65536, "bert": {}}
         # tools/bench_pretrain.py: batch 16 x (512 text + 256 regions) = S 768.
         ce = {"rows": 16 * 768, "vocab": 30525}
         attn4 = {"batch": 16, "heads": 12, "head_dim": 64, "seq": 768}
@@ -1887,6 +2133,14 @@ def main(argv=None) -> int:
     phase_pretrain_agreement(device, long, "K5", "long-context agreement",
                              use_flash_attention=True)
     phase_long_dropout_agreement(device, long)
+    st = phase_student(device, sizes, sl, rl=False)
+    del st["state"]
+    rl = phase_student(device, sizes, sl, rl=True)
+    phase_no_sync(sl, rl)
+    del rl["state"]
+    phase_student_agreement(device, sizes, sl)
+    phase_sampling(device, sizes["draws"])
+    phase_evaluate(sl)
     # Kernel times at a path's bucket, where the shape phases did not cover it.
     for key, phase, bucket, rows in (("k1", phase_k1, sl["bucket"], None),
                                      ("k2", phase_k2, None, sl["ln_rows"]),
@@ -1900,7 +2154,7 @@ def main(argv=None) -> int:
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if REHEARSAL:
         return 0
-    print(json.dumps(kernels_line(times, sl, tr, pt, lc)), flush=True)
+    print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl)), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

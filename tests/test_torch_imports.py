@@ -47,7 +47,7 @@ print(len(names))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 27
+    assert int(res.stdout.strip().splitlines()[-1]) >= 30
 
 
 def test_sources_import_nothing_of_jax():
@@ -73,7 +73,8 @@ def test_package_lists_every_ported_module():
                 "agents.batcher", "agents.decoding", "agents.viewpoint", "convert",
                 "_build", "ops.crossentropy", "models.pretrain", "train.optim",
                 "train.pretrain", "data.pretrain_dataset", "pipelines",
-                "pipelines.pretrain_datagen"):
+                "pipelines.pretrain_datagen", "models.speaker", "evaluation",
+                "evaluation.metrics"):
         assert f"visitron_torch.{mod}" in names, mod
 
 
@@ -112,13 +113,18 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_decoding_refuses_unported_strategies():
-    from visitron_torch.agents.decoding import select_action
+    """Every strategy of the JAX package is ported; an unknown one, or
+    teacher feedback without a target, is refused."""
+    from visitron_torch.agents.decoding import FEEDBACK_OPTIONS, select_action
 
     logit = torch.tensor([[0.0, 2.0, 2.0, -1.0]])
     assert select_action("argmax", logit).tolist() == [1]  # first maximum
     target = torch.tensor([3])
     assert select_action("teacher", logit, target=target) is target
-    with pytest.raises(NotImplementedError):
-        select_action("sample", logit)
+    g = torch.Generator().manual_seed(0)
+    for feedback in set(FEEDBACK_OPTIONS) - {"teacher"}:
+        assert 0 <= int(select_action(feedback, logit, g)) < 4, feedback
+    with pytest.raises(ValueError):
+        select_action("teacher", logit)
     with pytest.raises(ValueError):
         select_action("bogus", logit)

@@ -1,7 +1,8 @@
 """Batching of navigation instances (visitron_tpu/agents/batcher.py:
-``trim_to_bucket``, ``_make_batch``, ``with_teacher``, the training schedule
-``train_batches`` / ``skip_batches`` and ``eval_batches``).  Host-side numpy;
-the agent moves each batch onto the device.
+``trim_to_bucket``, ``_make_batch``, ``with_teacher``, ``with_sample_teacher``,
+the training schedule ``train_batches`` / ``skip_batches`` and
+``eval_batches``).  Host-side numpy; the agent moves each batch onto the
+device.
 
 The training schedule is the JAX package's for one host: epoch-shuffled with
 ``np.random.default_rng(seed)``, length-sorted within windows of
@@ -82,6 +83,14 @@ class NavEpisodeBatcher:
             batch["goal_rows"], episode_len))
         return batch
 
+    def with_sample_teacher(self, batch: dict) -> dict:
+        """The batch plus its per-item teacher and distance columns for
+        student-forced and RL training (NavRuntime.sample_rollout_arrays)."""
+        batch = dict(batch)
+        batch.update(self.runtime.sample_rollout_arrays(batch["scans"],
+                                                        batch["goal_rows"]))
+        return batch
+
     def _window_sort(self, idx: list[int]) -> list[int]:
         """Length-sort ``idx`` within windows of ``LENGTH_SORT_WINDOW``
         batches, starting at index 0 so window boundaries stay aligned to
@@ -120,18 +129,20 @@ class NavEpisodeBatcher:
         for _ in range(n):
             self._next_take()
 
-    def train_batches(self, num_batches: int, episode_len: int):
+    def train_batches(self, num_batches: int, episode_len: int | None = None):
         """``num_batches`` full-size batches of the training schedule, each
-        with its teacher-forced episode arrays of ``episode_len`` steps; the
-        schedule's state persists across calls."""
+        with its teacher-forced episode arrays of ``episode_len`` steps
+        (None: without them); the schedule's state persists across calls."""
         for _ in range(num_batches):
             batch = self._make_batch([self.instances[i] for i in self._next_take()])
-            yield self.with_teacher(batch, episode_len)
+            yield batch if episode_len is None else self.with_teacher(batch, episode_len)
 
-    def eval_batches(self):
+    def eval_batches(self, episode_len: int | None = None):
         """One sequential pass; the final batch wraps to the front (the test
-        loop dedupes repeats, agent.py:49-63)."""
+        loop dedupes repeats, agent.py:49-63); with ``episode_len``, each
+        batch carries its teacher-forced episode arrays."""
         n = len(self.instances)
         for start in range(0, n, self.batch_size):
             idx = [(start + j) % n for j in range(self.batch_size)]
-            yield self._make_batch([self.instances[i] for i in idx])
+            batch = self._make_batch([self.instances[i] for i in idx])
+            yield batch if episode_len is None else self.with_teacher(batch, episode_len)

@@ -161,6 +161,35 @@ class NavRuntime:
                              f"{goal_row} in scan {scan}")
         return int(slots[0])
 
+    def sample_rollout_arrays(self, scans: list[str], goal_rows) -> dict:
+        """Per-item teacher columns for student-forced and RL training, on
+        the host.
+
+        For a fixed goal the shortest-path teacher from any viewpoint v is one
+        column of the next-hop table: ``teacher_col[i, v]`` is the global row
+        of the next hop from scan-local v toward goal_i (-1 if unreachable),
+        ``dist_col[i, v]`` the metric distance from v to goal_i (1e6 if
+        unreachable), ``scan_offset[i]`` the first global row of item i's
+        scan.  With these on the device, a sampled rollout computes its
+        teacher and its rewards there (reference feedback='sample' training,
+        agent.py:406-425)."""
+        b = len(goal_rows)
+        v_max = max(g.num_viewpoints for g in self.graphs.values())
+        teacher_col = np.full((b, v_max), -1, np.int32)
+        dist_col = np.full((b, v_max), 1e6, np.float32)
+        offsets = np.zeros(b, np.int32)
+        for i, scan in enumerate(scans):
+            g = self.graphs[scan]
+            off = self.feat_table.scan_offsets[scan]
+            goal = int(goal_rows[i]) - off
+            col = g.next_hop[:, goal].astype(np.int32)
+            teacher_col[i, : g.num_viewpoints] = np.where(col >= 0, col + off, -1)
+            d = g.dist[:, goal].astype(np.float32)
+            dist_col[i, : g.num_viewpoints] = np.where(np.isfinite(d), d, 1e6)
+            offsets[i] = off
+        return {"teacher_col": teacher_col, "dist_col": dist_col,
+                "scan_offset": offsets}
+
     def teacher_rollout_arrays(self, scans: list[str], start_rows: np.ndarray,
                                start_views: np.ndarray, goal_rows: np.ndarray,
                                episode_len: int, ignore_id: int = -100) -> dict:

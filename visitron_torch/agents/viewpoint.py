@@ -1,8 +1,10 @@
 """Viewpoint-selection navigation agent: the NDH serving rollout and the
-teacher-forced fine-tuning train step (visitron_tpu/agents/viewpoint.py;
-reference tasks/viewpoint_select/agent.py:49-63, 358-472, 509-515).
+fine-tuning train steps, teacher-forced, student-forced and RL
+(visitron_tpu/agents/viewpoint.py; reference tasks/viewpoint_select/
+agent.py:49-63, 358-472, 509-515).
 
-``test(params, batches, feedback="argmax")`` is the serving entry point:
+``test(params, batches, feedback="argmax", generator=None)`` is the serving
+entry point, for every feedback strategy of ``decoding.select_action``:
 
   * without ``submit`` each batch is one device rollout: the dialog is
     encoded once (BERT + LSTM), then a Python loop of ``episode_len``
@@ -13,21 +15,34 @@ reference tasks/viewpoint_select/agent.py:49-63, 358-472, 509-515).
     mask candidates that lead to already visited viewpoints
     (agent.py:397-402).
 
-``params`` are ``{"encoder": {name: tensor}, "decoder": {name: tensor}}``,
-applied to the agent's modules with ``torch.func.functional_call``; make
-them with :meth:`ViewpointAgent.init_params` or carry the JAX package's
-across with ``visitron_torch.convert.convert_agent_params``.  The rollout
-runs under ``torch.inference_mode``.
+``params`` are ``{"encoder": {name: tensor}, "decoder": {name: tensor}}``
+(plus ``"critic"`` for RL), applied to the agent's modules with
+``torch.func.functional_call``; make them with
+:meth:`ViewpointAgent.init_params` or carry the JAX package's across with
+``visitron_torch.convert.convert_agent_params``.  The rollout runs under
+``torch.inference_mode``.
 
-``train_step_fn()`` is the training entry point, driven over
-``NavEpisodeBatcher.train_batches(n, episode_len=...)``: ``run(state, batch)
--> (state, loss)`` with ``state`` from :meth:`ViewpointAgent.init_state`
-(params, the optimizer state and the dropout generators).  One step trims
-the batch to its bucket, runs the encoder and ``episode_len`` teacher-forced
-decoder steps with every dropout active, takes the gradients with
-``torch.autograd.grad`` (the BERT attention and LayerNorms backward through
-their kernels K1b and K2b), clips them and applies Adam.  The student-forced
-and RL losses are not ported yet.
+The training entry points take ``state`` from :meth:`ViewpointAgent.init_state`
+(params, the optimizer state, the dropout generators ``rng`` and the
+sampling generator ``sampler``) and a batch of
+``NavEpisodeBatcher.train_batches``; each trims the batch to its bucket,
+runs the encoder and ``episode_len`` decoder steps with every dropout
+active, takes the gradients with ``torch.autograd.grad`` (the BERT
+attention and LayerNorms backward through their kernels K1b and K2b), clips
+them and applies Adam:
+
+  * ``train_step_fn()``: teacher forcing along the precomputed teacher
+    episode (batches from ``train_batches(n, episode_len=...)``);
+  * ``sample_train_step_fn(feedback="sample")``: student forcing (the
+    reference's default ``--feedback_method sample``): the agent follows its
+    own actions while each step is supervised by the shortest-path teacher
+    at the state it reached, found on the device from per-item next-hop
+    columns (batches through ``NavEpisodeBatcher.with_sample_teacher``);
+  * ``rl_train_step_fn()``: advantage actor-critic over a sampled episode
+    (``init_state(with_critic=True)``).
+
+The T-step decode loops of the sampled and RL losses read nothing back to
+the host.
 """
 
 from __future__ import annotations
@@ -43,9 +58,10 @@ from torch.func import functional_call
 from visitron_torch import geometry as geo
 from visitron_torch._device import resolve_device
 from visitron_torch.agents.batcher import trim_to_bucket
+from visitron_torch.agents import decoding
 from visitron_torch.agents.decoding import select_action
 from visitron_torch.agents.runtime import NavRuntime
-from visitron_torch.models import AttnDecoderLSTM, BertConfig, OscarEncoder
+from visitron_torch.models import AttnDecoderLSTM, BertConfig, Critic, OscarEncoder
 from visitron_torch.models.layers import DropoutRng, init_module_params
 from visitron_torch.ops.masking import NEG_INF
 from visitron_torch.train.optim import (agent_optimizer, apply_updates, tree_leaves,
@@ -63,8 +79,9 @@ def gather_step_inputs(rt: NavRuntime, cur_row, view):
     a_t = rt.view_af[view]  # (B, 4) camera angle feature
     pts = rt.point[cur_row]  # (B, K)
     cand_vis = torch.take_along_dim(pano, pts[:, :, None], dim=1)  # (B, K, D)
-    # The base heading is rounded to the feature dtype, as in the JAX package.
-    inc = torch.tensor(geo.ANGLE_INC, dtype=f_t.dtype, device=f_t.device)
+    # The base heading is rounded to the feature dtype, as in the JAX package;
+    # the increment is rounded on the host (a device constant would be a copy).
+    inc = float(torch.tensor(geo.ANGLE_INC, dtype=f_t.dtype))
     base_heading = (view % geo.HEADINGS_PER_ROW).to(f_t.dtype) * inc
     ch = rt.heading[cur_row] - base_heading[:, None]
     ce = rt.elev[cur_row]
@@ -97,6 +114,7 @@ class ViewpointAgent:
     optimizer_kind: str = "adam"
     max_grad_norm: float = 40.0
     bf16_adam_moments: bool = False  # store Adam mu/nu in bf16
+    temperature: float = 1.0  # temperature / penalty feedback scaling
     seed: int = 88
     device: object = None  # None: the card
 
@@ -115,31 +133,39 @@ class ViewpointAgent:
             feature_size=self.feature_dim + self.angle_feat_size,
             ctx_size=self.encoder_hidden_size,
             dropout_ratio=self.dropout).to(self.device).eval()
+        self.critic = Critic(hidden_size=self.rnn_dim,
+                             dropout_ratio=self.dropout).to(self.device).eval()
         self.optimizer = agent_optimizer(self.learning_rate, self.optimizer_kind,
                                          self.max_grad_norm,
                                          bf16_moments=self.bf16_adam_moments)
         self.results: dict = {}
 
     # -- parameters ----------------------------------------------------------
-    def init_params(self, seed: int | None = None) -> dict:
+    def init_params(self, seed: int | None = None, with_critic: bool = False) -> dict:
         """Fresh parameters from a CPU ``torch.Generator`` (so the same seed
         gives the same weights on every device), with the flax initialisers'
         distributions: normal(0.02) for BERT, U(+-1/sqrt(H)) for LSTMs,
-        lecun_normal for the other Dense kernels, zero biases."""
+        lecun_normal for the other Dense kernels, zero biases.
+        ``with_critic``: also the RL value head."""
         g = torch.Generator().manual_seed(self.seed if seed is None else seed)
-        return {"encoder": init_module_params(self.encoder, g, self.device),
-                "decoder": init_module_params(self.decoder, g, self.device)}
+        parts = ("encoder", "decoder") + (("critic",) if with_critic else ())
+        return {part: init_module_params(getattr(self, part), g, self.device)
+                for part in parts}
 
-    def init_state(self) -> dict:
+    def init_state(self, with_critic: bool = False) -> dict:
         """Training state: ``params`` (:meth:`init_params` at the agent's
-        seed), ``opt_state`` and ``rng``, the dropout generators (masks on
-        the agent's device, kernel seeds on the CPU, both seeded with
-        seed + 1)."""
-        params = self.init_params()
+        seed; ``with_critic`` adds the value head RL fine-tuning needs),
+        ``opt_state``, ``rng``, the dropout generators (masks on the agent's
+        device, kernel seeds on the CPU, both seeded with seed + 1), and
+        ``sampler``, the generator of the sampled actions (on the agent's
+        device, seed + 2)."""
+        params = self.init_params(with_critic=with_critic)
         rng = DropoutRng(
             masks=torch.Generator(device=self.device).manual_seed(self.seed + 1),
             seeds=torch.Generator().manual_seed(self.seed + 1))
-        return {"params": params, "opt_state": self.optimizer.init(params), "rng": rng}
+        sampler = torch.Generator(device=self.device).manual_seed(self.seed + 2)
+        return {"params": params, "opt_state": self.optimizer.init(params), "rng": rng,
+                "sampler": sampler}
 
     # -- shared pieces ---------------------------------------------------------
     @staticmethod
@@ -203,15 +229,29 @@ class ViewpointAgent:
             loss = loss + torch.sum(ce * weight) / torch.clamp(weight.sum(), min=1.0)
         return loss / t_len
 
-    def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None):
-        """(loss, grads) of :meth:`episode_loss` for a trimmed batch; grads
+    @staticmethod
+    def value_and_grads(params, loss_fn):
+        """(loss, aux, grads) of ``loss_fn(params) -> (loss, aux)``; grads
         mirror ``params`` (zeros where a parameter takes no part, as in JAX)."""
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_() for p in leaves]
-        loss = self.episode_loss(tree_unflatten(params, live), batch, rng)
+        loss, aux = loss_fn(tree_unflatten(params, live))
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return loss.detach(), tree_unflatten(params, grads)
+        return loss.detach(), aux, tree_unflatten(params, grads)
+
+    def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None):
+        """(loss, grads) of :meth:`episode_loss` for a trimmed batch."""
+        loss, _, grads = self.value_and_grads(
+            params, lambda p: (self.episode_loss(p, batch, rng), None))
+        return loss, grads
+
+    def apply_grads(self, state: dict, grads) -> dict:
+        """``state`` after the global-norm clip and one Adam step."""
+        updates, opt_state = self.optimizer.update(grads, state["opt_state"],
+                                                   state["params"])
+        return {**state, "params": apply_updates(state["params"], updates),
+                "opt_state": opt_state}
 
     def train_step_fn(self):
         """``run(state, batch) -> (state, loss)``: one teacher-forced step
@@ -220,10 +260,193 @@ class ViewpointAgent:
         def run(state, batch):
             batch = self.trim_batch(batch)
             loss, grads = self.loss_and_grads(state["params"], batch, state["rng"])
-            updates, opt_state = self.optimizer.update(grads, state["opt_state"],
-                                                       state["params"])
-            params = apply_updates(state["params"], updates)
-            return {"params": params, "opt_state": opt_state, "rng": state["rng"]}, loss
+            return self.apply_grads(state, grads), loss
+
+        return run
+
+    # -- student-forced and RL training -----------------------------------------
+    def sample_inputs(self, batch: dict) -> dict:
+        """The device tensors a sampled or RL episode reads: the start rows
+        and views, the goal rows, the teacher and distance columns and scan
+        offsets of ``NavEpisodeBatcher.with_sample_teacher``, and the item
+        index."""
+        if "teacher_col" not in batch:
+            raise KeyError("a sampled or RL episode needs the batch's teacher columns: "
+                           "pass it through NavEpisodeBatcher.with_sample_teacher")
+        out = {k: self._index(batch[k]) for k in ("start_rows", "start_views",
+                                                  "goal_rows", "teacher_col",
+                                                  "scan_offset")}
+        out["dist_col"] = torch.as_tensor(np.asarray(batch["dist_col"], np.float32)
+                                          ).to(self.device)
+        out["item"] = torch.arange(out["start_rows"].shape[0], device=self.device)
+        return out
+
+    def teacher_slot(self, d: dict, cur_row, counts):
+        """The shortest-path teacher at ``cur_row``, on the device: the slot
+        of the candidate that is the next hop toward the goal (the first
+        match; none, e.g. unreachable: slot 0, as jnp.argmax gives), the
+        stop slot ``counts`` at the goal."""
+        t_next = d["teacher_col"][d["item"], cur_row - d["scan_offset"]]
+        match = (self.runtime.nbr[cur_row] == t_next[:, None]).to(torch.int32)
+        return torch.where(cur_row == d["goal_rows"], counts, torch.argmax(match, dim=-1))
+
+    def move(self, cur_row, view, ended, a, counts):
+        """One transition on the device: items that have not ended and did
+        not choose a stop slot (a >= count) move to candidate ``a``.
+        Returns (row, view, stop)."""
+        rt = self.runtime
+        stop = a >= counts
+        moved = ~ended & ~stop
+        safe_a = torch.clamp(a, max=rt.max_candidates - 1)
+        return (torch.where(moved, rt.nbr[cur_row, safe_a], cur_row),
+                torch.where(moved, rt.point[cur_row, safe_a], view), stop)
+
+    def sampled_episode_loss(self, params, batch: dict, rng: DropoutRng | None,
+                             gen: torch.Generator | None, feedback: str = "sample"):
+        """Student-forced loss of a trimmed batch with teacher columns
+        (reference feedback='sample' training, agent.py:406-425): the
+        encoder, then :meth:`decode_sampled`.  ``rng`` None: no dropout;
+        ``gen`` draws the sampled actions."""
+        ctx, h1, c, ctx_mask = self.encode(params, batch, rng)
+        return self.decode_sampled(params, self.sample_inputs(batch), ctx, h1, c,
+                                   ctx_mask, rng, gen, feedback)
+
+    def decode_sampled(self, params, d: dict, ctx, h1, c, ctx_mask,
+                       rng: DropoutRng | None, gen: torch.Generator | None,
+                       feedback: str = "sample"):
+        """The decoder half of :meth:`sampled_episode_loss` from the
+        encoder's outputs and :meth:`sample_inputs`: ``episode_len`` steps,
+        each a masked CE against the on-device teacher averaged over the
+        items that have not ended, then the action of ``feedback`` and the
+        transition; the loss is the sum of the step losses over T."""
+        rt = self.runtime
+        cur_row, view = d["start_rows"], d["start_views"]
+        b = cur_row.shape[0]
+        slots = torch.arange(rt.max_candidates + 1, device=self.device)
+        ended = torch.zeros(b, dtype=torch.bool, device=self.device)
+        taken = torch.zeros((b, slots.numel()), dtype=torch.bool, device=self.device)
+        loss = torch.zeros((), device=self.device)
+        for _ in range(self.episode_len):
+            logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask, cur_row, view,
+                                            rng=rng)
+            logit = logit.float()
+            counts = rt.count[cur_row]
+            teacher = self.teacher_slot(d, cur_row, counts)
+            active = (~ended).float()
+            ce = F.cross_entropy(logit, teacher, reduction="none")
+            loss = loss + torch.sum(ce * active) / torch.clamp(active.sum(), min=1.0)
+            a = select_action(feedback, logit.detach(), gen, target=teacher,
+                              temperature=self.temperature, taken_mask=taken)
+            taken = taken | (slots[None, :] == a[:, None])
+            cur_row, view, stop = self.move(cur_row, view, ended, a, counts)
+            ended = ended | stop
+        return loss / self.episode_len
+
+    def sample_train_step_fn(self, feedback: str = "sample"):
+        """``run(state, batch) -> (state, loss)``: one student-forced step
+        (actions by ``feedback``: sample, argmax, topk, nucleus, temperature,
+        penalty or teacher) with every dropout active, the global-norm clip
+        and Adam."""
+        if feedback not in decoding.FEEDBACK_OPTIONS:
+            raise ValueError(f"invalid feedback option {feedback!r}")
+
+        def run(state, batch):
+            batch = self.trim_batch(batch)
+            loss, _, grads = self.value_and_grads(state["params"], lambda p: (
+                self.sampled_episode_loss(p, batch, state["rng"], state["sampler"],
+                                          feedback), None))
+            return self.apply_grads(state, grads), loss
+
+        return run
+
+    def rl_episode_loss(self, params, batch: dict, rng: DropoutRng | None,
+                        gen: torch.Generator | None, **opts):
+        """Advantage actor-critic loss of a trimmed batch with teacher
+        columns: the encoder, then :meth:`decode_rl` (``opts``: its gamma,
+        ml_weight, entropy_weight, success_margin, success_bonus).  Returns
+        (total, aux)."""
+        if "critic" not in params:
+            raise KeyError("RL needs the critic's parameters: init_state(with_critic=True)")
+        ctx, h1, c, ctx_mask = self.encode(params, batch, rng)
+        return self.decode_rl(params, self.sample_inputs(batch), ctx, h1, c, ctx_mask,
+                              rng, gen, **opts)
+
+    def decode_rl(self, params, d: dict, ctx, h1, c, ctx_mask, rng: DropoutRng | None,
+                  gen: torch.Generator | None, gamma: float = 0.9,
+                  ml_weight: float = 0.05, entropy_weight: float = 0.01,
+                  success_margin: float = 3.0, success_bonus: float = 3.0):
+        """The decoder half of :meth:`rl_episode_loss` (an extension beyond
+        the reference, whose Critic ships unwired): ``episode_len`` steps,
+        each drawing its action from the policy (``decoding.categorical``),
+        with reward = progress toward the goal d_cur - d_new, or
+        +-``success_bonus`` on the first stop (+ within ``success_margin``
+        metres of the goal), for the items that have not ended.  Discounted
+        returns at ``gamma``; total = policy loss (advantage from the critic
+        on h_tilde, detached) + 0.5 critic loss - ``entropy_weight`` entropy
+        + ``ml_weight`` teacher CE, each averaged over the active steps.
+        ``aux``: policy_loss, critic_loss, entropy, ml_loss, mean_return
+        (detached device scalars)."""
+        rt = self.runtime
+        cur_row, view = d["start_rows"], d["start_views"]
+        b = cur_row.shape[0]
+        slots = torch.arange(rt.max_candidates + 1, device=self.device)
+        ended = torch.zeros(b, dtype=torch.bool, device=self.device)
+        steps = []
+        for _ in range(self.episode_len):
+            logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask, cur_row, view,
+                                            rng=rng)
+            logit = logit.float()
+            counts = rt.count[cur_row]
+            teacher = self.teacher_slot(d, cur_row, counts)
+            logp_all = F.log_softmax(logit, dim=-1)
+            # The product is masked, not only its inputs: no NaN reaches a
+            # gradient through the masked slots.
+            plogp = (logp_all.exp() * logp_all).masked_fill(slots[None, :] > counts[:, None],
+                                                            0.0)
+            entropy = -torch.sum(plogp, dim=-1)
+            a = decoding.categorical(logit.detach(), gen)
+            logp = torch.gather(logp_all, 1, a[:, None])[:, 0]
+            value = functional_call(self.critic, params["critic"], (h1.float(),),
+                                    {"rng": rng}, strict=True)
+            ce = F.cross_entropy(logit, teacher, reduction="none")
+            active = (~ended).float()
+            new_row, view, stop = self.move(cur_row, view, ended, a, counts)
+            d_cur = d["dist_col"][d["item"], cur_row - d["scan_offset"]]
+            d_new = d["dist_col"][d["item"], new_row - d["scan_offset"]]
+            bonus = success_bonus * (2.0 * (d_cur < success_margin).float() - 1.0)
+            reward = torch.where(~ended & stop, bonus, d_cur - d_new) * active
+            steps.append((logp, value, reward, active, entropy, ce))
+            cur_row, ended = new_row, ended | stop
+        logp, value, reward, active, entropy, ce = (torch.stack(x) for x in zip(*steps))
+        # Discounted returns by a reverse loop: R_t = r_t + gamma R_{t+1}.
+        ret, returns = torch.zeros(b, device=self.device), []
+        for r in reward.flip(0):
+            ret = r + gamma * ret
+            returns.append(ret)
+        returns = torch.stack(returns[::-1])
+        n = torch.clamp(active.sum(), min=1.0)
+        adv = (returns - value).detach()
+        policy_loss = -torch.sum(logp * adv * active) / n
+        critic_loss = torch.sum((returns - value) ** 2 * active) / n
+        ent = torch.sum(entropy * active) / n
+        ml = torch.sum(ce * active) / n
+        total = policy_loss + 0.5 * critic_loss - entropy_weight * ent + ml_weight * ml
+        aux = {"policy_loss": policy_loss, "critic_loss": critic_loss, "entropy": ent,
+               "ml_loss": ml, "mean_return": torch.sum(returns * active) / n}
+        return total, {k: v.detach() for k, v in aux.items()}
+
+    def rl_train_step_fn(self, gamma: float = 0.9, ml_weight: float = 0.05,
+                         entropy_weight: float = 0.01):
+        """``run(state, batch) -> (state, (loss, aux))``: one A2C step with
+        every dropout active, the global-norm clip and Adam (``state`` from
+        ``init_state(with_critic=True)``)."""
+
+        def run(state, batch):
+            batch = self.trim_batch(batch)
+            loss, aux, grads = self.value_and_grads(state["params"], lambda p: (
+                self.rl_episode_loss(p, batch, state["rng"], state["sampler"], gamma=gamma,
+                                     ml_weight=ml_weight, entropy_weight=entropy_weight)))
+            return self.apply_grads(state, grads), (loss, aux)
 
         return run
 
@@ -242,40 +465,41 @@ class ViewpointAgent:
         return run
 
     # -- student-forced rollout --------------------------------------------------
-    def device_rollout(self, params, batch: dict, feedback: str = "argmax"):
+    def device_rollout(self, params, batch: dict, feedback: str = "argmax",
+                       generator: torch.Generator | None = None):
         """Encode + ``episode_len`` decode/act steps, all on the device, with
-        no host read-back.  Returns (rows, views, moved, logits) tensors of
-        shape (B, T) (logits (B, T, K+1)) for a trimmed batch."""
+        no host read-back; ``generator`` draws the sampled actions.  Returns
+        (rows, views, moved, logits) tensors of shape (B, T) (logits
+        (B, T, K+1)) for a trimmed batch."""
         rt = self.runtime
         ctx, h1, c, ctx_mask = self.encode(params, batch)
         b = ctx.shape[0]
         cur_row = self._index(batch["start_rows"])
         view = self._index(batch["start_views"])
+        slots = torch.arange(rt.max_candidates + 1, device=self.device)
         ended = torch.zeros(b, dtype=torch.bool, device=self.device)
+        taken = torch.zeros((b, slots.numel()), dtype=torch.bool, device=self.device)
         rows, views, moved_all, logits = [], [], [], []
         for _ in range(self.episode_len):
             logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask, cur_row, view)
-            a = select_action(feedback, logit)
-            stop = a >= rt.count[cur_row]
-            moved = ~ended & ~stop
-            safe_a = torch.clamp(a, max=rt.max_candidates - 1)
-            nxt_row = rt.nbr[cur_row, safe_a]
-            nxt_view = rt.point[cur_row, safe_a]
-            cur_row = torch.where(moved, nxt_row, cur_row)
-            view = torch.where(moved, nxt_view, view)
-            ended = ended | stop
+            a = select_action(feedback, logit, generator, temperature=self.temperature,
+                              taken_mask=taken)
+            taken = taken | (slots[None, :] == a[:, None])
+            nxt_row, view, stop = self.move(cur_row, view, ended, a, rt.count[cur_row])
+            moved_all.append(~ended & ~stop)
+            cur_row, ended = nxt_row, ended | stop
             rows.append(cur_row)
             views.append(view)
-            moved_all.append(moved)
             logits.append(logit)
         return (torch.stack(rows, 1), torch.stack(views, 1),
                 torch.stack(moved_all, 1), torch.stack(logits, 1))
 
-    def rollout_student_on_device(self, params, batch: dict, feedback: str = "argmax"):
+    def rollout_student_on_device(self, params, batch: dict, feedback: str = "argmax",
+                                  generator: torch.Generator | None = None):
         """Trajectory rollout with ONE host read-back per batch."""
         rt = self.runtime
         batch = self.trim_batch(batch)
-        rows, views, moved, _ = self.device_rollout(params, batch, feedback)
+        rows, views, moved, _ = self.device_rollout(params, batch, feedback, generator)
         rows, views, moved = rows.cpu().numpy(), views.cpu().numpy(), moved.cpu().numpy()
         traj = []
         for i in range(rows.shape[0]):
@@ -291,7 +515,7 @@ class ViewpointAgent:
         return traj
 
     def rollout_student(self, params, batch: dict, feedback: str = "argmax",
-                        submit: bool = False):
+                        generator: torch.Generator | None = None, submit: bool = False):
         """Student-forced episode with the host in the loop; returns
         trajectories [(viewpointId, heading, elevation)] starting at the start
         pose (agent.py:358-365,429-445).  ``submit`` masks candidates leading
@@ -305,6 +529,7 @@ class ViewpointAgent:
         ended = np.zeros(b, bool)
         k1 = rt.max_candidates + 1
         visited_rows = [set([int(r)]) for r in rows]
+        taken = np.zeros((b, k1), bool)
         traj = []
         for i in range(b):
             scan, vp = rt.row_to_id(int(rows[i]))
@@ -324,7 +549,9 @@ class ViewpointAgent:
             logit, h1, c = self.decode_step(
                 params, h1, c, ctx, ctx_mask, self._index(rows), self._index(views),
                 torch.as_tensor(visited_mask).to(self.device))
-            a = select_action(feedback, logit).cpu().numpy()
+            a = select_action(feedback, logit, generator, temperature=self.temperature,
+                              taken_mask=torch.as_tensor(taken).to(self.device)).cpu().numpy()
+            taken[np.arange(b), np.minimum(a, k1 - 1)] = True
             for i in range(b):
                 if ended[i]:
                     continue
@@ -343,17 +570,22 @@ class ViewpointAgent:
 
     # -- test loop (loop-until-repeat parity, agent.py:49-63) ---------------------
     def test(self, params, batches, feedback: str = "argmax",
-             submit: bool = False) -> dict:
+             generator: torch.Generator | None = None, submit: bool = False) -> dict:
+        """{inst_idx: trajectory} of the student rollouts of ``batches``
+        until an instance repeats; ``generator`` (None: one on the agent's
+        device seeded with 1) draws the actions of the sampling strategies."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(1)
         self.results = {}
         looped = False
         with torch.inference_mode():
             for batch in batches:
                 if submit:
-                    trajs = self.rollout_student(params, batch, feedback=feedback,
+                    trajs = self.rollout_student(params, batch, feedback, generator,
                                                  submit=True)
                 else:
-                    trajs = self.rollout_student_on_device(params, batch,
-                                                           feedback=feedback)
+                    trajs = self.rollout_student_on_device(params, batch, feedback,
+                                                           generator)
                 for traj in trajs:
                     if traj["inst_idx"] in self.results:
                         looped = True

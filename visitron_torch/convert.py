@@ -2,8 +2,8 @@
 the port.
 
 The JAX ``ViewpointAgent`` keeps ``{"encoder": {"params": ...}, "decoder":
-{"params": ...}}`` flax trees, the ``PretrainTrainer`` one ``PretrainModel``
-tree.  The port's modules use the same names, so a flax path maps to a
+{"params": ...}}`` flax trees (and ``"critic"`` for RL), the
+``PretrainTrainer`` one ``PretrainModel`` tree.  The port's modules use the same names, so a flax path maps to a
 state-dict key by joining it with dots, with these leaf renames:
 
   Dense ``kernel`` (in, out)      -> ``weight`` (out, in), transposed
@@ -65,13 +65,16 @@ def flax_to_state_dict(tree: dict, module: nn.Module, device=None) -> dict:
 
 
 def convert_agent_params(jax_params: dict, agent) -> dict:
-    """The JAX agent's ``{"encoder", "decoder"}`` parameters as the port
-    agent's parameters, on the agent's device."""
-    if set(jax_params) != {"encoder", "decoder"}:
-        raise KeyError(f"expected encoder and decoder trees, got {sorted(jax_params)}")
+    """The JAX agent's ``{"encoder", "decoder"}`` parameters, and its RL
+    ``"critic"`` where the tree has one, as the port agent's parameters, on
+    the agent's device."""
+    parts = set(jax_params)
+    if not {"encoder", "decoder"} <= parts <= {"encoder", "decoder", "critic"}:
+        raise KeyError(f"expected encoder, decoder and optionally critic trees, "
+                       f"got {sorted(jax_params)}")
     return {part: flax_to_state_dict(jax_params[part], getattr(agent, part),
                                      agent.device)
-            for part in ("encoder", "decoder")}
+            for part in sorted(parts)}
 
 
 def convert_pretrain_params(jax_params: dict, model: nn.Module, device=None) -> dict:

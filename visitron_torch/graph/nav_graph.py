@@ -61,6 +61,9 @@ class NavGraph:
     def _idx(self, v: int | str) -> int:
         return self.index[v] if isinstance(v, str) else int(v)
 
+    def distance(self, u: int | str, g: int | str) -> float:
+        return float(self.dist[self._idx(u), self._idx(g)])
+
     def shortest_path(self, u: int | str, g: int | str) -> list[str]:
         """Shortest path as viewpoint ids, inclusive of both endpoints."""
         ui, gi = self._idx(u), self._idx(g)
@@ -70,6 +73,11 @@ class NavGraph:
         while path[-1] != gi:
             path.append(int(self.next_hop[path[-1], gi]))
         return [self.viewpoints[i] for i in path]
+
+    def path_length(self, nodes: list[str]) -> float:
+        """Sum of shortest-path distances over consecutive node pairs
+        (parity: tasks/viewpoint_select/eval.py:82-90)."""
+        return float(sum(self.distance(a, b) for a, b in zip(nodes[:-1], nodes[1:])))
 
     @classmethod
     def from_connectivity(cls, scan: str, entries: list[dict]) -> "NavGraph":

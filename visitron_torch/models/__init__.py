@@ -5,6 +5,7 @@ from visitron_torch.models.encoder import OscarEncoder
 from visitron_torch.models.lstm import LSTM, lstm_cell_step, masked_lstm_scan
 from visitron_torch.models.pretrain import (PretrainModel, masked_accuracy,
                                             masked_cross_entropy, pretrain_loss)
+from visitron_torch.models.speaker import Critic
 
 __all__ = [
     "BertConfig",
@@ -20,4 +21,5 @@ __all__ = [
     "masked_cross_entropy",
     "masked_accuracy",
     "pretrain_loss",
+    "Critic",
 ]
