@@ -133,21 +133,49 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               each one's distribution (5 sigma a slot), argmax equal to the
               CPU's;
  21. evaluate: phase 10's argmax trajectories scored by the port's
-              Evaluator (the summary printed).
+              Evaluator (the summary printed);
+ 22. cli:     ``python -m visitron_torch.run`` through ``run.main`` on the
+              --debug world, BERT-base from ``Workspace._bert_config``, bf16,
+              scale-only overrides (iterations, epochs, logging and saving
+              steps, eval_iters, output_dir in a temporary directory):
+              ``viewpoint`` with viewpoint_train/ndh_oscar_setting.json
+              (batch 4, sample feedback, 40-step episodes) 4 iterations,
+              then ``--resume`` to 6 (checkpoints 4 and 6, the Adam count;
+              iteration 6 under ``--profile_steps 1``: its trace's device
+              busy time and idle share),
+              val of checkpoint 6 (the Evaluator summary) and
+              ``--test_only`` (the submission); checkpoint-6 saved again
+              synchronously and asynchronously (ms of the call and until
+              durable, size); ``pretrain`` with
+              pretrain/pretrain_ndh_r2r.json for one epoch (its checkpoint,
+              the per-dataset val sweeps); ablation 3's fine-tune
+              (ablations/3_only_oscar_mlm-finetune_ndh.json) from that
+              pretraining output for 2 iterations, at the pretraining
+              run's max_seq_length 512, whose position table the graft's
+              shape rule needs.  Every iteration logs, so each ends in its
+              one read-back: the host clock between boundaries gives ms per
+              iteration, the launch counts between them each iteration's
+              launches (fine-tuning K1f 12, K1b 12, K2f 25, K2b 25;
+              pretraining at S 704, which the fused gate refuses, K3f 1,
+              K3b 1, K2f 26, K2b 26 and no K4); peak memory.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
 K3b, K4f and K4b: pretrain; K5f and K5b: long-context pretrain), max error,
-and times, and for the four NDH kernels their launches in the timed runs of
-phases 11, 16 and 17 (``path_launches``); the last line is
-``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
+and times, for the four NDH kernels their launches in the timed runs of
+phases 11, 16 and 17 (``path_launches``), and for every kernel its launches
+per iteration of phase 22's viewpoint and pretrain runs
+(``cli_launches``); the last line is ``{"ok": true, "device": {...}}``.  A
+rehearsal prints neither.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1709,6 +1737,253 @@ def phase_evaluate(sl) -> None:
         fail(f"non-finite evaluation summary {summary}")
 
 
+# -- phase 22: the run CLI ---------------------------------------------------------------
+
+CLI_FINETUNE = {"K1f": 12, "K1b": 12, "K2f": 25, "K2b": 25}
+# The --debug pretraining batches carry 36 x 5 = 180 regions, bucketed to 192:
+# S 704 = 512 + 192 is no multiple of 128, so the fused gate refuses and the
+# plain attention runs (in both packages): no K4 (K1, K5) launch.
+CLI_PRETRAIN = {"K3f": 1, "K3b": 1, "K2f": 26, "K2b": 26}
+
+
+class BoundaryHooks:
+    """Host-clock stamps and kernel launch counts at each logging boundary
+    of the fine-tuning trainer (``ViewpointTrainer._log``) and of the
+    pretraining loop (``pretrain._fetch``): with logging_steps 1 every
+    iteration ends in its one read-back, so the stamps time iterations and
+    the counts' differences are each iteration's launches."""
+
+    def __init__(self):
+        from visitron_torch.train import finetune, pretrain as pretrain_mod
+
+        self.finetune, self.pretrain = finetune, pretrain_mod
+        self.orig_log = finetune.ViewpointTrainer._log
+        self.orig_fetch = pretrain_mod._fetch
+        self.marks: list = []
+
+    def __enter__(self):
+        hooks, orig_log, orig_fetch = self, self.orig_log, self.orig_fetch
+
+        def log(trainer, metrics, it, losses, aux):
+            orig_log(trainer, metrics, it, losses, aux)
+            hooks.marks.append((it, time.perf_counter(), read_counts()))
+
+        def fetch(bundle):
+            out = orig_fetch(bundle)
+            hooks.marks.append((len(hooks.marks) + 1, time.perf_counter(), read_counts()))
+            return out
+
+        self.finetune.ViewpointTrainer._log = log
+        self.pretrain._fetch = fetch
+        return self
+
+    def __exit__(self, *exc):
+        self.finetune.ViewpointTrainer._log = self.orig_log
+        self.pretrain._fetch = self.orig_fetch
+        return False
+
+    def run(self, argv, device, base=None) -> list:
+        """``run.main(argv)``: [(iteration, ms since the previous boundary,
+        launches in between)] of its boundaries; the first interval counts
+        from just before the call."""
+        from visitron_torch import run as cli
+
+        self.marks = []
+        zero_counts()
+        t0 = time.perf_counter()
+        cli.main(argv, device=device)
+        out, prev_t, prev_c = [], t0, {k: 0 for k in COUNTED}
+        for it, t, c in self.marks:
+            out.append((it, (t - prev_t) * 1e3, {k: c[k] - prev_c[k] for k in c}))
+            prev_t, prev_c = t, c
+        return out
+
+
+def check_iteration_launches(name: str, rows: list, want: dict) -> dict:
+    per = [c for _, _, c in rows]
+    want = {k: want.get(k, 0) for k in COUNTED}
+    say(f"  {name}: launches per iteration {per[-1]} (every iteration alike: "
+        f"{all(c == per[-1] for c in per)})")
+    if not REHEARSAL and any(c != want for c in per):
+        fail(f"{name}: launches per iteration {per}, expected {want}")
+    return per[-1]
+
+
+def checkpoint_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def time_saves(out: str, step: int, device) -> dict:
+    """Checkpoint ``step`` of ``out`` back on the card, then saved again
+    synchronously and asynchronously: ms of the call (async: the
+    device-to-host copy only) and of the write behind it, and the size."""
+    from visitron_torch.train.checkpoint import CheckpointManager
+
+    def to_device(tree):
+        if isinstance(tree, dict):
+            return {k: to_device(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_device(v) for v in tree]
+        return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+    src = CheckpointManager(out)
+    params = to_device(src.restore_raw(step))
+    opt = to_device(src.restore_raw(step, "opt_state"))
+    sync()
+    res = {}
+    for mode in ("sync", "async"):
+        mgr = CheckpointManager(os.path.join(out, f"saves_{mode}"), async_save=mode == "async")
+        t0 = time.perf_counter()
+        path = mgr.save(1, params, opt)
+        t1 = time.perf_counter()
+        mgr.wait_until_finished()
+        t2 = time.perf_counter()
+        res[mode] = {"call_ms": (t1 - t0) * 1e3, "durable_ms": (t2 - t0) * 1e3,
+                     "bytes": checkpoint_bytes(path)}
+        if mgr.steps() != [1]:
+            fail(f"{mode} save: no completed checkpoint")
+    for mode, r in res.items():
+        say(f"  checkpoint save ({mode}): call {r['call_ms']:.1f} ms, durable after "
+            f"{r['durable_ms']:.1f} ms, {r['bytes'] / 2 ** 30:.3f} GiB")
+    if not REHEARSAL and res["async"]["call_ms"] > 0.5 * res["sync"]["durable_ms"]:
+        fail("an asynchronous save held the caller for the write")
+    return res
+
+
+def trace_idle(path: str, what: str):
+    """Device busy time and idle share over the window of a torch.profiler
+    chrome trace (the trainer's ``--profile_steps`` output); None when the
+    session recorded no device kernel (it happens now and then)."""
+    events = [e for e in json.load(open(path))["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if REHEARSAL or not kernels:
+        say(f"  profile of {what}: {len(events)} events, no device kernel recorded")
+        return None
+    busy = sum(e["dur"] for e in kernels) / 1e3
+    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    say(f"  profile of {what}: {len(kernels)} device kernels, busy {busy:.2f} ms of "
+        f"{span:.2f} ms (idle share {1 - busy / span:.1%}; the window includes the "
+        "profiler's own cost)")
+    return 1 - busy / span
+
+
+def phase_cli(device) -> dict:
+    """22. ``python -m visitron_torch.run`` through ``run.main`` on the
+    --debug world: viewpoint (ndh_oscar_setting.json) 4 iterations, resume
+    to 6, val of checkpoint 6, --test_only; pretrain (pretrain_ndh_r2r.json)
+    one epoch; ablation 3's fine-tune from that pretraining output."""
+    from visitron_torch.train import workspace as ws_mod
+    from visitron_torch.train.checkpoint import CheckpointManager
+
+    say("cli: python -m visitron_torch.run (run.main) on the --debug world"
+        + ("" if REHEARSAL else ", BERT-base, bf16"))
+    t_phase = time.perf_counter()
+    orig_bert = ws_mod.Workspace.__dict__["_bert_config"]
+    vp_scale, pt_scale = [], []
+    if REHEARSAL:
+        # Tiny BERT and sequence lengths on the CPU; the card runs the configs'.
+        ws_mod.Workspace._bert_config = staticmethod(lambda cfg, tok: orig_bert.__func__(
+            cfg, tok).replace(num_hidden_layers=2, hidden_size=128, num_attention_heads=2, intermediate_size=256))
+        vp_scale = ["--max_seq_length", "128"]
+        pt_scale = vp_scale + ["--max_img_seq_length", "64", "--per_gpu_train_batch_size", "16"]
+    else:
+        torch.cuda.reset_peak_memory_stats()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, BoundaryHooks() as hooks:
+        vp = os.path.join(tmp, "viewpoint")
+        vp_args = ["viewpoint", "--config", "run_configs/viewpoint_train/ndh_oscar_setting.json",
+                   "--debug", "--logging_steps", "1", "--saving_steps", "4",
+                   "--output_dir", vp] + vp_scale
+        rows = hooks.run(vp_args + ["--num_iterations", "4", "--eval_iters", "4"], device)
+        ms = [r[1] for r in rows[1:]]
+        say(f"  viewpoint, 4 iterations (batch 4, trusted_path: 40-step episodes, "
+            f"sample feedback): ms per iteration {', '.join(f'{m:.1f}' for m in ms)} "
+            f"(the first, with set-up, {rows[0][1]:.1f})")
+        out["vp_ms"] = float(np.median(ms))
+        out["vp_counts"] = check_iteration_launches("viewpoint", rows, CLI_FINETUNE)
+        rows = hooks.run(vp_args + ["--num_iterations", "6", "--resume",
+                                    "--eval_iters", "6", "--profile_steps", "1"], device)
+        mgr = CheckpointManager(vp)
+        resumed = [r[0] for r in rows]
+        count = mgr.restore_raw(6, "opt_state")[1]["count"]
+        say(f"  resume: checkpoints {mgr.steps()}, the resumed run's iterations "
+            f"{resumed}, Adam count at checkpoint-6 {count}, ms of iteration 6 "
+            f"{rows[-1][1]:.1f} (under the profiler)")
+        out["vp_idle"] = trace_idle(os.path.join(vp, "profile", "trace.json"),
+                                    "iteration 6's train step (--profile_steps 1)")
+        if mgr.steps() != [4, 6] or resumed != [5, 6] or count != 6:
+            fail("resume did not continue from checkpoint-4 to 6")
+        check_iteration_launches("viewpoint, resumed", rows, CLI_FINETUNE)
+        say("  resume OK")
+        with open(os.path.join(vp, "val.csv")) as f:
+            rows = list(csv.DictReader(f))  # one row a split
+        summary = {k: float(v) for r in rows for k, v in r.items() if k != "step" and v}
+        say("  val of checkpoint-6, Evaluator: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(summary.items())))
+        if ({int(float(r["step"])) for r in rows} != {6} or len(summary) < 20
+                or not all(np.isfinite(v) for v in summary.values())):
+            fail(f"val of checkpoint-6: {rows}")
+        for split in ("val_seen", "val_unseen"):
+            if not os.path.exists(os.path.join(vp, f"preds_{split}_6.json")):
+                fail(f"no predictions of {split}")
+        hooks.run(vp_args + ["--test_only"], device)
+        sub = json.load(open(os.path.join(vp, "submission_test.json")))
+        if not sub or any(len({p[0] for p in s["trajectory"]}) != len(s["trajectory"])
+                          for s in sub):
+            fail("--test_only: no submission, or a viewpoint visited twice")
+        say(f"  --test_only: submission_test.json with {len(sub)} trajectories")
+        out["saves"] = time_saves(vp, 6, device)
+
+        pre = os.path.join(tmp, "pretrain")
+        rows = hooks.run(["pretrain", "--config", "run_configs/pretrain/pretrain_ndh_r2r.json",
+                          "--debug", "--num_epochs", "1", "--logging_steps", "1",
+                          "--output_dir", pre] + pt_scale, device)
+        ms = [r[1] for r in rows[1:]]
+        steps = CheckpointManager(pre).steps()
+        say(f"  pretrain, one epoch of {len(rows)} iterations: ms per "
+            f"iteration median {np.median(ms):.1f} (range {min(ms):.1f}-{max(ms):.1f}; "
+            f"the first, with set-up, {rows[0][1]:.1f}); checkpoints {steps}, "
+            f"{checkpoint_bytes(os.path.join(pre, f'checkpoint-{steps[-1]}')) / 2 ** 30:.3f} GiB")
+        if steps != [len(rows)]:
+            fail(f"pretrain: checkpoints {steps} after {len(rows)} iterations")
+        out["pt_ms"] = float(np.median(ms))
+        out["pt_counts"] = check_iteration_launches("pretrain", rows, CLI_PRETRAIN)
+        with open(os.path.join(pre, "train.csv")) as f:
+            swept = {k: float(v) for r in csv.DictReader(f) for k, v in r.items()
+                     if k.endswith("/loss") and v}
+        say("  pretrain val sweeps: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(swept.items())))
+        # Each of ndh / r2r x val_seen / val_unseen with a full batch (at the
+        # rehearsal's batch 16 one is too small and skipped, as in the loop).
+        if len(swept) < (3 if REHEARSAL else 4) or not all(np.isfinite(v)
+                                                             for v in swept.values()):
+            fail(f"pretrain val sweeps {swept}")
+
+        abl = os.path.join(tmp, "ablation3")
+        # The fine-tune config sets max_seq_length 768, the pretraining
+        # config 512: the graft's shape rule takes the pretraining length.
+        rows = hooks.run(["viewpoint", "--config",
+                          "run_configs/ablations/3_only_oscar_mlm-finetune_ndh.json",
+                          "--debug", "--num_iterations", "2", "--saving_steps", "2",
+                          "--logging_steps", "1", "--eval_iters", "2",
+                          "--max_seq_length", "512", "--model_name_or_path", pre,
+                          "--output_dir", abl], device)
+        check_iteration_launches("ablation 3 fine-tune", rows, CLI_FINETUNE)
+        pretrained = CheckpointManager(pre).restore_raw(steps[-1])
+        enc = CheckpointManager(abl).restore_raw(2)["encoder"]
+        moved = max(float((enc[n] - pretrained["bert." + n[len("bert.bert."):]]).abs().max())
+                    for n in enc if n.startswith("bert.bert.")
+                    and "bert." + n[len("bert.bert."):] in pretrained)
+        say(f"  ablation 3 fine-tune from the pretraining output: 2 iterations "
+            f"(ms {rows[-1][1]:.1f}), its BERT within {moved:.2e} of the pretrained "
+            f"weights after 2 Adam steps at lr 5e-5")
+        if moved > 4 * 5e-5 + 1e-6:
+            fail("the fine-tune did not start from the pretraining checkpoint")
+    ws_mod.Workspace._bert_config = orig_bert
+    out["peak"] = 0 if REHEARSAL else torch.cuda.max_memory_allocated()
+    say(f"  peak memory {out['peak'] / 2 ** 30:.2f} GiB; phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # -- phase 12: pretrain --------------------------------------------------------------
 
 def pretrain_batch(rng, sizes, vocab, img_dim, classes):
@@ -2022,14 +2297,17 @@ def phase_long_dropout_agreement(device, sizes) -> None:
 DEVICE_KEYS = ("device_ms", "library_device_ms", "step_device_ms")
 
 
-def kernels_line(times, sl, tr, pt, lc, st, rl) -> dict:
+def kernels_line(times, sl, tr, pt, lc, st, rl, cli) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
     run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
     run's, K5f/K5b at the long-context shape with the long-context run's;
     the attention kernels also with their device times (DEVICE_KEYS).  The
     four NDH kernels also carry ``path_launches``: their launches in the
-    timed runs of the teacher-forced, sampled and RL train steps."""
+    timed runs of the teacher-forced, sampled and RL train steps.  Every
+    kernel carries ``cli_launches``: its launches per iteration of phase
+    22's viewpoint and pretrain runs."""
+    code = {fn.__name__: k for k, fn in COUNTED.items()}
     ndh = {"fused_attention_packed": "K1f", "fused_add_layernorm": "K2f",
            "fused_attention_packed_bwd": "K1b", "fused_add_layernorm_bwd": "K2b"}
     runs = sl["runs"][False]
@@ -2061,7 +2339,9 @@ def kernels_line(times, sl, tr, pt, lc, st, rl) -> dict:
          **{k: t[k] for k in DEVICE_KEYS if k in t},
          **({"path_launches": {path: run["counts"][ndh[name]] for path, run in
                                (("train", tr), ("sampled_train", st), ("rl_train", rl))}}
-            if name in ndh else {})}
+            if name in ndh else {}),
+         "cli_launches": {"viewpoint": cli["vp_counts"][code[name]],
+                          "pretrain": cli["pt_counts"][code[name]]}}
         for name, (src, replaces), t, launches in entries]}
 
 
@@ -2141,6 +2421,7 @@ def main(argv=None) -> int:
     phase_student_agreement(device, sizes, sl)
     phase_sampling(device, sizes["draws"])
     phase_evaluate(sl)
+    cli = phase_cli(device)
     # Kernel times at a path's bucket, where the shape phases did not cover it.
     for key, phase, bucket, rows in (("k1", phase_k1, sl["bucket"], None),
                                      ("k2", phase_k2, None, sl["ln_rows"]),
@@ -2154,7 +2435,7 @@ def main(argv=None) -> int:
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if REHEARSAL:
         return 0
-    print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl)), flush=True)
+    print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl, cli)), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

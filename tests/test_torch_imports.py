@@ -13,7 +13,7 @@ import torch
 import visitron_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "visitron_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "visitron_tpu")
 
 
 def _port_sources():
@@ -74,7 +74,9 @@ def test_package_lists_every_ported_module():
                 "_build", "ops.crossentropy", "models.pretrain", "train.optim",
                 "train.pretrain", "data.pretrain_dataset", "pipelines",
                 "pipelines.pretrain_datagen", "models.speaker", "evaluation",
-                "evaluation.metrics"):
+                "evaluation.metrics", "config", "run", "train.logging",
+                "train.preemption", "train.checkpoint", "train.workspace",
+                "train.finetune", "models.oscar_import"):
         assert f"visitron_torch.{mod}" in names, mod
 
 

@@ -275,7 +275,7 @@ def _dataset(worlds, name, records, **kw):
                region_feat_dim=IMG_DIM, seed=3, **kw)
 
 
-def test_pretrain_examples_and_batches_match_jax(worlds):
+def test_pretrain_examples_and_batches_match_jax(worlds, tmp_path):
     jrec, trec = _records(worlds, "jax"), _records(worlds, "torch")
     assert jrec == trec and len(trec) > 8
     jds, tds = _dataset(worlds, "jax", jrec), _dataset(worlds, "torch", trec)
@@ -296,8 +296,19 @@ def test_pretrain_examples_and_batches_match_jax(worlds):
     assert (tb["token_labels"] >= 0).any()
     with pytest.raises(NotImplementedError):
         next(tds.epoch_batches(4, host_id=0, num_hosts=2))
-    with pytest.raises(NotImplementedError):
-        _dataset(worlds, "torch", trec[:2], cache_path="cache.pkl")
+    # The preprocessed-example cache: written on the first build, read on the
+    # second (the same batches as the JAX dataset's), ignored when the
+    # fingerprint differs.
+    cache = str(tmp_path / "cache.pkl")
+    for _ in range(2):
+        cached = _dataset(worlds, "torch", trec, cache_path=cache)
+        jds = _dataset(worlds, "jax", jrec)
+        for jb, tb in zip(jds.epoch_batches(4), cached.epoch_batches(4)):
+            for key in jb:
+                np.testing.assert_array_equal(tb[key], jb[key], err_msg=key)
+    assert cached.examples[0].token_ids.dtype == tds.examples[0].token_ids.dtype
+    short = _dataset(worlds, "torch", trec[:2], cache_path=cache)
+    assert len(short) == 2
 
 
 def test_train_epoch_lowers_the_loss_on_a_repeated_batch(worlds):

@@ -1,12 +1,14 @@
 """VISITRON in PyTorch for NVIDIA Hopper: a port of ``visitron_tpu``.
 
-So far the port covers the NDH argmax serving rollout
-(``agents.ViewpointAgent.test``), the NDH teacher-forced fine-tuning train
-step (``agents.ViewpointAgent.train_step_fn`` with ``train.optim``) and the
-multimodal pretraining train step (``train.PretrainTrainer``), with
+So far the port covers the NDH serving rollout
+(``agents.ViewpointAgent.test``), the NDH fine-tuning train steps,
+teacher-forced, student-forced and RL (``agents.ViewpointAgent``), the
+multimodal pretraining train step (``train.PretrainTrainer``), and the
+``python -m visitron_torch.run viewpoint|pretrain`` CLI with its trainers
+and checkpoints (``train.finetune``, ``train.pretrain``), with
 hand-written CUDA kernels for the fused attention in its packed and
-(B, H, S, D) layouts (``ops.attention``), the fused add+LayerNorm
-(``ops.layernorm``) and the fused masked softmax cross-entropy
-(``ops.crossentropy``), forward and backward.  The package imports torch, numpy and scipy, and nothing of
-JAX.
+(B, H, S, D) layouts and the flash attention (``ops.attention``), the fused
+add+LayerNorm (``ops.layernorm``) and the fused masked softmax
+cross-entropy (``ops.crossentropy``), forward and backward.  The package
+imports torch, numpy and scipy, and nothing of JAX.
 """

@@ -6,8 +6,9 @@ device.
 
 The training schedule is the JAX package's for one host: epoch-shuffled with
 ``np.random.default_rng(seed)``, length-sorted within windows of
-``LENGTH_SORT_WINDOW`` batches, the epoch tail wrapped into the next epoch,
-so the same seed gives the same batches.  Multi-host streams are not ported.
+``length_sort_window`` batches (default ``LENGTH_SORT_WINDOW``; 0 or 1
+turns it off), the epoch tail wrapped into the next epoch, so the same seed
+gives the same batches.  Multi-host streams are not ported.
 """
 
 from __future__ import annotations
@@ -38,11 +39,13 @@ def trim_to_bucket(batch: dict, max_len: int, bucket: int) -> dict:
 
 class NavEpisodeBatcher:
     def __init__(self, instances: list[NavInstance], runtime: NavRuntime,
-                 batch_size: int, path_type: str = "trusted_path", seed: int = 88):
+                 batch_size: int, path_type: str = "trusted_path", seed: int = 88,
+                 length_sort_window: int = LENGTH_SORT_WINDOW):
         self.instances = instances
         self.runtime = runtime
         self.batch_size = batch_size
         self.path_type = path_type
+        self.length_sort_window = length_sort_window
         self.rng = np.random.default_rng(seed)
         self._stream = None
 
@@ -92,11 +95,11 @@ class NavEpisodeBatcher:
         return batch
 
     def _window_sort(self, idx: list[int]) -> list[int]:
-        """Length-sort ``idx`` within windows of ``LENGTH_SORT_WINDOW``
+        """Length-sort ``idx`` within windows of ``length_sort_window``
         batches, starting at index 0 so window boundaries stay aligned to
         batch boundaries."""
-        w = LENGTH_SORT_WINDOW * self.batch_size
-        if len(idx) <= self.batch_size:
+        w = self.length_sort_window * self.batch_size
+        if self.length_sort_window <= 1 or len(idx) <= self.batch_size:
             return list(idx)
         arr = np.asarray(idx)
         lengths = np.array([self.instances[i].length for i in arr])

@@ -14,6 +14,12 @@ state-dict key by joining it with dots, with these leaf renames:
 
 The trees arrive as numpy arrays (``np.asarray`` of each leaf); nothing here
 imports JAX.  A key missing on either side, or a shape that differs, raises.
+
+:func:`convert_opt_state` carries an optax optimizer state across the same
+way, so a JAX training state can continue in the port: the chain's states
+are namedtuples (``EmptyState``, ``ScaleByAdamState(count, mu, nu)``,
+``ScaleByRmsState(nu)``, ``ScaleByScheduleState(count)``, ...), read by
+their field names; the port's are dicts with the same keys.
 """
 
 from __future__ import annotations
@@ -39,20 +45,32 @@ def _flatten(tree, prefix=()):
 def flax_to_state_dict(tree: dict, module: nn.Module, device=None) -> dict:
     """{state-dict key: tensor} for ``module`` from one flax parameter tree
     (with or without its top-level ``"params"`` collection)."""
+    return _flax_to_named(tree, dict(module.state_dict()), type(module).__name__, device)
+
+
+def _float_array(leaf) -> np.ndarray:
+    """A numpy leaf as an array torch can take: bfloat16 (ml_dtypes) through
+    float32, which holds every bf16 value exactly."""
+    arr = np.asarray(leaf)
+    return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr
+
+
+def _flax_to_named(tree: dict, expected: dict, owner: str, device=None) -> dict:
+    """{name: tensor} in ``expected``'s names, shapes and dtypes from one
+    flax tree."""
     if set(tree) == {"params"}:
         tree = tree["params"]
-    expected = {k: v for k, v in module.state_dict().items()}
     out = {}
     for path, leaf in _flatten(tree):
         if path[-1] not in _RENAMES:
             raise KeyError(f"unknown flax parameter leaf {'/'.join(path)}")
         name = ".".join(path[:-1] + (_RENAMES[path[-1]],))
-        arr = np.asarray(leaf)
+        arr = _float_array(leaf)
         if path[-1] == "kernel":
             arr = arr.T
         if name not in expected:
             raise KeyError(f"flax parameter {'/'.join(path)} has no counterpart "
-                           f"{name!r} in {type(module).__name__}")
+                           f"{name!r} in {owner}")
         if tuple(arr.shape) != tuple(expected[name].shape):
             raise ValueError(f"{name}: flax shape {arr.shape} != port shape "
                              f"{tuple(expected[name].shape)}")
@@ -82,3 +100,68 @@ def convert_pretrain_params(jax_params: dict, model: nn.Module, device=None) -> 
     collection) as the flat parameters of the port's ``PretrainModel``
     (``PretrainTrainer.model``), on ``device``."""
     return flax_to_state_dict(jax_params, model, device)
+
+
+def _tree_like(jax_tree, like, device):
+    """A flax-layout tree (a moment of the agent's or the pretraining
+    model's parameters) in the layout of the port's ``like``: a flat
+    {name: tensor} dict is one module's, a dict of dicts one per part."""
+    if all(isinstance(v, torch.Tensor) for v in like.values()):
+        return _flax_to_named(jax_tree, like, "the port's parameters", device)
+    if set(jax_tree) != set(like):
+        raise KeyError(f"optimizer state parts {sorted(jax_tree)} != port parts {sorted(like)}")
+    return {k: _tree_like(jax_tree[k], like[k], device) for k in like}
+
+
+def _states(node) -> list:
+    """The optax states of a chain in order: namedtuples (their own
+    ``_fields``) found by walking the nested tuples."""
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [node]
+    if isinstance(node, (tuple, list)):
+        return [s for child in node for s in _states(child)]
+    raise TypeError(f"unexpected optimizer state node {type(node).__name__}")
+
+
+def convert_opt_state(jax_opt_state, optimizer, params) -> list:
+    """The JAX optimizer state of a ``visitron_tpu.train.optim`` chain
+    (``agent_optimizer`` or ``adamw_with_warmup``; numpy leaves) as the port
+    ``optimizer``'s state for ``params`` (the port's parameters, which give
+    the names, devices and, with the port's initial state, the moments'
+    dtypes).
+
+    The states that hold something are matched in order, each by its field
+    names: ``count`` becomes an int, ``mu`` / ``nu`` trees of the port's
+    layout (kernels transposed as for the parameters).  States with no
+    fields (the clip, a constant learning rate, a zero weight decay) carry
+    nothing.  A state or leaf that finds no place raises."""
+    template = optimizer.init(params)
+    jax_states = [s for s in _states(jax_opt_state) if s._fields]
+    port_slots = [i for i, s in enumerate(template) if s]
+    if len(jax_states) != len(port_slots):
+        raise ValueError(
+            f"the JAX chain holds {[type(s).__name__ for s in jax_states]}, the port's "
+            f"{[sorted(template[i]) for i in port_slots]}")
+    out = list(template)
+    for state, slot in zip(jax_states, port_slots):
+        fields, want = set(state._fields), set(template[slot])
+        if fields != want:
+            raise KeyError(f"{type(state).__name__} fields {sorted(fields)} do not match "
+                           f"the port state's {sorted(want)}")
+        new = {}
+        for name in state._fields:
+            value, like = getattr(state, name), template[slot][name]
+            if name == "count":
+                new[name] = int(np.asarray(value))
+            else:
+                device = _first_leaf(like).device
+                new[name] = _tree_like(value, like, device)
+        out[slot] = new
+    return out
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    """The first tensor of a nested dict (its device is the tree's)."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree

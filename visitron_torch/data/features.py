@@ -10,14 +10,16 @@ instead of a host dict lookup + copy per step.  Host-side numpy; the runtime
 (agents/runtime.py) moves the table onto the device.
 
 `RegionFeatureStore` holds per-view region features and detector tokens for
-pretraining (visitron_tpu/data/features.py); only its in-memory form is
-ported, the pickle and LMDB readers and writers are not.
+pretraining (visitron_tpu/data/features.py): in memory, or read from and
+written to the reference pickle format.  The LMDB reader and writer are not
+ported (ROADMAP item 4).
 """
 
 from __future__ import annotations
 
 import base64
 import csv
+import pickle
 import sys
 from dataclasses import dataclass
 
@@ -96,11 +98,20 @@ class SceneFeatureTable:
             vfov=vfov,
         )
 
+    @classmethod
+    def zeros(cls, graphs: dict, feature_dim: int, **kw) -> "SceneFeatureTable":
+        """An all-zero table (a run without a scene-feature file)."""
+        feats = {}
+        for scan, g in graphs.items():
+            for vp in g.viewpoints:
+                feats[f"{scan}_{vp}"] = np.zeros((geo.NUM_VIEWS, feature_dim), np.float32)
+        return cls.pack(graphs, feats, **kw)
+
 
 class RegionFeatureStore:
-    """Region features + tokens keyed ``scan_vp_viewIdx``, held in memory
-    (the JAX package's in-memory backend; its pickle and LMDB backends are
-    not ported)."""
+    """Region features + tokens keyed ``scan_vp_viewIdx``, held in memory,
+    or read from the reference pickle (:meth:`from_pickle`; the JAX
+    package's LMDB backend is not ported)."""
 
     def __init__(self, features: dict[bytes, np.ndarray], region_tokens: dict[bytes, list[str]],
                  image_w: int = 640, image_h: int = 480, vfov: int = 60):
@@ -125,3 +136,37 @@ class RegionFeatureStore:
         if key not in self.region_tokens:
             raise TypeError(f"invalid key: {key!r}")
         return self.region_tokens[key]
+
+    # -- persistence (reference pickle format parity) ----------------------
+    @classmethod
+    def from_pickle(cls, path_prefix: str) -> "RegionFeatureStore":
+        """Load ``<prefix>.pickle`` written as a list of per-(scan,vp,view)
+        dicts (utils_data.py:448-479)."""
+        with open(path_prefix + ".pickle", "rb") as f:
+            loaded = pickle.load(f)
+        features, tokens = {}, {}
+        meta = loaded[0]
+        for item in loaded:
+            key = f"{item['scanId']}_{item['viewpointId']}_{item['featureViewIndex']}".encode()
+            features[key] = item["features"]
+            tokens[key] = item["region_tokens"]
+        return cls(features, tokens, meta["image_w"], meta["image_h"], meta["vfov"])
+
+    def to_pickle(self, path_prefix: str) -> None:
+        out = []
+        for key in self.keys:
+            scan, vp, view = key.decode().split("_")
+            out.append(
+                {
+                    "scanId": scan,
+                    "viewpointId": vp,
+                    "featureViewIndex": view,
+                    "features": self.features[key],
+                    "region_tokens": self.region_tokens[key],
+                    "image_w": self.image_w,
+                    "image_h": self.image_h,
+                    "vfov": self.vfov,
+                }
+            )
+        with open(path_prefix + ".pickle", "wb") as f:
+            pickle.dump(out, f, protocol=-1)

@@ -15,12 +15,15 @@ PretrainDataset parity (tasks/viewpoint_select/data_loader_pretrain.py:52-712):
 Produces fixed-shape numpy batches.  The dataset draws from its numpy rng in
 the JAX package's order, so one seed gives the same batches.  The region
 tokens are joined through a Python ``set``, whose order is stable only within
-one process.  The preprocessed-example cache and multi-host epochs are not
-ported (they raise ``NotImplementedError``).
+one process.  The preprocessed-example cache (``cache_path``) tokenizes once
+across epochs and runs, keyed by a fingerprint of what shapes the examples.
+Multi-host epochs are not ported (they raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,6 +32,17 @@ from visitron_torch import geometry as geo
 from visitron_torch.data.dialog import MAX_TARGET_LENGTH, build_dialog_sequence
 
 MAX_REGION_LABELS_LENGTH = 180 - 1
+
+
+class _CacheUnpickler(pickle.Unpickler):
+    """Reads the example cache, which holds dicts of numbers, strings and
+    numpy arrays: any other class (a cache written by another package, say)
+    is refused, so reading a cache never imports a module."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "numpy":
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"{module}.{name} has no place in the example cache")
 
 
 @dataclass
@@ -84,12 +98,51 @@ class PretrainDataset:
             if detector_classes is None:
                 raise ValueError("masked_token_prediction needs detector_classes")
             self.class2id = {c: i for i, c in enumerate(detector_classes)}
-        if cache_path:
-            raise NotImplementedError("the preprocessed-example cache is not ported yet")
-        self.examples = [
-            self._preprocess(rec, oscar_setting, tar_back, truncate_dialog)
-            for rec in records
-        ]
+        # Preprocessed-example cache (tokenize once across epochs AND runs;
+        # check_and_load_preprocessed_data parity, utils_data.py:241-284).
+        # The fingerprint ties the cache to everything that shapes examples.
+        self._cache_meta = {
+            "n": len(records),
+            "first": records[0]["inst_idx"] if records else "",
+            "last": records[-1]["inst_idx"] if records else "",
+            "vocab": len(tokenizer),
+            "max_seq_length": max_seq_length,
+            "oscar_setting": oscar_setting, "tar_back": tar_back,
+            "mtp": self.mtp, "regions_per_view": regions_per_view,
+            "truncate_dialog": truncate_dialog, "debug": debug,
+            "format": "visitron_torch",
+        }
+        self.examples = self._load_cache(cache_path) if cache_path else None
+        if self.examples is None:
+            self.examples = [
+                self._preprocess(rec, oscar_setting, tar_back, truncate_dialog)
+                for rec in records
+            ]
+            if cache_path:
+                self._save_cache(cache_path)
+
+    def _load_cache(self, path: str):
+        """The cached examples, or None when there is no cache, it cannot be
+        read, or its fingerprint differs (the examples are then rebuilt and
+        the cache rewritten)."""
+        if not os.path.exists(path):
+            return None
+        try:
+            with open(path, "rb") as f:
+                payload = _CacheUnpickler(f).load()
+        except (OSError, EOFError, pickle.UnpicklingError):
+            return None
+        if not isinstance(payload, dict) or payload.get("meta") != self._cache_meta:
+            return None
+        return [PretrainExample(**ex) for ex in payload["examples"]]
+
+    def _save_cache(self, path: str) -> None:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump({"meta": self._cache_meta,
+                         "examples": [vars(ex) for ex in self.examples]}, f, protocol=-1)
+        os.replace(tmp, path)
 
     # -- static preprocessing (tokenize once; parity :99-234) ---------------
     def _region_tokens(self, scan: str, viewpoint: str) -> list[str]:

@@ -18,13 +18,20 @@ than torch.optim's defaults:
     warmup from 0 gives lr 0 on the first step (optax's
     ``scale_by_schedule``); ``apply_updates``: p + u;
   * ``make_schedule``: optax's ``join_schedules`` of two
-    ``linear_schedule``s (warmup then linear decay or constant), in float32.
+    ``linear_schedule``s (warmup then linear decay or constant), in float32;
+  * ``scale_by_rms`` (``optax.rmsprop``'s defaults): decay 0.9, eps 1e-8
+    inside the square root, initial scale 0, no bias correction:
+    nu = (1 - decay) g^2 + decay nu, update g / sqrt(nu + eps);
+  * ``scale_by_adamax`` (``optax.adamax``): b1 0.9, b2 0.999, eps 1e-8;
+    mu = (1 - b1) g + b1 mu, nu = max(|g| + eps, b2 nu), update
+    (mu / (1 - b1^count)) / nu;
+  * sgd: the learning rate alone (``optax.sgd`` without momentum).
 
 A transformation is an ``(init, update)`` pair as in optax:
 ``init(params) -> state`` and ``update(grads, state, params) -> (updates,
 state)``; ``chain`` composes them.  The elementwise work uses PyTorch's
 ``_foreach`` list operations, so a step issues a few launches per operation
-instead of a few per parameter.  rmsprop, sgd and adamax are not ported.
+instead of a few per parameter.
 """
 
 from __future__ import annotations
@@ -145,6 +152,53 @@ def scale_by_adam_lowp(b1: float = 0.9, b2: float = 0.999,
     return GradientTransformation(init, update)
 
 
+def scale_by_rms(decay: float = 0.9, eps: float = 1e-8) -> GradientTransformation:
+    """optax.scale_by_rms with its defaults (initial scale 0, eps inside the
+    square root, no bias correction)."""
+
+    def init(params):
+        return {"nu": tree_unflatten(params, [torch.zeros_like(p)
+                                              for p in tree_leaves(params)])}
+
+    def update(grads, state, params=None):
+        g = tree_leaves(grads)
+        nu = torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - decay)
+        torch._foreach_add_(nu, torch._foreach_mul(tree_leaves(state["nu"]), decay))
+        den = torch._foreach_add(nu, eps)
+        torch._foreach_sqrt_(den)
+        return tree_unflatten(grads, torch._foreach_div(g, den)), {
+            "nu": tree_unflatten(grads, nu)}
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_adamax(b1: float = 0.9, b2: float = 0.999,
+                    eps: float = 1e-8) -> GradientTransformation:
+    """optax.scale_by_adamax: the first moment with its bias correction over
+    an exponentially weighted infinity norm (which needs none)."""
+
+    def init(params):
+        leaves = tree_leaves(params)
+        return {"count": 0,
+                "mu": tree_unflatten(params, [torch.zeros_like(p) for p in leaves]),
+                "nu": tree_unflatten(params, [torch.zeros_like(p) for p in leaves])}
+
+    def update(grads, state, params=None):
+        g = tree_leaves(grads)
+        mu = torch._foreach_mul(g, 1.0 - b1)
+        torch._foreach_add_(mu, torch._foreach_mul(tree_leaves(state["mu"]), b1))
+        abs_g = torch._foreach_abs(g)
+        torch._foreach_add_(abs_g, eps)
+        nu = torch._foreach_maximum(abs_g, torch._foreach_mul(tree_leaves(state["nu"]), b2))
+        count = state["count"] + 1
+        upd = torch._foreach_div(torch._foreach_div(mu, _bias_correction(b1, count)), nu)
+        return tree_unflatten(grads, upd), {"count": count,
+                                            "mu": tree_unflatten(grads, mu),
+                                            "nu": tree_unflatten(grads, nu)}
+
+    return GradientTransformation(init, update)
+
+
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def init(params):
         return {}
@@ -249,13 +303,16 @@ def apply_updates(params, updates):
 def agent_optimizer(lr: float, kind: str = "adam", max_grad_norm: float = 40.0,
                     bf16_moments: bool = False) -> GradientTransformation:
     """Fine-tuning optimizer: clip by global norm (40), then Adam at ``lr``
-    (agent.py:129,514-515)."""
-    if kind in ("rms", "sgd", "adamax"):
-        raise NotImplementedError(f"optimizer {kind!r} is not ported yet")
-    if kind != "adam":
+    (agent.py:129,514-515), or optax's rmsprop, sgd or adamax at ``lr``
+    (utils.py:430-446).  ``bf16_moments`` applies to Adam only, as in the
+    JAX package."""
+    cores = {"adam": scale_by_adam_lowp() if bf16_moments else scale_by_adam(),
+             "rms": scale_by_rms(), "adamax": scale_by_adamax()}
+    if kind == "sgd":
+        return chain(clip_by_global_norm(max_grad_norm), scale_by_learning_rate(lr))
+    if kind not in cores:
         raise ValueError(f"unknown optimizer {kind}")
-    core = scale_by_adam_lowp() if bf16_moments else scale_by_adam()
-    return chain(clip_by_global_norm(max_grad_norm), core, scale_by_learning_rate(lr))
+    return chain(clip_by_global_norm(max_grad_norm), cores[kind], scale_by_learning_rate(lr))
 
 
 def adamw_with_warmup(lr: float, warmup_steps: int, total_steps: int,

@@ -13,10 +13,20 @@ with ``torch.func.functional_call``; :meth:`PretrainTrainer.init_state`
 draws it from a seed, or ``visitron_torch.convert.convert_pretrain_params``
 carries the JAX package's across.  The JAX trainer's device mesh, ZeRO-1
 and FSDP are not ported: a mesh, ``zero1`` or ``fsdp`` raises.
+
+:func:`pretrain_loop` is ``run pretrain``'s epoch loop
+(visitron_tpu/run.py:97-323) on one device: the examples of
+``generate_pretrain_examples``, AdamW with warmup over ``num_epochs x
+steps_per_epoch``, resume (params, optimizer state, the epoch-keyed shuffle
+and the completed batches of the epoch in progress; the dynamic-masking
+stream restarts from the seed, as in the JAX package), a checkpoint each
+epoch and on SIGTERM, and the per-dataset ``val_seen`` / ``val_unseen``
+sweeps.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -25,11 +35,18 @@ import torch
 from torch.func import functional_call
 
 from visitron_torch._device import resolve_device
+from visitron_torch.config import refuse_unported_hardware
+from visitron_torch.data.features import RegionFeatureStore
+from visitron_torch.data.pretrain_dataset import PretrainDataset
 from visitron_torch.models.bert import BertConfig
 from visitron_torch.models.layers import DropoutRng, init_module_params
 from visitron_torch.models.pretrain import PretrainModel, pretrain_loss
+from visitron_torch.pipelines.pretrain_datagen import generate_pretrain_examples
+from visitron_torch.train.checkpoint import CheckpointManager
+from visitron_torch.train.logging import MetricsLogger, check_finite, setup_logger
 from visitron_torch.train.optim import (adamw_with_warmup, apply_updates, tree_leaves,
                                         tree_unflatten)
+from visitron_torch.train.preemption import PreemptionGuard
 
 BATCH_KEYS = ("input_ids", "token_type_ids", "attention_mask", "labels", "token_labels",
               "img_feats", "img_location_embeddings", "next_action")
@@ -170,3 +187,145 @@ class PretrainTrainer:
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
         return {k: v / max(n, 1) for k, v in sums.items()}
+
+
+def _region_store(cfg, ws):
+    """(task-data root, region store, detector classes) of a run: the
+    synthetic world's under --debug, else the configured files."""
+    if ws.synthetic is not None:
+        root = os.path.join(cfg.output_dir, "synthetic_task_data")
+        ws.synthetic.write_task_data(root)
+        feats, tokens = ws.synthetic.region_features()
+        store = RegionFeatureStore(feats, tokens)
+        detector_classes = sorted({t for v in tokens.values() for t in v})
+        if cfg.debug and "wall" not in detector_classes:
+            # --debug substitutes constant "wall" region labels
+            # (data_loader_pretrain.py:524-525); keep it classifiable.
+            detector_classes.append("wall")
+        return root, store, detector_classes
+    store = RegionFeatureStore.from_pickle(cfg.region_feature_prefix)
+    return (cfg.data_root, store,
+            sorted({t for v in store.region_tokens.values() for t in v}))
+
+
+def _fetch(bundle: dict) -> dict:
+    """A step's loss bundle on the host, in one read-back."""
+    names = sorted(bundle)
+    return dict(zip(names, torch.stack([bundle[k].float() for k in names]).tolist()))
+
+
+def pretrain_loop(cfg, ws, device=None) -> dict:
+    """``run pretrain`` on one device (``device=None``: the card) over the
+    workspace ``ws``; returns the final training state."""
+    refuse_unported_hardware(cfg)
+    device = resolve_device(device)
+    logger = setup_logger(output_dir=cfg.output_dir)
+    tables = {s: ws.runtime.tables[s] for s in ws.graphs}
+    root, store, detector_classes = _region_store(cfg, ws)
+
+    def make_dataset(splits, only=None):
+        """A PretrainDataset over ``splits``; ``only`` restricts it to one
+        source dataset (lowercase name) for the per-dataset validation
+        sweeps (pretrain.py:301-420)."""
+        records = []
+        for ds, flag in (("NDH", cfg.add_ndh_data), ("R2R", cfg.add_r2r_data),
+                         ("R4R", cfg.add_r4r_data), ("RxR", cfg.add_rxr_data)):
+            if not flag or (only is not None and ds.lower() != only):
+                continue
+            if ds == "RxR" and splits != ["train"]:
+                continue  # RxR ships train-guide annotations only
+            try:
+                records += generate_pretrain_examples(root, splits, ds, ws.graphs, tables)
+            except FileNotFoundError:
+                if splits == ["train"]:
+                    raise
+        if not records:
+            return None
+        # Tokenize-once cache across epochs and runs (utils_data.py:241-284);
+        # skipped in --debug, whose synthetic data is written anew each run.
+        cache = None if cfg.debug else os.path.join(
+            cfg.output_dir, f"pretrain_cache_{only or 'all'}_{'_'.join(splits)}.pkl")
+        return PretrainDataset(
+            records, ws.tokenizer, region_store=store,
+            detector_classes=detector_classes,
+            masked_token_prediction=cfg.masked_token_prediction,
+            no_action_grounding=cfg.no_action_grounding,
+            mlm_probability=cfg.mlm_probability,
+            max_seq_length=cfg.max_seq_length,
+            max_img_seq_length=cfg.max_img_seq_length,
+            region_feat_dim=cfg.img_feature_dim,
+            oscar_setting=cfg.oscar_setting, tar_back=cfg.tar_back,
+            debug=cfg.debug, seed=cfg.seed, cache_path=cache)
+
+    dataset = make_dataset(["train"])
+    batch_size = cfg.train_batch_size(1)
+    steps_per_epoch = max(len(dataset) // batch_size, 1)
+    trainer = PretrainTrainer(
+        ws.bert_config.replace(detector_classes=len(detector_classes)),
+        learning_rate=cfg.learning_rate, warmup_steps=cfg.warmup_steps,
+        total_steps=cfg.num_epochs * steps_per_epoch, schedule=cfg.scheduler,
+        weight_decay=cfg.weight_decay, adam_epsilon=cfg.adam_epsilon,
+        max_grad_norm=cfg.max_grad_norm, bf16_adam_moments=cfg.bf16_adam_moments,
+        seed=cfg.seed, device=device)
+    # The JAX trainer traces its model on a sample batch, which draws from
+    # the dataset's masking stream; drawing it here keeps the batches the
+    # same.
+    dataset.batch(range(min(batch_size, len(dataset))))
+    state = trainer.init_state()
+    ckpt = CheckpointManager(cfg.output_dir, async_save=cfg.async_checkpoints)
+    metrics = MetricsLogger(cfg.output_dir, "train")
+    step = trainer.step_fn()
+    it, start_epoch, skip = 0, 0, 0
+    if cfg.resume and ckpt.latest() is not None:
+        # Checkpoints land per epoch (and on preemption, mid-epoch); resume
+        # restores the params and the optimizer state (the schedule's
+        # position is its count), re-aligns the epoch-keyed shuffle and skips
+        # the completed part of the epoch in progress.
+        it = ckpt.latest()
+        state = {**state, **ckpt.restore(
+            it, {"params": state["params"], "opt_state": state["opt_state"]})}
+        start_epoch = min(it // steps_per_epoch, cfg.num_epochs)
+        skip = it - start_epoch * steps_per_epoch
+        logger.info("resumed from checkpoint-%d (epoch %d, skipping %d completed "
+                    "batches)", it, start_epoch, skip)
+    dataset.set_epoch(start_epoch)
+    with PreemptionGuard() as guard:
+        for epoch in range(start_epoch, cfg.num_epochs):
+            saved_it = None
+            for batch in dataset.epoch_batches(batch_size):
+                if skip:
+                    skip -= 1
+                    continue
+                state, bundle = step(state, batch)
+                it += 1
+                if it % cfg.logging_steps == 0:
+                    vals = _fetch(bundle)
+                    check_finite(vals["loss"], it, logger)
+                    logger.info("epoch %d iter %d %s", epoch, it, vals)
+                    metrics.log(vals, step=it)
+                if guard.should_stop(it):
+                    ckpt.save(it, state["params"], state["opt_state"], wait=True)
+                    saved_it = it
+                    logger.info("termination signal: saved checkpoint-%d, stopping "
+                                "(restart with --resume)", it)
+                    break
+            if guard.stop:
+                break
+            if saved_it != it:
+                ckpt.save(it, state["params"], state["opt_state"])
+            # Per-epoch, per-dataset validation, logged as {ds}_{split}/...
+            # (pretrain.py:301-579); RxR has no val split.
+            for ds_name, flag in (("ndh", cfg.add_ndh_data), ("r2r", cfg.add_r2r_data),
+                                  ("r4r", cfg.add_r4r_data)):
+                if not flag:
+                    continue
+                for split in ("val_seen", "val_unseen"):
+                    val_ds = make_dataset([split], only=ds_name)
+                    if val_ds is None or len(val_ds) < batch_size:
+                        continue
+                    vals = trainer.evaluate(state["params"], val_ds, batch_size)
+                    logger.info("epoch %d %s_%s %s", epoch, ds_name, split, vals)
+                    metrics.log(vals, step=it, prefix=f"{ds_name}_{split}/")
+    ckpt.wait_until_finished()
+    metrics.close()
+    return state
