@@ -157,16 +157,45 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               iteration, the launch counts between them each iteration's
               launches (fine-tuning K1f 12, K1b 12, K2f 25, K2b 25;
               pretraining at S 704, which the fused gate refuses, K3f 1,
-              K3b 1, K2f 26, K2b 26 and no K4); peak memory.
+              K3b 1, K2f 26, K2b 26 and no K4); peak memory;
+ 23. turn_based: ``run turn_based`` with
+              turn_based_train/ndh_oscar_setting.json (batch 4, player path:
+              40-step episodes, teacher forcing) 4 iterations, --resume to 6
+              (checkpoints 4 and 6, the Adam count), val of checkpoint 6;
+              ms per iteration beside phase 22's viewpoint iteration;
+              launches per iteration K1f 12, K1b 12, K2f 25, K2b 25; one
+              argmax rollout batch from checkpoint 6 (K1f 12, K2f 25; the
+              (B,) action read-backs and the synchronising calls a step,
+              under torch.cuda.set_sync_debug_mode("warn")); before the CLI
+              phases, one fp32 turn-based step on a 2-item batch, card vs
+              CPU, as phase 11's agreement;
+ 24. classifier: ``run classifier`` with classifier/classifier.json (batch
+              1, 40-step episodes, only the question head trains) from phase
+              22's viewpoint output, at its max_seq_length 768 (the
+              classifier configs keep 512, whose position table both
+              packages refuse), 4 iterations: launches per iteration
+              K1f 12, K2f 25 and no backward kernel, ms per iteration, the
+              encoder and nav decoder bit for bit as in the viewpoint
+              checkpoint, finite val metrics; then classifier_val.json on the
+              same output gives the same metrics;
+ 25. oscar:   an HF-layout pytorch_model.bin at BERT-base shapes from a
+              seeded generator, then ``run viewpoint --debug
+              --model_name_or_path <dir>`` for 2 iterations: the encoder's
+              BERT equals the file's converted tensors before the first step
+              and is within 2 Adam steps of them after; launches as phase 22;
+ 26. datagen: ``run datagen --debug --add_r2r_data``: the NDH and R2R
+              files of each split equal generate_pretrain_examples.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
 K3b, K4f and K4b: pretrain; K5f and K5b: long-context pretrain), max error,
 and times, for the four NDH kernels their launches in the timed runs of
 phases 11, 16 and 17 (``path_launches``), and for every kernel its launches
-per iteration of phase 22's viewpoint and pretrain runs
-(``cli_launches``); the last line is ``{"ok": true, "device": {...}}``.  A
-rehearsal prints neither.
+per iteration of phase 22's viewpoint and pretrain runs and of phases
+23-25's runs (``cli_launches``), and the count of device times that no
+torch.profiler session gave (``device_times_unmeasured``; such a time is
+null, and the run fails where K1f, K2f, K1b or K2b has none); the last line
+is ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
 """
 
 from __future__ import annotations
@@ -182,9 +211,16 @@ import tempfile
 import time
 
 import numpy as np
-import torch
-import torch.nn.functional as F
-from torch.func import functional_call
+
+# Kineto tears CUPTI down after each torch.profiler session and sets it up
+# again at the next; now and then a session after such a teardown records no
+# device kernel (seen on the H100, several sessions in a row).  Kept up, CUPTI
+# records every session.  Set before torch loads Kineto.
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+from torch.func import functional_call  # noqa: E402
 
 from visitron_torch import _build
 from visitron_torch import geometry as geo
@@ -316,18 +352,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, calls: int = 5) -> dict:
+# Tags of the device times that no profiling session gave.
+UNMEASURED: list = []
+CUPTI_WARM = False
+
+
+def device_ms(fn, calls: int = 5) -> dict | None:
     """Device time of one call, by kernel name: the durations of the kernels
     ``fn`` launches under torch.profiler (CUPTI), averaged over ``calls``
     calls.  Unlike time_ms it leaves out the host: back-to-back calls whose
-    host work outlasts their kernels time the host's issue rate instead."""
+    host work outlasts their kernels time the host's issue rate instead.
+    None when no session recorded a device kernel."""
+    global CUPTI_WARM
     from torch.profiler import ProfilerActivity, profile
 
+    if not CUPTI_WARM:
+        # The first session sets CUPTI up; its records are not read.
+        with profile(activities=[ProfilerActivity.CUDA]):
+            fn()
+            torch.cuda.synchronize()
+        CUPTI_WARM = True
     fn()
     torch.cuda.synchronize()
-    # Now and then a profiling session records no device kernel at all; such
-    # a session is taken again rather than read as a time of 0.
-    for _ in range(3):
+    # A session that records no device kernel is taken again rather than
+    # read as a time of 0; a time that no session gives is not measured.
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -340,7 +389,17 @@ def device_ms(fn, calls: int = 5) -> dict:
         if by_name:
             return by_name
         say("  (torch.profiler recorded no device kernel; profiling again)")
-    fail("torch.profiler recorded no device kernel in three sessions")
+        time.sleep(1.0 + attempt)
+    say("  (torch.profiler recorded no device kernel in three sessions: not measured)")
+    return None
+
+
+def not_measured(tag: str, *keys: str) -> dict:
+    """``keys`` as None (JSON null) for a device time no session gave,
+    counted in UNMEASURED."""
+    say(f"  device time {tag}: not measured")
+    UNMEASURED.append(tag)
+    return dict.fromkeys(keys)
 
 
 # The attention backward's kernels, by a part of their names.
@@ -357,13 +416,14 @@ def say_bwd_device_ms(tag: str, kernel, library, parts=BWD_KERNELS,
     rehearsal."""
     if REHEARSAL:
         return {}
-    split = device_ms(kernel)
+    split, lib = device_ms(kernel), device_ms(library)
+    if split is None or lib is None:
+        return not_measured(tag, "device_ms", "library_device_ms")
     by_part = {short: sum(ms for name, ms in split.items() if key in name)
                for short, key in parts}
     by_part["other"] = sum(ms for name, ms in split.items()
                            if not any(key in name for _, key in parts))
-    total = sum(split.values())
-    lib = sum(device_ms(library).values())
+    total, lib = sum(split.values()), sum(lib.values())
     say(f"  device time {tag} (torch.profiler, mean of 5 calls): kernel {total:.4f} ms ("
         + ", ".join(f"{k} {v:.4f}" for k, v in by_part.items() if v) + f"), {library_name} "
         f"{lib:.4f} ms, kernel / yardstick {total / lib:.2f}")
@@ -378,15 +438,23 @@ def say_fwd_device_ms(tag: str, kernel, library, step=None,
     the lse); return them.  Nothing in a rehearsal."""
     if REHEARSAL:
         return {}
-    total = sum(device_ms(kernel).values())
-    lib = sum(device_ms(library).values())
+    total, lib = device_ms(kernel), device_ms(library)
+    if total is None or lib is None:
+        return not_measured(tag, "device_ms", "library_device_ms",
+                            *(("step_device_ms",) if step is not None else ()))
+    total, lib = sum(total.values()), sum(lib.values())
     say(f"  device time {tag} (torch.profiler, mean of 5 calls): kernel {total:.4f} ms, "
         f"{library_name} {lib:.4f} ms, kernel / yardstick {total / lib:.2f}")
     out = {"device_ms": total, "library_device_ms": lib}
     if step is not None:
-        out["step_device_ms"] = sum(device_ms(step).values())
-        say(f"  device time of the train step's call (rate 0.1, lse): kernel "
-            f"{out['step_device_ms']:.4f} ms, train / eval {out['step_device_ms'] / total:.2f}")
+        step_ms = device_ms(step)
+        if step_ms is None:
+            out.update(not_measured(f"{tag}, train step's call", "step_device_ms"))
+        else:
+            out["step_device_ms"] = sum(step_ms.values())
+            say(f"  device time of the train step's call (rate 0.1, lse): kernel "
+                f"{out['step_device_ms']:.4f} ms, train / eval "
+                f"{out['step_device_ms'] / total:.2f}")
     return out
 
 
@@ -1527,22 +1595,31 @@ def phase_train_agreement(device, sizes, sl) -> None:
         state = agent.init_state()
         loss, grads = agent.loss_and_grads(state["params"], agent.trim_batch(batch), None)
         new, _ = agent.train_step_fn()(state, batch)
-        out[dev] = (loss, torch.cat([g.flatten() for g in tree_leaves(grads)]),
-                    torch.cat([(p1 - p0).flatten() for p1, p0 in
-                               zip(tree_leaves(new["params"]), tree_leaves(state["params"]))]))
-    n = len(tree_leaves(new["params"]))
+        out[dev] = step_record(loss, grads, state, new)
+    check_step_agreement(device, out, agents["cpu"].learning_rate)
+
+
+def step_record(loss, grads, state, new) -> tuple:
+    """(loss, every gradient flat, every parameter's update flat) of one step."""
+    return (loss, torch.cat([g.flatten() for g in tree_leaves(grads)]),
+            torch.cat([(p1 - p0).flatten() for p1, p0 in
+                       zip(tree_leaves(new["params"]), tree_leaves(state["params"]))]))
+
+
+def check_step_agreement(device, out: dict, lr: float) -> None:
+    """The card's step (``out[device]``, a :func:`step_record`) against the
+    CPU's: loss and gradients within AGREE_TOL, the Adam update as below."""
     check_close("loss", out[device][0].cpu(), out["cpu"][0], AGREE_TOL)
-    check_close(f"gradients ({n} tensors)", out[device][1].cpu(), out["cpu"][1], AGREE_TOL)
+    check_close("gradients", out[device][1].cpu(), out["cpu"][1], AGREE_TOL)
     # Adam's first step moves a parameter by lr * g / (|g| + eps): +-lr
     # wherever |g| is well above eps and above the gradients' disagreement,
     # so there the two updates agree to lr * 1e-2 and both move by > lr / 2.
     # Elsewhere each update is bounded by lr, their difference by 2 lr.
-    lr = agents["cpu"].learning_rate
     step, want, g = out[device][2].cpu(), out["cpu"][2], out["cpu"][1]
     big = g.abs() > 10 * AGREE_TOL[0]
     diff = (step - want).abs()
     err = float(diff[big].max()) / lr
-    say(f"  update of the Adam step ({n} tensors, {int(big.sum())} of {g.numel()} "
+    say(f"  update of the Adam step ({int(big.sum())} of {g.numel()} "
         f"entries with |g| > {10 * AGREE_TOL[0]:g}): max|card - cpu| {err:.3g} lr "
         f"(tolerance 1e-2 lr there, 2 lr elsewhere); min moved "
         f"{float(step[big].abs().min()) / lr:.3g} lr (must exceed 0.5 lr)")
@@ -1748,24 +1825,25 @@ CLI_PRETRAIN = {"K3f": 1, "K3b": 1, "K2f": 26, "K2b": 26}
 
 class BoundaryHooks:
     """Host-clock stamps and kernel launch counts at each logging boundary
-    of the fine-tuning trainer (``ViewpointTrainer._log``) and of the
-    pretraining loop (``pretrain._fetch``): with logging_steps 1 every
-    iteration ends in its one read-back, so the stamps time iterations and
-    the counts' differences are each iteration's launches."""
+    of the fine-tuning, turn-based and classifier trainers (their shared
+    loop's ``_log``) and of the pretraining loop (``pretrain._fetch``): with
+    logging_steps 1 every iteration ends in its one read-back, so the stamps
+    time iterations and the counts' differences are each iteration's
+    launches."""
 
     def __init__(self):
-        from visitron_torch.train import finetune, pretrain as pretrain_mod
+        from visitron_torch.train import loop, pretrain as pretrain_mod
 
-        self.finetune, self.pretrain = finetune, pretrain_mod
-        self.orig_log = finetune.ViewpointTrainer._log
+        self.loop, self.pretrain = loop, pretrain_mod
+        self.orig_log = loop._log
         self.orig_fetch = pretrain_mod._fetch
         self.marks: list = []
 
     def __enter__(self):
         hooks, orig_log, orig_fetch = self, self.orig_log, self.orig_fetch
 
-        def log(trainer, metrics, it, losses, aux):
-            orig_log(trainer, metrics, it, losses, aux)
+        def log(logger, metrics, it, *rest):
+            orig_log(logger, metrics, it, *rest)
             hooks.marks.append((it, time.perf_counter(), read_counts()))
 
         def fetch(bundle):
@@ -1773,12 +1851,12 @@ class BoundaryHooks:
             hooks.marks.append((len(hooks.marks) + 1, time.perf_counter(), read_counts()))
             return out
 
-        self.finetune.ViewpointTrainer._log = log
+        self.loop._log = log
         self.pretrain._fetch = fetch
         return self
 
     def __exit__(self, *exc):
-        self.finetune.ViewpointTrainer._log = self.orig_log
+        self.loop._log = self.orig_log
         self.pretrain._fetch = self.orig_fetch
         return False
 
@@ -1867,29 +1945,47 @@ def trace_idle(path: str, what: str):
     return 1 - busy / span
 
 
-def phase_cli(device) -> dict:
+@contextlib.contextmanager
+def cli_bert():
+    """The CLI phases' BERT: the workspace's BERT-base on the card; in a
+    rehearsal a tiny one (2 layers, hidden 128) on the CPU."""
+    from visitron_torch.train import workspace as ws_mod
+
+    orig_bert = ws_mod.Workspace.__dict__["_bert_config"]
+    if REHEARSAL:
+        ws_mod.Workspace._bert_config = staticmethod(lambda cfg, tok: orig_bert.__func__(
+            cfg, tok).replace(num_hidden_layers=2, hidden_size=128, num_attention_heads=2,
+                              intermediate_size=256))
+    try:
+        yield
+    finally:
+        ws_mod.Workspace._bert_config = orig_bert
+
+
+# Scale-only overrides of the CLI phases in a rehearsal (the card runs the
+# configs' lengths).
+REHEARSAL_SEQ = ["--max_seq_length", "128"]
+
+
+def phase_cli(device, tmp: str) -> dict:
     """22. ``python -m visitron_torch.run`` through ``run.main`` on the
     --debug world: viewpoint (ndh_oscar_setting.json) 4 iterations, resume
     to 6, val of checkpoint 6, --test_only; pretrain (pretrain_ndh_r2r.json)
-    one epoch; ablation 3's fine-tune from that pretraining output."""
-    from visitron_torch.train import workspace as ws_mod
+    one epoch; ablation 3's fine-tune from that pretraining output.  The
+    outputs stay under ``tmp`` (the viewpoint run's in ``tmp/viewpoint``)."""
     from visitron_torch.train.checkpoint import CheckpointManager
 
     say("cli: python -m visitron_torch.run (run.main) on the --debug world"
         + ("" if REHEARSAL else ", BERT-base, bf16"))
     t_phase = time.perf_counter()
-    orig_bert = ws_mod.Workspace.__dict__["_bert_config"]
     vp_scale, pt_scale = [], []
     if REHEARSAL:
-        # Tiny BERT and sequence lengths on the CPU; the card runs the configs'.
-        ws_mod.Workspace._bert_config = staticmethod(lambda cfg, tok: orig_bert.__func__(
-            cfg, tok).replace(num_hidden_layers=2, hidden_size=128, num_attention_heads=2, intermediate_size=256))
-        vp_scale = ["--max_seq_length", "128"]
+        vp_scale = REHEARSAL_SEQ
         pt_scale = vp_scale + ["--max_img_seq_length", "64", "--per_gpu_train_batch_size", "16"]
     else:
         torch.cuda.reset_peak_memory_stats()
     out = {}
-    with tempfile.TemporaryDirectory() as tmp, BoundaryHooks() as hooks:
+    with BoundaryHooks() as hooks:
         vp = os.path.join(tmp, "viewpoint")
         vp_args = ["viewpoint", "--config", "run_configs/viewpoint_train/ndh_oscar_setting.json",
                    "--debug", "--logging_steps", "1", "--saving_steps", "4",
@@ -1978,10 +2074,353 @@ def phase_cli(device) -> dict:
             f"weights after 2 Adam steps at lr 5e-5")
         if moved > 4 * 5e-5 + 1e-6:
             fail("the fine-tune did not start from the pretraining checkpoint")
-    ws_mod.Workspace._bert_config = orig_bert
     out["peak"] = 0 if REHEARSAL else torch.cuda.max_memory_allocated()
     say(f"  peak memory {out['peak'] / 2 ** 30:.2f} GiB; phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# -- phases 23-26: turn-based, classifier, the Oscar import, datagen ---------------------
+
+# Launches per iteration: the turn-based step runs the viewpoint step's
+# encoder forward and backward; the classifier step one frozen (E*B)-row
+# encoder call without gradients; a turn-based argmax rollout batch one
+# encoder forward.
+CLI_TURN_BASED = CLI_FINETUNE
+TURN_ROLLOUT = {"K1f": 12, "K2f": 25}
+CLI_CLASSIFIER = {"K1f": 12, "K2f": 25}
+TURN_CONFIG = "run_configs/turn_based_train/ndh_oscar_setting.json"
+
+
+def check_val_csv(path: str, step: int, n_values: int) -> dict:
+    """{metric: value} of the val.csv rows of checkpoint ``step``; fails
+    unless there are ``n_values`` of them, all finite."""
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    values = {k: float(v) for r in rows for k, v in r.items() if k != "step" and v}
+    if ({int(float(r["step"])) for r in rows} != {step} or len(values) != n_values
+            or not all(np.isfinite(v) for v in values.values())):
+        fail(f"val of checkpoint-{step}: {rows}")
+    return values
+
+
+def phase_turn_based(device, tmp: str, cli: dict) -> dict:
+    """23. ``run turn_based`` with turn_based_train/ndh_oscar_setting.json on
+    the --debug world (batch 4, player path: 40-step episodes): 4
+    iterations, --resume to 6, val of checkpoints 4 and 6; ms and launches
+    per iteration; one argmax rollout batch of the val split from
+    checkpoint 6: its launches, read-backs and synchronising calls a step."""
+    from visitron_torch.train.checkpoint import CheckpointManager
+
+    say("turn_based: python -m visitron_torch.run turn_based on the --debug world"
+        + ("" if REHEARSAL else ", BERT-base, bf16"))
+    t_phase = time.perf_counter()
+    out = {}
+    tb = os.path.join(tmp, "turn_based")
+    args = ["turn_based", "--config", TURN_CONFIG, "--debug", "--logging_steps", "1",
+            "--saving_steps", "4", "--output_dir", tb] + (REHEARSAL_SEQ if REHEARSAL else [])
+    with BoundaryHooks() as hooks:
+        rows = hooks.run(args + ["--num_iterations", "4", "--eval_iters", "4"], device)
+        ms = [r[1] for r in rows[1:]]
+        out["ms"] = float(np.median(ms))
+        say(f"  4 iterations (batch 4, 40-step episodes, teacher forcing): ms per "
+            f"iteration {', '.join(f'{m:.1f}' for m in ms)} (the first, with set-up, "
+            f"{rows[0][1]:.1f}); median {out['ms']:.1f}, {out['ms'] / cli['vp_ms']:.2f}x "
+            f"phase 22's viewpoint iteration ({cli['vp_ms']:.1f})")
+        out["counts"] = check_iteration_launches("turn_based", rows, CLI_TURN_BASED)
+        rows = hooks.run(args + ["--num_iterations", "6", "--resume", "--eval_iters", "6"],
+                         device)
+    mgr = CheckpointManager(tb)
+    resumed = [r[0] for r in rows]
+    count = mgr.restore_raw(6, "opt_state")[1]["count"]
+    say(f"  resume: checkpoints {mgr.steps()}, the resumed run's iterations {resumed}, "
+        f"Adam count at checkpoint-6 {count}")
+    if mgr.steps() != [4, 6] or resumed != [5, 6] or count != 6:
+        fail("turn_based: resume did not continue from checkpoint-4 to 6")
+    check_iteration_launches("turn_based, resumed", rows, CLI_TURN_BASED)
+    summary = check_val_csv(os.path.join(tb, "val.csv"), 6, 22)
+    say("  val of checkpoint-6: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(summary.items())))
+    if not os.path.exists(os.path.join(tb, "preds_turn_val_seen_6.json")):
+        fail("turn_based: no predictions of val_seen")
+    out["rollout"] = turn_rollout(device, tb)
+    say(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def turn_rollout(device, tb: str) -> dict:
+    """One argmax rollout batch (4 val_seen episodes, from checkpoint 6 of
+    ``tb``): launches, the (B,) action read-backs the host needs a step (the
+    agent's count) and every synchronising call a step (sync debug mode)."""
+    import dataclasses
+    import warnings
+
+    from visitron_torch.config import RunConfig
+    from visitron_torch.train.turn_based import TurnBasedTrainer
+    from visitron_torch.train.workspace import Workspace
+
+    cfg = dataclasses.replace(RunConfig.from_json(TURN_CONFIG), debug=True, output_dir=tb,
+                              **({"max_seq_length": 128} if REHEARSAL else {}))
+    trainer = TurnBasedTrainer(cfg, Workspace.synthetic_workspace(cfg, device=device),
+                               device=device)
+    agent = trainer.agent
+    params = trainer.ckpt.restore(6, {"params": agent.init_params()})["params"]
+    batch = next(iter(trainer._batcher(trainer._instances(["val_seen"]), 4).eval_batches()))
+    steps = 0
+    orig_step = agent.decode_step
+
+    def counted_step(*args, **kw):
+        nonlocal steps
+        steps += 1
+        return orig_step(*args, **kw)
+
+    agent.decode_step = counted_step
+    with torch.inference_mode():
+        agent.rollout_student(params, batch)  # warm-up
+        sync()
+        zero_counts()
+        reads, steps = agent.readbacks, 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if not REHEARSAL:
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                trajs = agent.rollout_student(params, batch)
+            finally:
+                if not REHEARSAL:
+                    torch.cuda.set_sync_debug_mode(0)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    readbacks = (agent.readbacks - reads) / steps
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    say(f"  argmax rollout of 4 episodes, {steps} decoder steps: {ms:.1f} ms (under the "
+        f"sync debug mode), launches {counts}; (B,) action read-backs per step "
+        f"{readbacks:.2f}; synchronising calls per step "
+        + ("not measured on the CPU" if REHEARSAL else f"{syncs / steps:.2f}")
+        + f"; path lengths {[len(t['path']) for t in trajs]}")
+    want = {k: TURN_ROLLOUT.get(k, 0) for k in COUNTED}
+    if not REHEARSAL and counts != want:
+        fail(f"turn-based rollout: launches {counts}, expected {want}")
+    return {"counts": counts, "steps": steps, "readbacks_per_step": readbacks,
+            "syncs_per_step": None if REHEARSAL else syncs / steps, "ms": ms}
+
+
+def phase_turn_based_agreement(device, sizes, sl) -> None:
+    """One fp32 turn-based train step with every dropout at 0 on a 2-item
+    batch (20-step episodes): the card (kernels) against the CPU."""
+    from visitron_torch.agents.turn_based import TurnBasedAgent
+
+    say("turn_based agreement: one fp32 step, dropouts 0, card vs CPU on a 2-item batch")
+    agents = {}
+    for dev in (device, "cpu"):
+        rt = NavRuntime.build(sl["world"].graphs, sl["table"], device_dtype=torch.float32,
+                              device=dev)
+        cfg = BertConfig(vocab_size=len(sl["tok"]), max_position_embeddings=sizes["seq"],
+                         type_vocab_size=4, dtype=torch.float32, hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0, **sizes["bert"])
+        agents[dev] = TurnBasedAgent(cfg, rt, feature_dim=sizes["feat"], rnn_dim=sizes["rnn"],
+                                     encoder_hidden_size=sizes["rnn"], dropout=0.0, device=dev)
+    batcher = NavEpisodeBatcher(sl["train_instances"][:2], agents["cpu"].runtime,
+                                batch_size=2, path_type="trusted_path")
+    batch = batcher.with_turn_teacher(next(batcher.train_batches(1)), 20)
+    out = {}
+    for dev, agent in agents.items():
+        state = agent.init_state()
+        loss, _, grads = agent.value_and_grads(state["params"], lambda p: (
+            agent.episode_loss(p, agent.trim_batch(batch)), None))
+        new, _ = agent.train_step_fn()(state, batch)
+        out[dev] = step_record(loss, grads, state, new)
+    check_step_agreement(device, out, agents["cpu"].learning_rate)
+
+
+def phase_classifier(device, tmp: str, cli: dict) -> dict:
+    """24. ``run classifier`` with classifier/classifier.json (batch 1,
+    40-step episodes, only the question head trains) from phase 22's
+    viewpoint output: 4 iterations, launches and ms per iteration, the
+    encoder and the nav decoder bit for bit as in the viewpoint checkpoint;
+    then classifier/classifier_val.json (0 iterations) on the same output:
+    the metrics of checkpoint 4 again."""
+    from visitron_torch.train.checkpoint import CheckpointManager
+
+    say("classifier: python -m visitron_torch.run classifier from phase 22's viewpoint run"
+        + ("" if REHEARSAL else ", BERT-base, bf16"))
+    t_phase = time.perf_counter()
+    from visitron_torch.config import RunConfig
+
+    vp, cl = os.path.join(tmp, "viewpoint"), os.path.join(tmp, "classifier")
+    # The classifier configs keep max_seq_length 512, the viewpoint config
+    # sets 768: the encoder's position table must have the viewpoint run's
+    # rows (both packages refuse another shape).
+    seq = REHEARSAL_SEQ if REHEARSAL else ["--max_seq_length", str(RunConfig.from_json(
+        "run_configs/viewpoint_train/ndh_oscar_setting.json").max_seq_length)]
+    out = {}
+    with BoundaryHooks() as hooks:
+        rows = hooks.run(["classifier", "--config", "run_configs/classifier/classifier.json",
+                          "--debug", "--num_iterations", "4", "--saving_steps", "4",
+                          "--logging_steps", "1", "--model_name_or_path", vp,
+                          "--output_dir", cl] + seq, device)
+        ms = [r[1] for r in rows[1:]]
+        out["ms"] = float(np.median(ms))
+        say(f"  4 iterations (batch 1, 40-step episodes): ms per iteration "
+            f"{', '.join(f'{m:.1f}' for m in ms)} (the first, with set-up, {rows[0][1]:.1f}); "
+            f"median {out['ms']:.1f}, {out['ms'] / cli['vp_ms']:.2f}x phase 22's viewpoint "
+            f"iteration")
+        out["counts"] = check_iteration_launches("classifier", rows, CLI_CLASSIFIER)
+        first = check_val_csv(os.path.join(cl, "val.csv"), 4, 14)
+        hooks.run(["classifier", "--config", "run_configs/classifier/classifier_val.json",
+                   "--debug", "--model_name_or_path", vp, "--output_dir", cl] + seq, device)
+    again = check_val_csv(os.path.join(cl, "val.csv"), 4, 14)
+    say("  val of checkpoint-4: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(first.items())))
+    if again != first:
+        fail(f"classifier_val.json: {again} != the training run's val {first}")
+    nav = CheckpointManager(vp).restore_raw(CheckpointManager(vp).latest())
+    got = CheckpointManager(cl).restore_raw(4)
+    frozen = [(part, n) for part in ("encoder", "decoder") for n in got[part]
+              if "question_linear" not in n]
+    changed = [f"{p}/{n}" for p, n in frozen if not torch.equal(got[p][n], nav[p][n])]
+    head = [n for n in got["decoder"] if "question_linear" in n]
+    say(f"  after 4 steps: {len(frozen) - len(changed)} of {len(frozen)} encoder and nav "
+        f"decoder tensors bit for bit as in the viewpoint checkpoint; question head "
+        f"{head}, finite {all(bool(torch.isfinite(got['decoder'][n]).all()) for n in head)}")
+    if changed or not head:
+        fail(f"classifier: frozen tensors changed: {changed[:5]}")
+    say(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def hf_bert_state(cfg: BertConfig, seed: int) -> dict:
+    """A BERT checkpoint in the HF / pytorch_transformers layout (``bert.``
+    names, per-layer query / key / value) at ``cfg``'s widths and the
+    published BERT-base tables (30522 words, 512 positions, 2 types), drawn
+    from a seeded generator: normal(0, 0.02) weights, LayerNorm scales near
+    1, small biases."""
+    g = torch.Generator().manual_seed(seed)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+
+    def w(*shape, scale=0.02):
+        return torch.randn(shape, generator=g) * scale
+
+    def ln(prefix):
+        return {prefix + ".weight": 1.0 + w(h), prefix + ".bias": w(h)}
+
+    state = {"embeddings.word_embeddings.weight": w(30522, h),
+             "embeddings.position_embeddings.weight": w(512, h),
+             "embeddings.token_type_embeddings.weight": w(2, h),
+             **ln("embeddings.LayerNorm"),
+             "pooler.dense.weight": w(h, h), "pooler.dense.bias": w(h)}
+    for i in range(cfg.num_hidden_layers):
+        pre = f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            state[pre + f"attention.self.{name}.weight"] = w(h, h)
+            state[pre + f"attention.self.{name}.bias"] = w(h)
+        state.update({pre + "attention.output.dense.weight": w(h, h),
+                      pre + "attention.output.dense.bias": w(h),
+                      **ln(pre + "attention.output.LayerNorm"),
+                      pre + "intermediate.dense.weight": w(inter, h),
+                      pre + "intermediate.dense.bias": w(inter),
+                      pre + "output.dense.weight": w(h, inter),
+                      pre + "output.dense.bias": w(h),
+                      **ln(pre + "output.LayerNorm")})
+    return {"bert." + k: v for k, v in state.items()}
+
+
+def phase_oscar(device, tmp: str) -> dict:
+    """25. The Oscar / HuggingFace import: a seeded HF-layout
+    pytorch_model.bin at the run's BERT widths, then ``run viewpoint
+    --debug --model_name_or_path <dir>`` for 2 iterations: the encoder's
+    BERT equals the file's converted tensors before the first step (words
+    cut, positions and types grown to the workspace's tables) and is within
+    2 Adam steps of them after; launches per iteration."""
+    from visitron_torch.models.oscar_import import convert_bert_state_dict
+    from visitron_torch.train import finetune
+    from visitron_torch.train.checkpoint import CheckpointManager
+    from visitron_torch.train.workspace import Workspace
+
+    say("oscar import: run viewpoint --model_name_or_path <HF-layout pytorch_model.bin>")
+    t_phase = time.perf_counter()
+    hf_dir, out_dir = os.path.join(tmp, "oscar"), os.path.join(tmp, "oscar_finetune")
+    os.makedirs(hf_dir)
+    from visitron_torch.config import RunConfig
+
+    # The widths the run's workspace builds (BERT-base; tiny in a rehearsal).
+    state = hf_bert_state(Workspace._bert_config(RunConfig(), range(30522)), SEED)
+    t0 = time.perf_counter()
+    torch.save(state, os.path.join(hf_dir, "pytorch_model.bin"))
+    size = os.path.getsize(os.path.join(hf_dir, "pytorch_model.bin"))
+    say(f"  wrote {len(state)} tensors, {size / 2 ** 30:.3f} GiB in "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    seen = {}
+    orig = finetune.ViewpointTrainer._maybe_load_pretrained
+
+    def capture(trainer, st):
+        st = orig(trainer, st)
+        seen["cfg"] = trainer.ws.bert_config
+        seen["enc"] = {k: v.detach().cpu().clone() for k, v in st["params"]["encoder"].items()
+                       if k.startswith("bert.bert.")}
+        return st
+
+    finetune.ViewpointTrainer._maybe_load_pretrained = capture
+    try:
+        with BoundaryHooks() as hooks:
+            rows = hooks.run(["viewpoint", "--config",
+                              "run_configs/viewpoint_train/ndh_oscar_setting.json", "--debug",
+                              "--num_iterations", "2", "--saving_steps", "2",
+                              "--logging_steps", "1", "--eval_iters", "2",
+                              "--model_name_or_path", hf_dir, "--output_dir", out_dir]
+                             + (REHEARSAL_SEQ if REHEARSAL else []), device)
+    finally:
+        finetune.ViewpointTrainer._maybe_load_pretrained = orig
+    counts = check_iteration_launches("viewpoint from the HF file", rows, CLI_FINETUNE)
+    want = convert_bert_state_dict({k[len("bert."):]: v for k, v in state.items()},
+                                   seen["cfg"])
+    differ = [n for n, t in want.items() if not torch.equal(seen["enc"]["bert.bert." + n], t)]
+    if differ or len(want) != len(seen["enc"]):
+        fail(f"the encoder's BERT before the first step is not the file's: {differ[:5]}")
+    after = CheckpointManager(out_dir).restore_raw(2)["encoder"]
+    moved = max(float((after["bert.bert." + n] - t).abs().max()) for n, t in want.items())
+    words = want["word_embeddings.weight"].shape[0]
+    say(f"  before the first step the encoder's {len(want)} BERT tensors equal the file's "
+        f"(word table cut 30522 -> {words} rows, positions 512 -> "
+        f"{want['embeddings.position_embeddings.weight'].shape[0]}, types 2 -> "
+        f"{want['embeddings.token_type_embeddings.weight'].shape[0]}); after 2 steps within "
+        f"{moved:.2e} (lr 5e-5); ms of iteration 2 {rows[-1][1]:.1f}")
+    if moved > 4 * 5e-5 + 1e-6:
+        fail("the fine-tune did not start from the HF file's weights")
+    say(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts}
+
+
+def phase_datagen(device, tmp: str) -> None:
+    """26. ``run datagen --debug --add_r2r_data``: the NDH and R2R files of
+    each split exist and equal generate_pretrain_examples over the same
+    task data."""
+    from visitron_torch import run as cli
+    from visitron_torch.config import RunConfig
+    from visitron_torch.pipelines import generate_pretrain_examples
+    from visitron_torch.train.workspace import Workspace
+
+    say("datagen: python -m visitron_torch.run datagen --debug --add_r2r_data")
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "datagen")
+    cli.main(["datagen", "--debug", "--add_r2r_data", "--output_dir", out], device=device)
+    ms = (time.perf_counter() - t0) * 1e3
+    cfg = RunConfig(debug=True, output_dir=out)
+    ws = Workspace.synthetic_workspace(cfg, device=device)
+    root = os.path.join(out, "synthetic_task_data")
+    tables = {s: ws.runtime.tables[s] for s in ws.graphs}
+    n = 0
+    for ds in ("NDH", "R2R"):
+        for split in ("train", "val_seen", "val_unseen"):
+            path = os.path.join(root, "pretrain_data", f"{ds}_{split}.json")
+            if not os.path.exists(path):
+                fail(f"datagen wrote no {path}")
+            got = json.load(open(path))
+            want = json.loads(json.dumps(generate_pretrain_examples(root, [split], ds,
+                                                                    ws.graphs, tables)))
+            if got != want or not got:
+                fail(f"datagen: {ds}_{split}.json differs from generate_pretrain_examples")
+            n += len(got)
+    say(f"  6 files, {n} examples, equal to generate_pretrain_examples; {ms:.0f} ms")
 
 
 # -- phase 12: pretrain --------------------------------------------------------------
@@ -2293,7 +2732,8 @@ def phase_long_dropout_agreement(device, sizes) -> None:
 
 # Device times (torch.profiler) beside the event means: of the kernel and its
 # SDPA yardstick (for the forwards at rate 0 without the lse), and of K4f's
-# and K5f's call in their train step (rate 0.1, with the lse).
+# and K5f's call in their train step (rate 0.1, with the lse); null where no
+# profiling session gave one, counted in ``device_times_unmeasured``.
 DEVICE_KEYS = ("device_ms", "library_device_ms", "step_device_ms")
 
 
@@ -2306,7 +2746,9 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli) -> dict:
     four NDH kernels also carry ``path_launches``: their launches in the
     timed runs of the teacher-forced, sampled and RL train steps.  Every
     kernel carries ``cli_launches``: its launches per iteration of phase
-    22's viewpoint and pretrain runs."""
+    22's viewpoint and pretrain runs, of phase 23's turn_based run, per
+    batch of its argmax rollout, per iteration of phase 24's classifier run
+    and of phase 25's viewpoint run from the HF file."""
     code = {fn.__name__: k for k, fn in COUNTED.items()}
     ndh = {"fused_attention_packed": "K1f", "fused_add_layernorm": "K2f",
            "fused_attention_packed_bwd": "K1b", "fused_add_layernorm_bwd": "K2b"}
@@ -2331,7 +2773,12 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli) -> dict:
                 lc["counts"]["K5f"]),
                ("flash_attention_bwd", (ATTN_SOURCE[0], FLASH_REPLACES[1]), times["k5b"],
                 lc["counts"]["K5b"]))
-    return {"kernels": [
+    for name, _, t, _ in entries[:4]:
+        # The main path's kernels: their device times are what the Hopper
+        # redesigns are held to, so a run without them fails.
+        if t.get("device_ms") is None or t.get("library_device_ms") is None:
+            fail(f"{ndh[name]} ({name}): no device time at the path's shape")
+    return {"device_times_unmeasured": len(UNMEASURED), "kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2341,7 +2788,12 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli) -> dict:
                                (("train", tr), ("sampled_train", st), ("rl_train", rl))}}
             if name in ndh else {}),
          "cli_launches": {"viewpoint": cli["vp_counts"][code[name]],
-                          "pretrain": cli["pt_counts"][code[name]]}}
+                          "pretrain": cli["pt_counts"][code[name]],
+                          "turn_based": cli["turn_based"]["counts"][code[name]],
+                          "turn_based_rollout": cli["turn_based"]["rollout"]["counts"][
+                              code[name]],
+                          "classifier": cli["classifier"]["counts"][code[name]],
+                          "viewpoint_from_hf": cli["oscar"]["counts"][code[name]]}}
         for name, (src, replaces), t, launches in entries]}
 
 
@@ -2421,7 +2873,13 @@ def main(argv=None) -> int:
     phase_student_agreement(device, sizes, sl)
     phase_sampling(device, sizes["draws"])
     phase_evaluate(sl)
-    cli = phase_cli(device)
+    phase_turn_based_agreement(device, sizes, sl)
+    with tempfile.TemporaryDirectory() as tmp, cli_bert():
+        cli = phase_cli(device, tmp)
+        cli["turn_based"] = phase_turn_based(device, tmp, cli)
+        cli["classifier"] = phase_classifier(device, tmp, cli)
+        cli["oscar"] = phase_oscar(device, tmp)
+        phase_datagen(device, tmp)
     # Kernel times at a path's bucket, where the shape phases did not cover it.
     for key, phase, bucket, rows in (("k1", phase_k1, sl["bucket"], None),
                                      ("k2", phase_k2, None, sl["ln_rows"]),

@@ -76,11 +76,13 @@ def test_package_lists_every_ported_module():
                 "pipelines.pretrain_datagen", "models.speaker", "evaluation",
                 "evaluation.metrics", "config", "run", "train.logging",
                 "train.preemption", "train.checkpoint", "train.workspace",
-                "train.finetune", "models.oscar_import"):
+                "train.finetune", "models.oscar_import", "agents.turn_based",
+                "agents.classifier", "models.classification", "data.classifier_dataset",
+                "evaluation.classifier_metrics", "train.turn_based", "train.classifier"):
         assert f"visitron_torch.{mod}" in names, mod
 
 
-def test_entry_points_need_the_card_unless_asked_for_cpu():
+def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     from visitron_torch._device import resolve_device
@@ -103,6 +105,18 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         ViewpointAgent(cfg, rt, feature_dim=8)
     agent = ViewpointAgent(cfg, rt, feature_dim=8, device="cpu")
     assert agent.device.type == "cpu"
+    from visitron_torch import run
+    from visitron_torch.agents.classifier import ClassifierAgent
+    from visitron_torch.agents.turn_based import TurnBasedAgent
+
+    for cls in (TurnBasedAgent, ClassifierAgent):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(cfg, rt, feature_dim=8)
+        assert cls(cfg, rt, feature_dim=8, device="cpu").device.type == "cpu"
+    for task in ("turn_based", "classifier", "datagen"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run.main([task, "--debug", "--lstm_img_feature_dim", "8",
+                      "--output_dir", os.path.join(tmp_path, task)])
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -515,9 +515,11 @@ def test_graft_matches_the_jax_graft(tmp_path, jax_agent):
 
 
 def test_trainer_refuses_unported_options(tmp_path):
-    """Meshes and ZeRO-1 (ROADMAP item 10), --aug_data (item 7) and a
-    model path that is not a port pretraining checkpoint (item 4) raise by
-    name; a missing model path trains from scratch, as in the JAX package."""
+    """Meshes and ZeRO-1 (ROADMAP item 10) and --aug_data (item 7) raise by
+    name; a model path that is not a port pretraining checkpoint goes to the
+    Oscar / HuggingFace import (an empty ``pytorch_model.bin`` fails to
+    load); a missing model path trains from scratch, as in the JAX
+    package."""
     for kw in ({"mesh_dp": 2}, {"mesh_tp": 2}, {"zero1": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
             _torch_trainer(tmp_path, **kw)
@@ -528,7 +530,7 @@ def test_trainer_refuses_unported_options(tmp_path):
     oscar.mkdir()
     (oscar / "pytorch_model.bin").write_bytes(b"")
     ttr = _torch_trainer(tmp_path, model_name_or_path=str(oscar))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+    with pytest.raises((EOFError, RuntimeError)):  # torch.load of an empty file
         ttr._maybe_load_pretrained(ttr.agent.init_state())
     ttr = _torch_trainer(tmp_path, model_name_or_path=str(tmp_path / "absent"))
     state = ttr.agent.init_state()

@@ -94,6 +94,14 @@ class NavEpisodeBatcher:
                                                         batch["goal_rows"]))
         return batch
 
+    def with_turn_teacher(self, batch: dict, episode_len: int) -> dict:
+        """The batch with its low-level (turn-based) teacher episode."""
+        batch = dict(batch)
+        batch.update(self.runtime.turn_based_rollout_arrays(
+            batch["scans"], batch["start_rows"], batch["start_views"],
+            batch["goal_rows"], episode_len))
+        return batch
+
     def _window_sort(self, idx: list[int]) -> list[int]:
         """Length-sort ``idx`` within windows of ``length_sort_window``
         batches, starting at index 0 so window boundaries stay aligned to

@@ -14,7 +14,10 @@ Everything a navigation step reads is packed into tensors indexed by
   view_af  (36, 4)      camera angle feature by view       [device]
 
 so a navigation step is pure gathers and elementwise math on the device, and
-a student rollout moves only (B,) action/viewpoint indices to the host.
+a student rollout moves only (B,) action/viewpoint indices to the host.  The
+turn-based helpers (``navigable_at``, ``turn_based_teacher``,
+``apply_turn_action``, ``turn_based_rollout_arrays``) work on the host
+copies.
 Integer tables are int64 on the device (PyTorch's index type) and int32 on
 the host, as in the JAX package.
 """
@@ -233,3 +236,110 @@ class NavRuntime:
         new_view = int(self.point_h[row, slot])
         assert new_row >= 0
         return new_row, new_view
+
+    # ---------------------------------------------------------- turn-based
+    # Host numpy with the JAX package's dtypes and its stable sort, so the
+    # visible neighbours, their order and the hfov / 2 edge are the same in
+    # both packages.
+    def navigable_at(self, row: int, view: int) -> list[tuple[int, float, float]]:
+        """Ordered (neighbor_row, rel_heading, rel_elevation) visible from
+        (row, view): simulator navigableLocations[1:] parity."""
+        hfov = geo.camera_hfov(self.feat_table.image_w, self.feat_table.image_h,
+                               np.radians(self.feat_table.vfov))
+        cam_h = geo.heading_of_view(view)
+        cam_e = geo.elevation_of_view(view)
+        n = int(self.count_h[row])
+        rel_h = geo.normalize_angle(self.heading_h[row, :n] - cam_h)
+        rel_e = self.elev_h[row, :n] - cam_e
+        vis = np.abs(rel_h) <= hfov / 2.0 + 1e-9
+        order = np.flatnonzero(vis)
+        ang = np.sqrt(rel_h[order] ** 2 + rel_e[order] ** 2)
+        order = order[np.argsort(ang, kind="stable")]
+        return [(int(self.nbr_h[row, s]), float(rel_h[s]), float(rel_e[s])) for s in order]
+
+    def turn_based_teacher(self, scan: str, row: int, view: int, goal_row: int) -> int:
+        """Low-level teacher action id (model_actions order: left, right, up,
+        down, forward, <end>): tasks/turn_based/data_loader.py:509-546 +
+        agent.py:212-232 parity."""
+        LEFT, RIGHT, UP, DOWN, FORWARD, END = range(6)
+        if row == goal_row:
+            return END
+        g = self.graphs[scan]
+        off = self.feat_table.scan_offsets[scan]
+        nxt = int(g.next_hop[row - off, goal_row - off]) + off
+        for nbr_row, rel_h, rel_e in self.navigable_at(row, view):
+            if nbr_row == nxt:
+                if rel_h > np.pi / 6.0:
+                    return RIGHT
+                if rel_h < -np.pi / 6.0:
+                    return LEFT
+                if rel_e > np.pi / 6.0 and view // 12 < 2:
+                    return UP
+                if rel_e < -np.pi / 6.0 and view // 12 > 0:
+                    return DOWN
+                return FORWARD
+        # Not visible: neutralise the elevation, else turn the shorter way.
+        if view // 12 == 0:
+            return UP
+        if view // 12 == 2:
+            return DOWN
+        slot = int(np.flatnonzero(self.nbr_h[row] == nxt)[0])
+        target_heading = float(self.heading_h[row, slot]) % (2 * np.pi)
+        heading = geo.heading_of_view(view)
+        if heading > target_heading and heading - target_heading < np.pi:
+            return LEFT
+        if target_heading > heading and target_heading - heading > np.pi:
+            return LEFT
+        return RIGHT
+
+    def apply_turn_action(self, row: int, view: int, action: int) -> tuple[int, int]:
+        """Apply a low-level action id; returns (row, view).  forward moves to
+        the first (most centred) navigable location, as the reference agent,
+        which can only pick 'the one in the middle' (agent.py:67)."""
+        LEFT, RIGHT, UP, DOWN, FORWARD, END = range(6)
+        hstep, erow = view % 12, view // 12
+        if action == LEFT:
+            hstep = (hstep - 1) % 12
+        elif action == RIGHT:
+            hstep = (hstep + 1) % 12
+        elif action == UP:
+            erow = min(erow + 1, 2)
+        elif action == DOWN:
+            erow = max(erow - 1, 0)
+        elif action == FORWARD:
+            nav = self.navigable_at(row, view)
+            if nav:
+                row = nav[0][0]
+        return row, erow * 12 + hstep
+
+    def turn_based_rollout_arrays(self, scans: list[str], start_rows, start_views,
+                                  goal_rows, episode_len: int, ignore_id: int = -100):
+        """A teacher-forced low-level episode, on the host: (B, T) int32
+        cur_row, view and teacher action ids (``ignore_id`` once ended), and
+        (B, T) bool forward-allowed flags and active mask."""
+        b = len(start_rows)
+        cur_row = np.zeros((b, episode_len), np.int32)
+        view = np.zeros((b, episode_len), np.int32)
+        teacher = np.full((b, episode_len), ignore_id, np.int32)
+        fwd_ok = np.zeros((b, episode_len), bool)
+        active = np.zeros((b, episode_len), bool)
+        END = 5
+        for i in range(b):
+            row, v = int(start_rows[i]), int(start_views[i])
+            goal = int(goal_rows[i])
+            ended = False
+            for t in range(episode_len):
+                cur_row[i, t] = row
+                view[i, t] = v
+                fwd_ok[i, t] = len(self.navigable_at(row, v)) > 0
+                if ended:
+                    continue
+                a = self.turn_based_teacher(scans[i], row, v, goal)
+                teacher[i, t] = a
+                active[i, t] = True
+                if a == END:
+                    ended = True
+                else:
+                    row, v = self.apply_turn_action(row, v, a)
+        return {"cur_row": cur_row, "view": view, "teacher": teacher,
+                "fwd_ok": fwd_ok, "active": active}

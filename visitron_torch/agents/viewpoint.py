@@ -99,75 +99,37 @@ def gather_step_inputs(rt: NavRuntime, cur_row, view):
     return a_t, f_t, cand_feat, cand_mask
 
 
-@dataclass
-class ViewpointAgent:
-    cfg: BertConfig
-    runtime: NavRuntime
-    feature_dim: int  # scene feature dim D (without angle feat)
-    episode_len: int = 10
-    angle_feat_size: int = 4
-    aemb: int = 64
-    rnn_dim: int = 512
-    encoder_hidden_size: int = 512
-    dropout: float = 0.5
-    learning_rate: float = 5e-5
-    optimizer_kind: str = "adam"
-    max_grad_norm: float = 40.0
-    bf16_adam_moments: bool = False  # store Adam mu/nu in bf16
-    temperature: float = 1.0  # temperature / penalty feedback scaling
-    seed: int = 88
-    device: object = None  # None: the card
+class DialogAgent:
+    """What the agents that encode a dialog with ``OscarEncoder`` and train
+    with an optax-style optimizer share: the device check, fresh parameters
+    and dropout generators, batch trimming, the encoder call, gradients and
+    the optimizer step.  Subclasses have ``runtime``, ``seed`` and
+    ``device`` fields and set ``encoder``, ``decoder`` and ``optimizer``."""
 
-    def __post_init__(self):
+    def _resolve_device(self) -> None:
+        """``device`` resolved (None: the card); the runtime's tables must
+        live on the same kind of device."""
         self.device = resolve_device(self.device)
         if self.runtime.device.type != self.device.type:
             raise ValueError(f"runtime tables are on {self.runtime.device}, "
                              f"the agent on {self.device}")
-        self.encoder = OscarEncoder(
-            self.cfg, hidden_size=self.encoder_hidden_size,
-            decoder_hidden_size=self.rnn_dim,
-            dropout_ratio=self.dropout).to(self.device).eval()
-        self.decoder = AttnDecoderLSTM(
-            angle_feat_size=self.angle_feat_size, embedding_size=self.aemb,
-            hidden_size=self.rnn_dim,
-            feature_size=self.feature_dim + self.angle_feat_size,
-            ctx_size=self.encoder_hidden_size,
-            dropout_ratio=self.dropout).to(self.device).eval()
-        self.critic = Critic(hidden_size=self.rnn_dim,
-                             dropout_ratio=self.dropout).to(self.device).eval()
-        self.optimizer = agent_optimizer(self.learning_rate, self.optimizer_kind,
-                                         self.max_grad_norm,
-                                         bf16_moments=self.bf16_adam_moments)
-        self.results: dict = {}
 
-    # -- parameters ----------------------------------------------------------
-    def init_params(self, seed: int | None = None, with_critic: bool = False) -> dict:
-        """Fresh parameters from a CPU ``torch.Generator`` (so the same seed
-        gives the same weights on every device), with the flax initialisers'
-        distributions: normal(0.02) for BERT, U(+-1/sqrt(H)) for LSTMs,
-        lecun_normal for the other Dense kernels, zero biases.
-        ``with_critic``: also the RL value head."""
+    def init_params(self, seed: int | None = None, parts=("encoder", "decoder")) -> dict:
+        """Fresh parameters of ``parts`` from a CPU ``torch.Generator`` (so
+        the same seed gives the same weights on every device), with the flax
+        initialisers' distributions: normal(0.02) for BERT, U(+-1/sqrt(H))
+        for LSTMs, lecun_normal for the other Dense kernels, zero biases."""
         g = torch.Generator().manual_seed(self.seed if seed is None else seed)
-        parts = ("encoder", "decoder") + (("critic",) if with_critic else ())
         return {part: init_module_params(getattr(self, part), g, self.device)
                 for part in parts}
 
-    def init_state(self, with_critic: bool = False) -> dict:
-        """Training state: ``params`` (:meth:`init_params` at the agent's
-        seed; ``with_critic`` adds the value head RL fine-tuning needs),
-        ``opt_state``, ``rng``, the dropout generators (masks on the agent's
-        device, kernel seeds on the CPU, both seeded with seed + 1), and
-        ``sampler``, the generator of the sampled actions (on the agent's
-        device, seed + 2)."""
-        params = self.init_params(with_critic=with_critic)
-        rng = DropoutRng(
+    def dropout_rng(self) -> DropoutRng:
+        """A training pass's dropout generators: masks on the agent's
+        device, kernel seeds on the CPU, both seeded with seed + 1."""
+        return DropoutRng(
             masks=torch.Generator(device=self.device).manual_seed(self.seed + 1),
             seeds=torch.Generator().manual_seed(self.seed + 1))
-        sampler = torch.Generator(device=self.device).manual_seed(self.seed + 2)
-        return {"params": params, "opt_state": self.optimizer.init(params), "rng": rng,
-                "sampler": sampler}
 
-    # -- shared pieces ---------------------------------------------------------
     @staticmethod
     def trim_batch(batch: dict, bucket: int = 128) -> dict:
         """Trim dialog arrays to the batch's max length rounded up to a
@@ -187,6 +149,98 @@ class ViewpointAgent:
                                     {"token_type_ids": segs, "rng": rng}, strict=True)
         ctx_mask = torch.arange(ids.shape[1], device=self.device)[None, :] >= lengths[:, None]
         return ctx, h, c, ctx_mask
+
+    @staticmethod
+    def value_and_grads(params, loss_fn, labels=None):
+        """(loss, aux, grads) of ``loss_fn(params) -> (loss, aux)``; grads
+        mirror ``params`` (zeros where a parameter takes no part, as in JAX).
+        ``labels`` (a "train" or "freeze" string per parameter, in
+        ``params``' nesting) holds the "freeze" parameters constant: their
+        gradient is None, and autograd does no work for them."""
+        leaves = tree_leaves(params)
+        frozen = ([False] * len(leaves) if labels is None
+                  else [label == "freeze" for label in tree_leaves(labels)])
+        live = [p.detach() if f else p.detach().requires_grad_()
+                for p, f in zip(leaves, frozen)]
+        loss, aux = loss_fn(tree_unflatten(params, live))
+        found = iter(torch.autograd.grad(
+            loss, [p for p, f in zip(live, frozen) if not f], allow_unused=True))
+        grads = []
+        for p, f in zip(leaves, frozen):
+            g = None if f else next(found)
+            grads.append(torch.zeros_like(p) if g is None and not f else g)
+        return loss.detach(), aux, tree_unflatten(params, grads)
+
+    def apply_grads(self, state: dict, grads) -> dict:
+        """``state`` after the global-norm clip and one Adam step."""
+        updates, opt_state = self.optimizer.update(grads, state["opt_state"],
+                                                   state["params"])
+        return {**state, "params": apply_updates(state["params"], updates),
+                "opt_state": opt_state}
+
+    def write_results(self, path: str) -> None:
+        """``self.results`` ({inst_idx: trajectory}) as the EvalAI JSON."""
+        output = [{"inst_idx": k, "trajectory": v} for k, v in self.results.items()]
+        with open(path, "w") as f:
+            json.dump(output, f)
+
+
+@dataclass
+class ViewpointAgent(DialogAgent):
+    cfg: BertConfig
+    runtime: NavRuntime
+    feature_dim: int  # scene feature dim D (without angle feat)
+    episode_len: int = 10
+    angle_feat_size: int = 4
+    aemb: int = 64
+    rnn_dim: int = 512
+    encoder_hidden_size: int = 512
+    dropout: float = 0.5
+    learning_rate: float = 5e-5
+    optimizer_kind: str = "adam"
+    max_grad_norm: float = 40.0
+    bf16_adam_moments: bool = False  # store Adam mu/nu in bf16
+    temperature: float = 1.0  # temperature / penalty feedback scaling
+    seed: int = 88
+    device: object = None  # None: the card
+
+    def __post_init__(self):
+        self._resolve_device()
+        self.encoder = OscarEncoder(
+            self.cfg, hidden_size=self.encoder_hidden_size,
+            decoder_hidden_size=self.rnn_dim,
+            dropout_ratio=self.dropout).to(self.device).eval()
+        self.decoder = AttnDecoderLSTM(
+            angle_feat_size=self.angle_feat_size, embedding_size=self.aemb,
+            hidden_size=self.rnn_dim,
+            feature_size=self.feature_dim + self.angle_feat_size,
+            ctx_size=self.encoder_hidden_size,
+            dropout_ratio=self.dropout).to(self.device).eval()
+        self.critic = Critic(hidden_size=self.rnn_dim,
+                             dropout_ratio=self.dropout).to(self.device).eval()
+        self.optimizer = agent_optimizer(self.learning_rate, self.optimizer_kind,
+                                         self.max_grad_norm,
+                                         bf16_moments=self.bf16_adam_moments)
+        self.results: dict = {}
+
+    # -- parameters ----------------------------------------------------------
+    def init_params(self, seed: int | None = None, with_critic: bool = False) -> dict:
+        """Fresh parameters (DialogAgent.init_params); ``with_critic``: also
+        the RL value head."""
+        return super().init_params(seed, ("encoder", "decoder")
+                                   + (("critic",) if with_critic else ()))
+
+    def init_state(self, with_critic: bool = False) -> dict:
+        """Training state: ``params`` (:meth:`init_params` at the agent's
+        seed; ``with_critic`` adds the value head RL fine-tuning needs),
+        ``opt_state``, ``rng``, the dropout generators (masks on the agent's
+        device, kernel seeds on the CPU, both seeded with seed + 1), and
+        ``sampler``, the generator of the sampled actions (on the agent's
+        device, seed + 2)."""
+        params = self.init_params(with_critic=with_critic)
+        sampler = torch.Generator(device=self.device).manual_seed(self.seed + 2)
+        return {"params": params, "opt_state": self.optimizer.init(params),
+                "rng": self.dropout_rng(), "sampler": sampler}
 
     def decode_step(self, params, h1, c, ctx, ctx_mask, cur_row, view,
                     visited_mask=None, rng: DropoutRng | None = None):
@@ -229,29 +283,11 @@ class ViewpointAgent:
             loss = loss + torch.sum(ce * weight) / torch.clamp(weight.sum(), min=1.0)
         return loss / t_len
 
-    @staticmethod
-    def value_and_grads(params, loss_fn):
-        """(loss, aux, grads) of ``loss_fn(params) -> (loss, aux)``; grads
-        mirror ``params`` (zeros where a parameter takes no part, as in JAX)."""
-        leaves = tree_leaves(params)
-        live = [p.detach().requires_grad_() for p in leaves]
-        loss, aux = loss_fn(tree_unflatten(params, live))
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return loss.detach(), aux, tree_unflatten(params, grads)
-
     def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None):
         """(loss, grads) of :meth:`episode_loss` for a trimmed batch."""
         loss, _, grads = self.value_and_grads(
             params, lambda p: (self.episode_loss(p, batch, rng), None))
         return loss, grads
-
-    def apply_grads(self, state: dict, grads) -> dict:
-        """``state`` after the global-norm clip and one Adam step."""
-        updates, opt_state = self.optimizer.update(grads, state["opt_state"],
-                                                   state["params"])
-        return {**state, "params": apply_updates(state["params"], updates),
-                "opt_state": opt_state}
 
     def train_step_fn(self):
         """``run(state, batch) -> (state, loss)``: one teacher-forced step
@@ -594,8 +630,3 @@ class ViewpointAgent:
                 if looped:
                     break
         return self.results
-
-    def write_results(self, path: str) -> None:
-        output = [{"inst_idx": k, "trajectory": v} for k, v in self.results.items()]
-        with open(path, "w") as f:
-            json.dump(output, f)

@@ -19,7 +19,15 @@ imports JAX.  A key missing on either side, or a shape that differs, raises.
 way, so a JAX training state can continue in the port: the chain's states
 are namedtuples (``EmptyState``, ``ScaleByAdamState(count, mu, nu)``,
 ``ScaleByRmsState(nu)``, ``ScaleByScheduleState(count)``, ...), read by
-their field names; the port's are dicts with the same keys.
+their field names; the port's are dicts with the same keys.  An
+``optax.multi_transform`` state (``PartitionState(inner_states={label:
+MaskedState(inner_state)})``, the classifier's) becomes the port's
+``{"inner_states": {label: state}}``; its moment trees hold ``MaskedNode``
+leaves for the other labels' parameters, which carry nothing.
+
+The turn-based and the classifier agents keep the viewpoint agent's
+``{"encoder", "decoder"}`` layout, so :func:`convert_agent_params` takes
+theirs too.
 """
 
 from __future__ import annotations
@@ -85,7 +93,8 @@ def _flax_to_named(tree: dict, expected: dict, owner: str, device=None) -> dict:
 def convert_agent_params(jax_params: dict, agent) -> dict:
     """The JAX agent's ``{"encoder", "decoder"}`` parameters, and its RL
     ``"critic"`` where the tree has one, as the port agent's parameters, on
-    the agent's device."""
+    the agent's device (any agent of the port with those modules: the
+    viewpoint, turn-based and classifier agents)."""
     parts = set(jax_params)
     if not {"encoder", "decoder"} <= parts <= {"encoder", "decoder", "critic"}:
         raise KeyError(f"expected encoder, decoder and optionally critic trees, "
@@ -102,10 +111,25 @@ def convert_pretrain_params(jax_params: dict, model: nn.Module, device=None) -> 
     return flax_to_state_dict(jax_params, model, device)
 
 
+def _drop_masked(tree):
+    """``tree`` without optax's ``MaskedNode`` leaves (the parameters of
+    another label of a multi_transform) and the sub-trees left empty."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            value = _drop_masked(value)
+            if value:
+                out[key] = value
+        elif type(value).__name__ != "MaskedNode":
+            out[key] = value
+    return out
+
+
 def _tree_like(jax_tree, like, device):
     """A flax-layout tree (a moment of the agent's or the pretraining
     model's parameters) in the layout of the port's ``like``: a flat
     {name: tensor} dict is one module's, a dict of dicts one per part."""
+    jax_tree = _drop_masked(jax_tree)
     if all(isinstance(v, torch.Tensor) for v in like.values()):
         return _flax_to_named(jax_tree, like, "the port's parameters", device)
     if set(jax_tree) != set(like):
@@ -123,41 +147,57 @@ def _states(node) -> list:
     raise TypeError(f"unexpected optimizer state node {type(node).__name__}")
 
 
-def convert_opt_state(jax_opt_state, optimizer, params) -> list:
+def convert_opt_state(jax_opt_state, optimizer, params):
     """The JAX optimizer state of a ``visitron_tpu.train.optim`` chain
-    (``agent_optimizer`` or ``adamw_with_warmup``; numpy leaves) as the port
-    ``optimizer``'s state for ``params`` (the port's parameters, which give
-    the names, devices and, with the port's initial state, the moments'
-    dtypes).
+    (``agent_optimizer`` or ``adamw_with_warmup``; numpy leaves), or of an
+    ``optax.multi_transform`` over such chains, as the port ``optimizer``'s
+    state for ``params`` (the port's parameters, which give the names,
+    devices and, with the port's initial state, the moments' dtypes).
 
     The states that hold something are matched in order, each by its field
     names: ``count`` becomes an int, ``mu`` / ``nu`` trees of the port's
     layout (kernels transposed as for the parameters).  States with no
     fields (the clip, a constant learning rate, a zero weight decay) carry
     nothing.  A state or leaf that finds no place raises."""
-    template = optimizer.init(params)
-    jax_states = [s for s in _states(jax_opt_state) if s._fields]
-    port_slots = [i for i, s in enumerate(template) if s]
+    return _convert_states(jax_opt_state, optimizer.init(params))
+
+
+def _convert_states(jax_state, template):
+    """``jax_state`` in the port's ``template`` state: a chain's list of
+    dicts, one transformation's dict, or multi_transform's
+    ``{"inner_states": ...}``."""
+    if hasattr(jax_state, "inner_states"):  # optax.multi_transform
+        inner = jax_state.inner_states
+        ours = template.get("inner_states") if isinstance(template, dict) else None
+        if ours is None or set(inner) != set(ours):
+            raise KeyError(f"the JAX multi_transform has labels {sorted(inner)}, the "
+                           f"port's optimizer {sorted(ours or {})}")
+        return {"inner_states": {k: _convert_states(inner[k].inner_state, ours[k])
+                                 for k in inner}}
+    single = isinstance(template, dict)
+    slots = [template] if single else list(template)
+    jax_states = [s for s in _states(jax_state) if s._fields]
+    port_slots = [i for i, s in enumerate(slots) if s]
     if len(jax_states) != len(port_slots):
         raise ValueError(
             f"the JAX chain holds {[type(s).__name__ for s in jax_states]}, the port's "
-            f"{[sorted(template[i]) for i in port_slots]}")
-    out = list(template)
+            f"{[sorted(slots[i]) for i in port_slots]}")
+    out = list(slots)
     for state, slot in zip(jax_states, port_slots):
-        fields, want = set(state._fields), set(template[slot])
+        fields, want = set(state._fields), set(slots[slot])
         if fields != want:
             raise KeyError(f"{type(state).__name__} fields {sorted(fields)} do not match "
                            f"the port state's {sorted(want)}")
         new = {}
         for name in state._fields:
-            value, like = getattr(state, name), template[slot][name]
+            value, like = getattr(state, name), slots[slot][name]
             if name == "count":
                 new[name] = int(np.asarray(value))
             else:
                 device = _first_leaf(like).device
                 new[name] = _tree_like(value, like, device)
         out[slot] = new
-    return out
+    return out[0] if single else out
 
 
 def _first_leaf(tree) -> torch.Tensor:

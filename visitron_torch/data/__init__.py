@@ -1,6 +1,9 @@
 from visitron_torch.data.tokenization import WordPieceTokenizer, build_wordpiece_vocab
 from visitron_torch.data.dialog import truncate_dialogs, build_dialog_sequence, SEGMENT_IDS
-from visitron_torch.data.datasets import load_split, NavInstance, build_nav_instances
+from visitron_torch.data.datasets import (load_split, NavInstance, build_nav_instances,
+                                          load_classifier_episodes)
+from visitron_torch.data.classifier_dataset import (ClassifierInstance,
+                                                    build_classifier_instances)
 from visitron_torch.data.features import (RegionFeatureStore, SceneFeatureTable,
                                           read_tsv_img_features)
 from visitron_torch.data.candidates import (
@@ -20,6 +23,9 @@ __all__ = [
     "load_split",
     "NavInstance",
     "build_nav_instances",
+    "load_classifier_episodes",
+    "ClassifierInstance",
+    "build_classifier_instances",
     "SceneFeatureTable",
     "read_tsv_img_features",
     "ScanCandidateTable",

@@ -9,6 +9,9 @@ Directory-layout and schema parity with the reference loaders
   <root>/R4R/data/R4R_{split}.json
   <root>/RxR/data/rxr_train_guide.jsonl   multilingual guide annotations
 
+`load_classifier_episodes` reads CVDN gameplay with its per-timestep dialog
+snapshots for the question-asking classifier.
+
 `build_nav_instances` merges any subset into one instance list with tokenized
 dialog sequences and trusted-path supervision, mirroring VLNDataset
 (data_loader.py:96-471) but producing packed numpy arrays.
@@ -185,3 +188,56 @@ def build_nav_instances(
             )
     return instances
 
+
+def load_classifier_episodes(root: str, splits) -> list[dict]:
+    """CVDN gameplay episodes with per-timestep dialog snapshots
+    (parity: utils_data.py:108-166).
+
+    Each returned item carries ``dialog_history``: {nav_timestep: [messages...]}
+    accumulating turns up to that step, and ``request_locations``: the
+    timesteps at which the navigator asked a question.
+    """
+    raw: list[dict] = []
+    for split in splits:
+        if split not in VALID_SPLITS:
+            raise ValueError(f"unknown split {split!r}")
+        with open(_data_path(root, "CVDN", split)) as f:
+            raw.extend(json.load(f))
+
+    data = []
+    for item in raw:
+        item = dict(item)
+        item["inst_idx"] = str(item["idx"])
+        item["planner_path"] = item["planner_nav_steps"]
+        item["player_path"] = item["nav_steps"]
+        item["nav_history"] = item["player_path"]
+        heading, elevation = 2.0, 17.5
+        cams = item.get("nav_camera") or []
+        if cams and "message" in cams[0]:
+            heading = cams[0]["message"][-1]["heading"]
+            elevation = cams[0]["message"][-1]["elevation"]
+        item["start_pano"] = {
+            "heading": heading,
+            "elevation": elevation,
+            "pano": item["planner_nav_steps"][0],
+        }
+        dialog: dict[int, list[str]] = {0: []}
+        last_timestep = 0
+        timestep = 0
+        for index, turn in enumerate(item["dialog_history"]):
+            if index % 2 == 0:
+                if turn["role"] != "navigator":
+                    raise ValueError(f"episode {item['idx']}: turn {index} is not the navigator's")
+                timestep = turn["nav_idx"]
+                history = dialog[last_timestep]
+                history = history + [turn["message"]]
+                dialog[timestep] = history
+                last_timestep = timestep
+            else:
+                if turn["role"] != "oracle":
+                    raise ValueError(f"episode {item['idx']}: turn {index} is not the oracle's")
+                dialog[timestep] = dialog[timestep] + [turn["message"]]
+        item["dialog_history"] = dialog
+        item["request_locations"] = list(dialog.keys())
+        data.append(item)
+    return data

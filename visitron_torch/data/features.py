@@ -11,8 +11,8 @@ instead of a host dict lookup + copy per step.  Host-side numpy; the runtime
 
 `RegionFeatureStore` holds per-view region features and detector tokens for
 pretraining (visitron_tpu/data/features.py): in memory, or read from and
-written to the reference pickle format.  The LMDB reader and writer are not
-ported (ROADMAP item 4).
+written to the reference pickle or LMDB formats (the LMDB ones need the
+optional ``lmdb`` module, imported where they run).
 """
 
 from __future__ import annotations
@@ -110,8 +110,8 @@ class SceneFeatureTable:
 
 class RegionFeatureStore:
     """Region features + tokens keyed ``scan_vp_viewIdx``, held in memory,
-    or read from the reference pickle (:meth:`from_pickle`; the JAX
-    package's LMDB backend is not ported)."""
+    or read from the reference pickle (:meth:`from_pickle`) or LMDB
+    (:meth:`from_lmdb`) layouts."""
 
     def __init__(self, features: dict[bytes, np.ndarray], region_tokens: dict[bytes, list[str]],
                  image_w: int = 640, image_h: int = 480, vfov: int = 60):
@@ -170,3 +170,42 @@ class RegionFeatureStore:
             )
         with open(path_prefix + ".pickle", "wb") as f:
             pickle.dump(out, f, protocol=-1)
+
+    @classmethod
+    def from_lmdb(cls, path_prefix: str) -> "RegionFeatureStore":
+        """Load the reference LMDB layout (requires the optional lmdb module)."""
+        import lmdb  # optional: not part of the base environment
+
+        env = lmdb.open(path_prefix + ".lmdb", readonly=True, readahead=False,
+                        max_readers=1, lock=False)
+        with env.begin(write=False) as txn:
+            keys = pickle.loads(txn.get("keys".encode()))
+            features = {k: pickle.loads(txn.get(k))["features"] for k in keys}
+            meta = pickle.loads(txn.get(keys[0]))
+        with open(path_prefix + "-region_labels.pickle", "rb") as f:
+            tokens = pickle.load(f)
+        return cls(features, tokens, meta["image_w"], meta["image_h"], meta["vfov"])
+
+    def to_lmdb(self, path_prefix: str, map_size: int = 1 << 34) -> None:
+        """Write the reference LMDB layout (utils_data.py:415-438 read side):
+        a "keys" entry listing every ``scan_vp_view`` key, one pickled record
+        per key, plus the ``-region_labels.pickle`` sidecar.  Round-trips with
+        :meth:`from_lmdb`."""
+        import lmdb  # optional: not part of the base environment
+
+        env = lmdb.open(path_prefix + ".lmdb", map_size=map_size)
+        with env.begin(write=True) as txn:
+            txn.put("keys".encode(), pickle.dumps(self.keys, protocol=-1))
+            for key in self.keys:
+                scan, vp, view = key.decode().split("_")
+                item = {
+                    "scanId": scan, "viewpointId": vp, "featureViewIndex": view,
+                    "features": self.features[key],
+                    "image_w": self.image_w, "image_h": self.image_h,
+                    "vfov": self.vfov,
+                }
+                txn.put(key, pickle.dumps(item, protocol=-1))
+        env.sync()
+        env.close()
+        with open(path_prefix + "-region_labels.pickle", "wb") as f:
+            pickle.dump(self.region_tokens, f, protocol=-1)

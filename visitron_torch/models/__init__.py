@@ -1,6 +1,8 @@
 from visitron_torch.models.bert import (BertConfig, BertTextModel,
                                         VisitronBert)
-from visitron_torch.models.decoder import AttnDecoderLSTM, SoftDotAttention
+from visitron_torch.models.classification import ImageBertForActionPrediction
+from visitron_torch.models.decoder import (AttnDecoderLSTM, AttnDecoderLSTMwithClassifier,
+                                           SoftDotAttention, TurnBasedDecoderLSTM)
 from visitron_torch.models.encoder import OscarEncoder
 from visitron_torch.models.lstm import LSTM, lstm_cell_step, masked_lstm_scan
 from visitron_torch.models.pretrain import (PretrainModel, masked_accuracy,
@@ -14,6 +16,9 @@ __all__ = [
     "OscarEncoder",
     "SoftDotAttention",
     "AttnDecoderLSTM",
+    "AttnDecoderLSTMwithClassifier",
+    "TurnBasedDecoderLSTM",
+    "ImageBertForActionPrediction",
     "LSTM",
     "lstm_cell_step",
     "masked_lstm_scan",

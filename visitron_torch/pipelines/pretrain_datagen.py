@@ -8,10 +8,14 @@ viewpoint's best view index in absolute and rotated ("relative") frames — the
 
 The candidate table makes each step O(1) closed-form (the camera pose after
 ``goToNextViewpoint`` is exactly the target's best view, so the walk needs no
-simulator).  ``write_pretrain_data`` (the JSON writer) is not ported.
+simulator).  ``write_pretrain_data`` writes the examples of each split as
+the reference's JSON files (the ``datagen`` task of run.py).
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -104,3 +108,14 @@ def generate_pretrain_examples(
                 base["dialog_history"] = item["instruction"]
                 data.append(base)
     return data
+
+
+def write_pretrain_data(root: str, splits, dataset_type: str, graphs, tables) -> str:
+    """Write ``<root>/pretrain_data/<DS>_<split>.json`` (reference layout)."""
+    os.makedirs(os.path.join(root, "pretrain_data"), exist_ok=True)
+    for split in splits:
+        data = generate_pretrain_examples(root, [split], dataset_type, graphs, tables)
+        path = os.path.join(root, "pretrain_data", f"{dataset_type}_{split}.json")
+        with open(path, "w") as f:
+            json.dump(data, f)
+    return os.path.join(root, "pretrain_data")

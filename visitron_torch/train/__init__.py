@@ -1,5 +1,6 @@
 """Training pieces of the port: the optimizers (optim.py), the pretraining
 trainer and loop (pretrain.py), the fine-tuning trainer (finetune.py), the
+turn-based and classifier trainers (turn_based.py, classifier.py), the
 checkpoint manager (checkpoint.py), the workspace (workspace.py), logging
 (logging.py) and the preemption guard (preemption.py)."""
 

@@ -54,7 +54,7 @@ def _to_host(tree, copy: bool):
     raise TypeError(f"cannot checkpoint a leaf of type {type(tree).__name__}")
 
 
-def _place(saved, template, where: str):
+def place_like(saved, template, where: str):
     """``saved`` in the structure, device and dtype of ``template``; raises
     on a missing or extra key, a list of another length or a shape
     mismatch."""
@@ -66,12 +66,13 @@ def _place(saved, template, where: str):
         if missing or extra:
             raise KeyError(f"{where}: keys missing from the checkpoint {missing}, "
                            f"keys the template lacks {extra}")
-        return {k: _place(saved[k], template[k], f"{where}/{k}") for k in template}
+        return {k: place_like(saved[k], template[k], f"{where}/{k}") for k in template}
     if isinstance(template, (list, tuple)):
         if not isinstance(saved, (list, tuple)) or len(saved) != len(template):
             raise KeyError(f"{where}: the checkpoint's sequence does not match the "
                            f"template's {len(template)} entries")
-        return [_place(s, t, f"{where}/{i}") for i, (s, t) in enumerate(zip(saved, template))]
+        return [place_like(s, t, f"{where}/{i}")
+                for i, (s, t) in enumerate(zip(saved, template))]
     if isinstance(template, torch.Tensor):
         if not isinstance(saved, torch.Tensor):
             raise TypeError(f"{where}: checkpoint holds {type(saved).__name__}, "
@@ -179,7 +180,7 @@ class CheckpointManager:
         each leaf put into the template's structure, device and dtype."""
         out = {}
         for name, tmpl in template.items():
-            out[name] = _place(self.restore_raw(step, name), tmpl, name)
+            out[name] = place_like(self.restore_raw(step, name), tmpl, name)
         return out
 
     def restore_raw(self, step: int, name: str = "params"):

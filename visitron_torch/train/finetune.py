@@ -6,11 +6,9 @@ of ``NavEpisodeBatcher``, with ``feedback_method`` choosing the step as in
 the JAX trainer: ``teacher`` the teacher-forced ``train_step_fn``, ``rl``
 the advantage actor-critic ``rl_train_step_fn`` (the critic in the state),
 every other strategy the student-forced ``sample_train_step_fn(feedback)``
-over ``with_sample_teacher`` batches.  Losses stay on the device until the
-logging boundary, where one stacked read-back averages them and
-``check_finite`` guards against divergence; checkpoints are written every
-``saving_steps`` and at the last iteration, and on SIGTERM the trainer
-saves the current iteration and stops with ``preempted`` set.
+over ``with_sample_teacher`` batches.  The loop is ``train/loop.py``'s:
+logging at the boundary with one read-back, checkpoints, and on SIGTERM a
+checkpoint of the current iteration and a stop with ``preempted`` set.
 
 ``val()``: per checkpoint and split, (a) the teacher-forced loss with
 dropout on (allow_cheat parity, train.py:318-320), (b) the argmax rollout,
@@ -37,17 +35,30 @@ from visitron_torch.config import RunConfig, refuse_unported_hardware
 from visitron_torch.data.datasets import build_nav_instances
 from visitron_torch.evaluation import Evaluator
 from visitron_torch.models.layers import DropoutRng
-from visitron_torch.models.oscar_import import (graft_pretrain_checkpoint_into_encoder,
+from visitron_torch.models.oscar_import import (graft_bert_into_encoder,
+                                                graft_pretrain_checkpoint_into_encoder,
                                                 is_pretrain_checkpoint)
 from visitron_torch.train.checkpoint import CheckpointManager
-from visitron_torch.train.logging import MetricsLogger, check_finite, setup_logger
-from visitron_torch.train.preemption import PreemptionGuard
+from visitron_torch.train.logging import MetricsLogger, setup_logger
+from visitron_torch.train.loop import restore_latest, run_loop
 from visitron_torch.train.workspace import Workspace
 
-# The synthetic (--debug) world's task data: the JAX package's counts, and a
-# test split after them (the draws of the other splits stay the same), so
-# that --test_only has a split to roll out.
-SYNTHETIC_COUNTS = {"train": 12, "val_seen": 4, "val_unseen": 4, "test": 4}
+
+def nav_instances(cfg: RunConfig, ws: Workspace, splits) -> list:
+    """The navigation episodes of ``splits`` with the run's datasets and
+    dialog settings (the viewpoint and turn-based trainers')."""
+    return build_nav_instances(
+        ws.task_data_root(cfg.output_dir), splits, ws.tokenizer,
+        path_type=cfg.path_type, add_ndh=cfg.add_ndh_data, add_r2r=cfg.add_r2r_data,
+        add_r4r=cfg.add_r4r_data, add_rxr=cfg.add_rxr_data,
+        oscar_setting=cfg.oscar_setting, tar_back=cfg.tar_back,
+        max_seq_length=cfg.max_seq_length)
+
+
+def nav_batcher(cfg: RunConfig, ws: Workspace, instances, batch_size: int):
+    return NavEpisodeBatcher(instances, ws.runtime, batch_size=batch_size,
+                             path_type=cfg.path_type, seed=cfg.seed,
+                             length_sort_window=cfg.length_sort_window)
 
 
 def params_to(tree, device):
@@ -86,33 +97,15 @@ class ViewpointTrainer:
         self.ckpt = CheckpointManager(self.cfg.output_dir,
                                       async_save=self.cfg.async_checkpoints)
         self.preempted = False
-        self._synth_root = None
 
     def _instances(self, splits):
         if self.cfg.aug_data and "train" in splits:
             raise NotImplementedError(
                 "--aug_data: speaker augmentation is not ported yet (ROADMAP item 7)")
-        if self.ws.synthetic is not None:
-            if self._synth_root is None:
-                root = os.path.join(self.cfg.output_dir, "synthetic_task_data")
-                self.ws.synthetic.write_task_data(root, counts=SYNTHETIC_COUNTS)
-                self._synth_root = root
-            root = self._synth_root
-        else:
-            root = self.cfg.data_root
-        return build_nav_instances(
-            root, splits, self.ws.tokenizer,
-            path_type=self.cfg.path_type,
-            add_ndh=self.cfg.add_ndh_data, add_r2r=self.cfg.add_r2r_data,
-            add_r4r=self.cfg.add_r4r_data, add_rxr=self.cfg.add_rxr_data,
-            oscar_setting=self.cfg.oscar_setting, tar_back=self.cfg.tar_back,
-            max_seq_length=self.cfg.max_seq_length)
+        return nav_instances(self.cfg, self.ws, splits)
 
     def _batcher(self, instances, batch_size):
-        return NavEpisodeBatcher(
-            instances, self.ws.runtime, batch_size=batch_size,
-            path_type=self.cfg.path_type, seed=self.cfg.seed,
-            length_sort_window=self.cfg.length_sort_window)
+        return nav_batcher(self.cfg, self.ws, instances, batch_size)
 
     def train(self, state=None, resume: bool = False, profile_steps: int = 0) -> dict:
         """Train loop.  ``state`` (default: the agent's ``init_state``, then
@@ -132,13 +125,9 @@ class ViewpointTrainer:
             state = self.agent.init_state(with_critic=rl)
             state = self._maybe_load_pretrained(state)
         start_it = 0
-        if resume and self.ckpt.latest() is not None:
-            start_it = self.ckpt.latest()
-            restored = self.ckpt.restore(
-                start_it, {"params": state["params"], "opt_state": state["opt_state"]})
-            state = {**state, **restored}
+        if resume:
+            state, start_it = restore_latest(self.ckpt, state, self.logger)
             batcher.skip_batches(start_it)
-            self.logger.info("resumed from checkpoint-%d", start_it)
         student = cfg.feedback_method != "teacher"
         if rl:
             step = self.agent.rl_train_step_fn()
@@ -146,74 +135,17 @@ class ViewpointTrainer:
             step = self.agent.sample_train_step_fn(cfg.feedback_method)
         else:
             step = self.agent.train_step_fn()
-        metrics = MetricsLogger(cfg.output_dir, "train")
-        losses, aux = [], None
-        episode_len = None if student else cfg.episode_len
-        profiler = None
-        with PreemptionGuard() as guard:
-            for i, batch in enumerate(batcher.train_batches(cfg.num_iterations - start_it,
-                                                            episode_len=episode_len)):
-                if student:
-                    batch = batcher.with_sample_teacher(batch)
-                it = start_it + i + 1
-                if profile_steps and i == 1:  # the first step warms up
-                    profiler = self._start_profiler()
-                state, out = step(state, batch)
-                loss, aux = out if isinstance(out, tuple) else (out, None)
-                if profiler is not None and i == profile_steps:
-                    self._stop_profiler(profiler)
-                    profiler = None
-                # The loss stays on the device until the logging boundary: a
-                # read-back per step would stall the host on the device.
-                losses.append(loss)
-                if it % cfg.logging_steps == 0:
-                    self._log(metrics, it, losses, aux)
-                    losses.clear()
-                saved = it % cfg.saving_steps == 0 or it == cfg.num_iterations
-                if saved:
-                    self.ckpt.save(it, state["params"], state["opt_state"])
-                if guard.should_stop(it):
-                    if not saved:
-                        self.ckpt.save(it, state["params"], state["opt_state"], wait=True)
-                    self.logger.info("termination signal: saved checkpoint-%d, stopping "
-                                     "(restart with --resume)", it)
-                    break
-        if profiler is not None:
-            self._stop_profiler(profiler)
-        self.ckpt.wait_until_finished()
-        metrics.close()
-        # A SIGTERM grace window cannot afford the val sweep: run.py checks
-        # this flag and returns right after the preemption checkpoint.
-        self.preempted = guard.stop
+        batches = batcher.train_batches(cfg.num_iterations - start_it,
+                                        episode_len=None if student else cfg.episode_len)
+        if student:
+            batches = (batcher.with_sample_teacher(b) for b in batches)
+        state, self.preempted = run_loop(self, step, batches, state, start_it,
+                                         profile_steps=profile_steps)
         return state
-
-    def _log(self, metrics: MetricsLogger, it: int, losses: list, aux: dict | None) -> None:
-        """One read-back of the mean loss since the last boundary and the
-        last step's aux values; checked, logged and written to train.csv."""
-        names = sorted(aux or {})
-        vals = torch.stack([torch.stack(losses).mean()]
-                           + [aux[k].float() for k in names]).tolist()
-        avg = check_finite(vals[0], it, self.logger)
-        extra = dict(zip(names, vals[1:]))
-        self.logger.info("iter %d loss %.4f %s", it, avg, extra or "")
-        metrics.log({"loss": avg, **extra}, step=it)
-
-    def _start_profiler(self):
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=acts)
-        profiler.start()
-        return profiler
-
-    def _stop_profiler(self, profiler) -> None:
-        profiler.stop()
-        out = os.path.join(self.cfg.output_dir, "profile")
-        os.makedirs(out, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(out, "trace.json"))
 
     def _maybe_load_pretrained(self, state: dict) -> dict:
         """Initialise the dialog encoder's BERT from a pretraining checkpoint
+        of the port or from Oscar / HuggingFace ``pytorch_model.bin`` weights
         (train.py:40 + --no_pretrained_model parity, params.py:61-66)."""
         cfg = self.cfg
         if cfg.no_pretrained_model or not cfg.model_name_or_path:
@@ -222,17 +154,17 @@ class ViewpointTrainer:
             self.logger.warning("model_name_or_path %s not found; training from scratch",
                                 cfg.model_name_or_path)
             return state
-        if not is_pretrain_checkpoint(cfg.model_name_or_path):
-            raise NotImplementedError(
-                f"{cfg.model_name_or_path} is not a visitron_torch pretraining checkpoint; "
-                "the import of Oscar / HuggingFace weights is not ported yet "
-                "(ROADMAP item 4)")
-        # The ablation chain: pretraining (run.py pretrain) -> nav fine-tune,
-        # the reference's checkpoint-30000 hand-off.
         params = dict(state["params"])
-        params["encoder"] = graft_pretrain_checkpoint_into_encoder(
-            params["encoder"], cfg.model_name_or_path)
-        self.logger.info("loaded pretraining checkpoint from %s", cfg.model_name_or_path)
+        if is_pretrain_checkpoint(cfg.model_name_or_path):
+            # The ablation chain: pretraining (run.py pretrain) -> nav
+            # fine-tune, the reference's checkpoint-30000 hand-off.
+            params["encoder"] = graft_pretrain_checkpoint_into_encoder(
+                params["encoder"], cfg.model_name_or_path)
+            self.logger.info("loaded pretraining checkpoint from %s", cfg.model_name_or_path)
+        else:
+            params["encoder"] = graft_bert_into_encoder(
+                params["encoder"], cfg.model_name_or_path, self.ws.bert_config)
+            self.logger.info("loaded Oscar/BERT weights from %s", cfg.model_name_or_path)
         return {**state, "params": params}
 
     def _checkpoint_params(self, step: int) -> dict:

@@ -25,7 +25,12 @@ than torch.optim's defaults:
   * ``scale_by_adamax`` (``optax.adamax``): b1 0.9, b2 0.999, eps 1e-8;
     mu = (1 - b1) g + b1 mu, nu = max(|g| + eps, b2 nu), update
     (mu / (1 - b1^count)) / nu;
-  * sgd: the learning rate alone (``optax.sgd`` without momentum).
+  * sgd: the learning rate alone (``optax.sgd`` without momentum);
+  * ``multi_transform`` (``optax.multi_transform``): each label's
+    transformation sees only the parameters of that label, as if the others
+    did not exist (a clip's norm covers that label's gradients alone, an
+    Adam keeps moments for its leaves alone); ``set_to_zero``: no
+    updates (None, which ``apply_updates`` skips), no state.
 
 A transformation is an ``(init, update)`` pair as in optax:
 ``init(params) -> state`` and ``update(grads, state, params) -> (updates,
@@ -293,10 +298,75 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def set_to_zero() -> GradientTransformation:
+    """No updates (optax.set_to_zero): the parameters it sees stay.  Their
+    updates are None rather than zero tensors, and :func:`apply_updates`
+    leaves a parameter with a None update as it is; their gradients may be
+    None too."""
+
+    def init(params):
+        return {}
+
+    def update(grads, state, params=None):
+        return tree_unflatten(grads, [None] * len(tree_leaves(grads))), state
+
+    return GradientTransformation(init, update)
+
+
+def _select(tree, labels, label):
+    """The leaves of ``tree`` whose label is ``label``, in its nesting
+    (sub-dicts left empty are dropped)."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            sub = _select(value, labels[key], label)
+            if sub:
+                out[key] = sub
+        elif labels[key] == label:
+            out[key] = value
+    return out
+
+
+def _merge(tree, labels, parts: dict):
+    """``tree``'s nesting with each leaf taken from ``parts[its label]``."""
+    return {key: _merge(value, labels[key], {k: v.get(key, {}) for k, v in parts.items()})
+            if isinstance(value, dict) else parts[labels[key]][key]
+            for key, value in tree.items()}
+
+
+def multi_transform(transforms: dict, param_labels) -> GradientTransformation:
+    """optax.multi_transform: ``param_labels(params)`` gives each leaf a
+    label (a nested dict of strings in ``params``' nesting); the
+    transformation of each label updates that label's leaves alone.  The
+    state is ``{"inner_states": {label: that transformation's state}}``."""
+
+    def init(params):
+        labels = param_labels(params)
+        return {"inner_states": {k: t.init(_select(params, labels, k))
+                                 for k, t in transforms.items()}}
+
+    def update(grads, state, params=None):
+        labels = param_labels(grads)
+        updates, inner = {}, {}
+        for k, t in transforms.items():
+            sub_params = None if params is None else _select(params, labels, k)
+            updates[k], inner[k] = t.update(_select(grads, labels, k),
+                                            state["inner_states"][k], sub_params)
+        return _merge(grads, labels, updates), {"inner_states": inner}
+
+    return GradientTransformation(init, update)
+
+
 def apply_updates(params, updates):
-    """params + updates, in each parameter's dtype (optax.apply_updates)."""
-    p = tree_leaves(params)
-    new = torch._foreach_add(p, [u.to(t.dtype) for u, t in zip(tree_leaves(updates), p)])
+    """params + updates, in each parameter's dtype (optax.apply_updates); a
+    parameter whose update is None (``set_to_zero``'s) is kept as it is."""
+    p, u = tree_leaves(params), tree_leaves(updates)
+    moved = [i for i, x in enumerate(u) if x is not None]
+    new = list(p)
+    if moved:
+        sums = torch._foreach_add([p[i] for i in moved], [u[i].to(p[i].dtype) for i in moved])
+        for i, v in zip(moved, sums):
+            new[i] = v
     return tree_unflatten(params, new)
 
 

@@ -13,7 +13,7 @@ workspace's device (``device=None``: the card), in bf16 when
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -26,6 +26,12 @@ from visitron_torch.graph import load_nav_graphs
 from visitron_torch.models import BertConfig
 
 
+# The synthetic (--debug) world's task data: the JAX package's counts, and a
+# test split after them (the draws of the other splits stay the same), so
+# that --test_only has a split to roll out.
+SYNTHETIC_COUNTS = {"train": 12, "val_seen": 4, "val_unseen": 4, "test": 4}
+
+
 @dataclass
 class Workspace:
     cfg: RunConfig
@@ -35,6 +41,20 @@ class Workspace:
     runtime: NavRuntime
     bert_config: BertConfig
     synthetic: object | None = None
+    _task_root: str | None = field(default=None, init=False, repr=False)
+
+    def task_data_root(self, output_dir: str) -> str:
+        """Where the task JSON lives: ``cfg.data_root``, or for the
+        synthetic world its task data, written once (later calls reuse it:
+        each write draws new episodes) under
+        ``<output_dir>/synthetic_task_data`` with SYNTHETIC_COUNTS."""
+        if self.synthetic is None:
+            return self.cfg.data_root
+        if self._task_root is None:
+            root = os.path.join(output_dir, "synthetic_task_data")
+            self.synthetic.write_task_data(root, counts=SYNTHETIC_COUNTS)
+            self._task_root = root
+        return self._task_root
 
     @classmethod
     def from_config(cls, cfg: RunConfig, scans=None, device=None) -> "Workspace":
