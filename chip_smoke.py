@@ -184,7 +184,26 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               BERT equals the file's converted tensors before the first step
               and is within 2 Adam steps of them after; launches as phase 22;
  26. datagen: ``run datagen --debug --add_r2r_data``: the NDH and R2R
-              files of each split equal generate_pretrain_examples.
+              files of each split equal generate_pretrain_examples;
+ 27. speaker: the SpeakerAgent at run_configs/pipeline/speaker.json's width
+              (batch 32, 40-step trusted-path trajectories, 80 words, rnn
+              512, wemb 256, feature dropout 0.6, movement frame, 2048 + 4
+              features, vocabulary 30522 with word ids from a seed) on phase
+              10's world: 2 warm-up and 8 train steps timed by CUDA events,
+              no K1-K5 launch, the idle share, peak memory; a greedy
+              generation batch (ms), the greedy and sampled decode loops
+              under torch.cuda.set_sync_debug_mode("error"), augment's
+              read-backs a batch (one); fp32 with the dropouts at 0, card vs
+              CPU: one step on 4 items (loss, gradients, the Adam update)
+              and the greedy tokens of 16 walks up to each one's first near
+              tie (run before phase 22);
+ 28. speaker chain: ``run speaker`` (speaker.json) 4 iterations, --resume
+              to 6 (checkpoints 2, 4, 6, the Adam count), ``run augment``
+              (augment.json, --aug_targets) of 64 records from it, ``run
+              viewpoint --aug_data`` (ndh_oscar_setting.json) 2 iterations:
+              the train split grows by 64, launches per iteration 0 (speaker)
+              and K1f 12, K1b 12, K2f 25, K2b 25 (fine-tune), ms per
+              iteration beside phase 22's viewpoint iteration.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
@@ -192,7 +211,7 @@ K3b, K4f and K4b: pretrain; K5f and K5b: long-context pretrain), max error,
 and times, for the four NDH kernels their launches in the timed runs of
 phases 11, 16 and 17 (``path_launches``), and for every kernel its launches
 per iteration of phase 22's viewpoint and pretrain runs and of phases
-23-25's runs (``cli_launches``), and the count of device times that no
+23-25's and 28's runs (``cli_launches``), and the count of device times that no
 torch.profiler session gave (``device_times_unmeasured``; such a time is
 null, and the run fails where K1f, K2f, K1b or K2b has none); the last line
 is ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
@@ -2423,6 +2442,324 @@ def phase_datagen(device, tmp: str) -> None:
     say(f"  6 files, {n} examples, equal to generate_pretrain_examples; {ms:.0f} ms")
 
 
+# -- phases 27-28: the speaker, back-translation augmentation, --aug_data ------------------
+
+SPEAKER_CONFIG = "run_configs/pipeline/speaker.json"
+AUGMENT_CONFIG = "run_configs/pipeline/augment.json"
+FINETUNE_CONFIG = "run_configs/viewpoint_train/ndh_oscar_setting.json"
+# The speaker launches none of the ported kernels (no BERT; its word CE is a
+# plain fp32 cross-entropy, not K3).
+CLI_SPEAKER: dict = {}
+# Greedy decoding compares argmaxes: tokens are compared up to the first
+# step whose top-2 logit margin (on the CPU) is below this.
+GREEDY_MARGIN = 1e-4
+
+
+def speaker_tokenizer(vocab_size: int) -> WordPieceTokenizer:
+    """The synthetic world's WordPiece vocabulary grown to ``vocab_size``
+    (BERT-base-uncased's 30522) with filler words ``w<i>``."""
+    vocab = build_wordpiece_vocab([" ".join(_WORDS), " ".join(_TARGETS)], vocab_size=4096)
+    return WordPieceTokenizer(vocab + [f"w{i}" for i in range(len(vocab), vocab_size)])
+
+
+def speaker_batches(sp, instances, tok, n: int, batch_size: int, seed: int) -> list:
+    """``n`` teacher batches (trusted path) with word ids drawn from a seed:
+    each item's length is its dialog's wordpiece count (at most max_words - 1),
+    its ids uniform over the non-special vocabulary."""
+    from visitron_torch.agents.speaker import SpeakerAgent
+
+    rng = np.random.default_rng(seed)
+    batcher = NavEpisodeBatcher(instances, sp.runtime, batch_size=batch_size,
+                                path_type="trusted_path", seed=seed)
+    text = {i.inst_idx: SpeakerAgent.instance_text(i) for i in instances}
+    first = len(tok.all_special_tokens)
+    out = []
+    for batch in batcher.train_batches(n, episode_len=sp.episode_len):
+        words = np.full((batch_size, sp.max_words + 1), sp.pad_id, np.int32)
+        for i, idx in enumerate(batch["inst_idx"]):
+            ids = rng.integers(first, sp.vocab_size,
+                               size=min(len(tok.encode(text[idx])), sp.max_words - 1))
+            row = [sp.bos_id, *ids.tolist(), sp.eos_id]
+            words[i, :len(row)] = row
+        out.append({**{k: np.asarray(batch[k]) for k in ("cur_row", "view", "teacher",
+                                                          "active")}, "words": words})
+    return out
+
+
+def make_speaker(spk, runtime, tok, device, **kw):
+    from visitron_torch.agents.speaker import SpeakerAgent
+
+    return SpeakerAgent(
+        runtime=runtime, feature_dim=spk["feat"], vocab_size=len(tok),
+        bos_id=tok.vocab[tok.cls_token], eos_id=tok.vocab[tok.sep_token],
+        pad_id=tok.pad_token_id, episode_len=spk["episode_len"], max_words=spk["max_words"],
+        hidden_size=spk["rnn"], wemb=spk["wemb"], learning_rate=1e-4, seed=SEED,
+        **{"feat_dropout": 0.6, "movement_frame": True, "device": device, **kw})
+
+
+def phase_speaker(device, spk, sl) -> dict:
+    """27. The speaker at speaker.json's width on bench.py's synthetic world
+    (phase 10's): train steps (2 warm-up, 8 timed by CUDA events), launches
+    of K1-K5 (none), the idle share, peak memory; a greedy generation batch
+    (ms, no synchronising call inside the decode loop, augment's read-backs
+    per batch); then fp32 card vs CPU: one step with the dropouts at 0, and
+    greedy tokens up to the first near tie."""
+    say(f"speaker: SpeakerAgent train step and generation (batch {spk['batch']}, "
+        f"{spk['episode_len']}-step trusted-path trajectories, {spk['max_words']} words, "
+        f"rnn {spk['rnn']}, wemb {spk['wemb']}, {spk['feat']} + 4 features, vocabulary "
+        f"{spk['vocab']}, feature dropout 0.6, movement frame)")
+    t_phase = time.perf_counter()
+    tok = speaker_tokenizer(spk["vocab"])
+    sp = make_speaker(spk, sl["runtime"], tok, device)
+    batches = speaker_batches(sp, sl["train_instances"], tok, 10, spk["batch"], SEED)
+    step = sp.train_step_fn()
+    state = sp.init_state()
+    start = [t.clone() for t in tree_leaves(state["params"])]
+    losses = []
+    for batch in batches[:2]:
+        state, loss = step(state, batch)
+        losses.append(loss)
+    sync()
+    if not REHEARSAL:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    ms = []
+    for batch in batches[2:]:
+        if REHEARSAL:
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            begin.record()
+            state, loss = step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(begin.elapsed_time(end))
+        losses.append(loss)
+    counts = read_counts()
+    peak = None if REHEARSAL else torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu()
+    final = tree_leaves(state["params"])
+    moved = sum(not torch.equal(a, b) for a, b in zip(start, final))
+    med = float(np.median(ms))
+    say(f"  losses {', '.join(f'{x:.4f}' for x in losses.tolist())}; {moved} of "
+        f"{len(final)} parameter tensors changed")
+    say(f"  {med:.2f} ms/step (CUDA events, median of {len(ms)}, range {min(ms):.2f}-"
+        f"{max(ms):.2f}); peak device memory "
+        f"{'n/a' if peak is None else f'{peak / 2 ** 30:.2f} GiB'}; launches in the "
+        f"{len(ms)} steps {counts}")
+    if not torch.isfinite(losses).all() or moved != len(final):
+        fail("speaker: non-finite losses or unmoved parameters")
+    if any(counts.values()):
+        fail(f"speaker: a train step launched a ported kernel: {counts}")
+    out = {"ms": med, "peak": peak, "counts": counts}
+    if not REHEARSAL:
+        holder = {"state": state}
+
+        def one_step():
+            holder["state"], _ = step(holder["state"], batches[-1])
+
+        out["idle"] = profile_device(one_step, "speaker train step")
+        state = holder["state"]
+
+    # Generation: greedy at max_words, one walk batch.
+    params = state["params"]
+    arrays = sp.walk_arrays(sp.sample_walks(np.random.default_rng(SEED + 1), spk["batch"]))
+    gen = sp.generate_fn(0.0)
+    gen(params, arrays)
+    gen_ms = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        ids = gen(params, arrays)
+        sync()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        ctx, ctx_mask = sp.encode_traj(params, sp.device_batch(arrays))
+    generator = torch.Generator(device=sp.device).manual_seed(SEED)
+    sync()
+    if not REHEARSAL:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            loops = [sp.decode_loop(params, ctx, ctx_mask, t, generator) for t in (0.0, 1.0)]
+    finally:
+        if not REHEARSAL:
+            torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(loops[0], ids):
+        fail("speaker: the greedy decode loop differs from generate_fn's")
+    reads = sp.readbacks
+    t0 = time.perf_counter()
+    records = sp.augment(params, tok, np.random.default_rng(SEED), n=spk["batch"],
+                         batch_size=spk["batch"])
+    aug_ms = (time.perf_counter() - t0) * 1e3
+    per_batch = sp.readbacks - reads
+    say(f"  greedy generation of {spk['batch']} walks x {spk['max_words']} words: "
+        f"{np.median(gen_ms):.2f} ms a batch (host clock around a sync, median of 3); "
+        f"the greedy and sampled decode loops ran under "
+        f"torch.cuda.set_sync_debug_mode('error') "
+        + ("(not on the CPU)" if REHEARSAL else "without a synchronising call")
+        + f"; augment: {len(records)} records of one batch in {aug_ms:.1f} ms, "
+        f"{per_batch} read-back(s) a batch")
+    if per_batch != 1 or len(records) != spk["batch"]:
+        fail(f"augment: {per_batch} read-backs, {len(records)} records of one batch")
+    out.update(gen_ms=float(np.median(gen_ms)), aug_ms=aug_ms)
+    speaker_agreement(device, spk, sl, tok)
+    say(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def speaker_agreement(device, spk, sl, tok) -> None:
+    """fp32 with the dropouts at 0, card against CPU: one train step on an
+    ``agree``-item batch (loss, gradients, also relative to the largest,
+    and the Adam update), then the greedy tokens of 4 x ``agree`` walks,
+    compared up to each row's end or its first earlier step whose top-2
+    logit margin on the CPU is below GREEDY_MARGIN."""
+    from torch.func import functional_call
+
+    n = spk["agree"]
+    say(f"speaker agreement: fp32, dropouts 0, card vs CPU on {n} items and "
+        f"{4 * n} walks")
+    agents = {}
+    for dev in (device, "cpu"):
+        rt = NavRuntime.build(sl["world"].graphs, sl["table"], device_dtype=torch.float32,
+                              device=dev)
+        agents[dev] = make_speaker(spk, rt, tok, dev, dropout=0.0, feat_dropout=0.0)
+    batch = speaker_batches(agents["cpu"], sl["train_instances"], tok, 1, n, SEED + 3)[0]
+    out, ids = {}, {}
+    n_walks = 4 * n
+    arrays = agents["cpu"].walk_arrays(agents["cpu"].sample_walks(
+        np.random.default_rng(SEED + 4), n_walks))
+    for dev, sp in agents.items():
+        state = sp.init_state()
+        loss, _, grads = sp.value_and_grads(
+            state["params"], lambda p: (sp.loss(p, sp.device_batch(batch)), None))
+        new, _ = sp.train_step_fn()(state, batch)
+        out[dev] = step_record(loss, grads, state, new)
+        ids[dev] = sp.generate_fn(0.0)(state["params"], arrays).cpu()
+    check_step_agreement(device, out, 1e-4)
+    # The random-weight gradients are small beside AGREE_TOL's atol: their
+    # error is held to 1e-3 of the largest, too.
+    g_card, g_cpu = out[device][1].cpu(), out["cpu"][1]
+    rel = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+    say(f"  gradients: max|card - cpu| / max|g| {rel:.3g} (tolerance 1e-3; max|g| "
+        f"{float(g_cpu.abs().max()):.3g})")
+    if rel > 1e-3:
+        fail("speaker: gradients disagree between the card and the CPU")
+    sp = agents["cpu"]
+    params = sp.init_params()
+    with torch.no_grad():
+        ctx, mask = sp.encode_traj(params, sp.device_batch(arrays))
+        words = torch.cat([torch.full((n_walks, 1), sp.bos_id), ids["cpu"][:, :-1]], 1)
+        h0 = torch.zeros((n_walks, sp.hidden_size))
+        logits = functional_call(sp.decoder, params["decoder"], (words, ctx, mask, h0, h0))[0]
+    top2 = logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    walks_tied, near, steps, compared = 0, 0, 0, 0
+    for row in range(n_walks):
+        # After EOS both emit padding, whatever the logits.
+        ended = torch.nonzero(ids["cpu"][row] == sp.eos_id).flatten()
+        end = int(ended[0]) + 1 if len(ended) else sp.max_words
+        ties = torch.nonzero(margin[row, :end] < GREEDY_MARGIN).flatten()
+        stop = int(ties[0]) if len(ties) else end
+        walks_tied += len(ties) > 0
+        near, steps, compared = near + len(ties), steps + end, compared + stop
+        if not torch.equal(ids[device][row, :stop], ids["cpu"][row, :stop]):
+            fail(f"speaker: greedy tokens of walk {row} differ card vs CPU before a near tie")
+    say(f"  greedy tokens: {compared} of the {steps} decode steps before EOS compared, "
+        f"equal card vs CPU; {walks_tied} of {n_walks} walks reach a top-2 margin below "
+        f"{GREEDY_MARGIN:g} ({near} such steps)")
+    # At random weights a walk's greedy decode settles into a repeated word
+    # whose state converges, so near ties cluster after a walk's first one
+    # (chip runs: 1 of 4 and 4 of 16 walks reached one).  The comparison
+    # must still cover most of the decode.
+    if compared < 0.5 * steps:
+        fail(f"speaker: only {compared} of {steps} greedy steps compared before near ties")
+
+
+def phase_speaker_cli(device, tmp: str, cli: dict) -> dict:
+    """28. The back-translation chain through ``run.main`` on the --debug
+    world, the configs cut only in iterations and num_aug: ``run speaker``
+    (speaker.json) 4 iterations, --resume to 6; ``run augment``
+    (augment.json, --aug_targets, num_aug 64) from its checkpoint; ``run
+    viewpoint --aug_data`` (ndh_oscar_setting.json) 2 iterations: the train
+    split grows by num_aug, launches per iteration as phase 22's."""
+    import dataclasses
+
+    from visitron_torch.config import RunConfig
+    from visitron_torch.train.checkpoint import CheckpointManager
+    from visitron_torch.train.finetune import viewpoint_instances
+    from visitron_torch.train.logging import setup_logger
+    from visitron_torch.train.workspace import Workspace
+
+    say("speaker chain: run speaker -> run augment -> run viewpoint --aug_data on the "
+        "--debug world")
+    t_phase = time.perf_counter()
+    num_aug = 64
+    scale = ["--max_words", "12"] if REHEARSAL else []
+    out = {}
+    spk = os.path.join(tmp, "speaker")
+    args = ["speaker", "--config", SPEAKER_CONFIG, "--debug", "--logging_steps", "1",
+            "--saving_steps", "2", "--output_dir", spk] + scale
+    with BoundaryHooks() as hooks:
+        rows = hooks.run(args + ["--num_iterations", "4"], device)
+        ms = [r[1] for r in rows[1:]]
+        out["ms"] = float(np.median(ms))
+        say(f"  speaker, 4 iterations (batch 32, 40-step trajectories, 80 words): ms per "
+            f"iteration {', '.join(f'{m:.1f}' for m in ms)} (the first, with set-up, "
+            f"{rows[0][1]:.1f}); median {out['ms']:.1f}, {out['ms'] / cli['vp_ms']:.2f}x "
+            f"phase 22's viewpoint iteration ({cli['vp_ms']:.1f})")
+        out["counts"] = check_iteration_launches("speaker", rows, CLI_SPEAKER)
+        rows = hooks.run(args + ["--num_iterations", "6", "--resume"], device)
+        mgr = CheckpointManager(spk)
+        resumed = [r[0] for r in rows]
+        count = mgr.restore_raw(6, "opt_state")[0]["count"]
+        say(f"  resume: checkpoints {mgr.steps()}, the resumed run's iterations {resumed}, "
+            f"Adam count at checkpoint-6 {count}")
+        if mgr.steps() != [2, 4, 6] or resumed != [5, 6] or count != 6:
+            fail("speaker: resume did not continue from checkpoint-4 to 6")
+        check_iteration_launches("speaker, resumed", rows, CLI_SPEAKER)
+
+        aug = os.path.join(tmp, "augment")
+        t0 = time.perf_counter()
+        hooks.run(["augment", "--config", AUGMENT_CONFIG, "--debug", "--speaker_checkpoint",
+                   spk, "--num_aug", str(num_aug), "--output_dir", aug] + scale, device)
+        out["augment_ms"] = (time.perf_counter() - t0) * 1e3
+        aug_file = os.path.join(aug, "aug_data.json")
+        records = json.load(open(aug_file))
+        say(f"  augment: {len(records)} records in {out['augment_ms']:.0f} ms (set-up "
+            f"included), targets {sorted({r['target'] for r in records})[:4]}..., first "
+            f"caption {records[0]['instructions'][0][:60]!r}")
+        if len(records) != num_aug or not all(r.get("target") and r["instructions"][0]
+                                              for r in records):
+            fail(f"augment: {len(records)} records, or some without a target or caption")
+
+        nav = os.path.join(tmp, "viewpoint_aug")
+        vp_args = ["viewpoint", "--config", FINETUNE_CONFIG, "--debug", "--aug_data",
+                   aug_file, "--num_iterations", "2", "--saving_steps", "2",
+                   "--logging_steps", "1", "--eval_iters", "2", "--output_dir", nav]
+        rows = hooks.run(vp_args + (REHEARSAL_SEQ if REHEARSAL else []), device)
+        out["vp_ms"] = rows[-1][1]
+        out["vp_counts"] = check_iteration_launches("viewpoint --aug_data", rows,
+                                                    CLI_FINETUNE)
+    cfg = dataclasses.replace(RunConfig.from_json(FINETUNE_CONFIG), debug=True,
+                              output_dir=nav)
+    ws = Workspace.synthetic_workspace(cfg, device="cpu")
+    logger = setup_logger(output_dir=nav)
+    base = len(viewpoint_instances(cfg, ws, ["train"], logger))
+    grown = len(viewpoint_instances(dataclasses.replace(cfg, aug_data=aug_file), ws,
+                                    ["train"], logger))
+    say(f"  viewpoint --aug_data, 2 iterations: the train split {base} -> {grown} "
+        f"instances; ms of iteration 2 {out['vp_ms']:.1f} beside phase 22's "
+        f"{cli['vp_ms']:.1f}; checkpoints {CheckpointManager(nav).steps()}")
+    if grown != base + num_aug or CheckpointManager(nav).steps() != [2]:
+        fail(f"--aug_data: the train split grew by {grown - base}, not {num_aug}")
+    say(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # -- phase 12: pretrain --------------------------------------------------------------
 
 def pretrain_batch(rng, sizes, vocab, img_dim, classes):
@@ -2747,8 +3084,9 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli) -> dict:
     timed runs of the teacher-forced, sampled and RL train steps.  Every
     kernel carries ``cli_launches``: its launches per iteration of phase
     22's viewpoint and pretrain runs, of phase 23's turn_based run, per
-    batch of its argmax rollout, per iteration of phase 24's classifier run
-    and of phase 25's viewpoint run from the HF file."""
+    batch of its argmax rollout, per iteration of phase 24's classifier run,
+    of phase 25's viewpoint run from the HF file, and of phase 28's speaker
+    and ``--aug_data`` fine-tune runs."""
     code = {fn.__name__: k for k, fn in COUNTED.items()}
     ndh = {"fused_attention_packed": "K1f", "fused_add_layernorm": "K2f",
            "fused_attention_packed_bwd": "K1b", "fused_add_layernorm_bwd": "K2b"}
@@ -2793,7 +3131,9 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli) -> dict:
                           "turn_based_rollout": cli["turn_based"]["rollout"]["counts"][
                               code[name]],
                           "classifier": cli["classifier"]["counts"][code[name]],
-                          "viewpoint_from_hf": cli["oscar"]["counts"][code[name]]}}
+                          "viewpoint_from_hf": cli["oscar"]["counts"][code[name]],
+                          "speaker": cli["speaker"]["counts"][code[name]],
+                          "viewpoint_aug_data": cli["speaker"]["vp_counts"][code[name]]}}
         for name, (src, replaces), t, launches in entries]}
 
 
@@ -2825,6 +3165,8 @@ def main(argv=None) -> int:
         long = {**pre, "img": 768, "img_pad": 8, "agree_img": 768}
         flash = {"batch": 2, "heads": 2, "head_dim": 64, "seq": 256, "pad": 8,
                  "long_batch": 1, "long_seq": 512, "cross": (128, 256), "fused_seq": 256}
+        spk = {"batch": 4, "episode_len": 6, "max_words": 12, "rnn": 24, "wemb": 16,
+               "feat": sizes["feat"], "vocab": 30522, "agree": 2}
     else:
         device = "cuda"
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
@@ -2844,6 +3186,10 @@ def main(argv=None) -> int:
         long = {**pre, "img": 512, "img_pad": 8, "agree_img": 384}
         flash = {"batch": 16, "heads": 12, "head_dim": 64, "seq": 1024, "pad": 8,
                  "long_batch": 2, "long_seq": 4096, "cross": (512, 1024), "fused_seq": 768}
+        # run_configs/pipeline/speaker.json: batch 32, trusted path (40-step
+        # trajectories), 80 words; rnn 512, wemb 256; BERT-base's vocabulary.
+        spk = {"batch": 32, "episode_len": 40, "max_words": 80, "rnn": 512, "wemb": 256,
+               "feat": sizes["feat"], "vocab": 30522, "agree": 4}
     dev_info = phase_device()
     phase_build()
     times = {"k1": phase_k1(device, attn), "k2": phase_k2(device, ln),
@@ -2874,12 +3220,17 @@ def main(argv=None) -> int:
     phase_sampling(device, sizes["draws"])
     phase_evaluate(sl)
     phase_turn_based_agreement(device, sizes, sl)
+    speaker = phase_speaker(device, spk, sl)
     with tempfile.TemporaryDirectory() as tmp, cli_bert():
         cli = phase_cli(device, tmp)
         cli["turn_based"] = phase_turn_based(device, tmp, cli)
         cli["classifier"] = phase_classifier(device, tmp, cli)
         cli["oscar"] = phase_oscar(device, tmp)
         phase_datagen(device, tmp)
+        cli["speaker"] = phase_speaker_cli(device, tmp, cli)
+    say(f"speaker: step {speaker['ms']:.2f} ms (full width), CLI iteration "
+        f"{cli['speaker']['ms']:.1f} ms, --aug_data fine-tune iteration "
+        f"{cli['speaker']['vp_ms']:.1f} ms, phase 22's viewpoint iteration {cli['vp_ms']:.1f} ms")
     # Kernel times at a path's bucket, where the shape phases did not cover it.
     for key, phase, bucket, rows in (("k1", phase_k1, sl["bucket"], None),
                                      ("k2", phase_k2, None, sl["ln_rows"]),

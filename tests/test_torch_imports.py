@@ -78,7 +78,9 @@ def test_package_lists_every_ported_module():
                 "train.preemption", "train.checkpoint", "train.workspace",
                 "train.finetune", "models.oscar_import", "agents.turn_based",
                 "agents.classifier", "models.classification", "data.classifier_dataset",
-                "evaluation.classifier_metrics", "train.turn_based", "train.classifier"):
+                "evaluation.classifier_metrics", "train.turn_based", "train.classifier",
+                "agents.speaker", "sim", "sim.simulator", "sim.native", "data.env",
+                "data.legacy_tokenizer", "utils", "utils.timer"):
         assert f"visitron_torch.{mod}" in names, mod
 
 
@@ -113,7 +115,13 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(cfg, rt, feature_dim=8)
         assert cls(cfg, rt, feature_dim=8, device="cpu").device.type == "cpu"
-    for task in ("turn_based", "classifier", "datagen"):
+    from visitron_torch.agents.speaker import SpeakerAgent
+
+    speaker = dict(feature_dim=8, vocab_size=10, bos_id=1, eos_id=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpeakerAgent(rt, **speaker)
+    assert SpeakerAgent(rt, **speaker, device="cpu").device.type == "cpu"
+    for task in ("turn_based", "classifier", "datagen", "speaker", "augment"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run.main([task, "--debug", "--lstm_img_feature_dim", "8",
                       "--output_dir", os.path.join(tmp_path, task)])

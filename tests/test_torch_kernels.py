@@ -454,3 +454,46 @@ def test_k5f_equals_k4f_bit_for_bit_at_dropout_on_card(cuda, d):
     k5, lse5 = tatt._flash_forward(q, k, v, kb, 99, 0.1, need_lse=True)
     k4, lse4 = tatt.fused_attention(q, k, v, kb, 99, 0.1, need_lse=True)
     assert torch.equal(k5, k4) and torch.equal(lse5, lse4)
+
+
+@pytest.mark.gpu
+def test_speaker_step_and_greedy_batch_launch_no_kernel_on_card(cuda):
+    """One speaker train step (every dropout and the feature dropout on)
+    and one greedy batch on the card: finite, and no K1-K5 launch (the
+    speaker has no BERT, and its word CE is a plain fp32 cross-entropy)."""
+    import numpy as np
+
+    from visitron_torch.agents import NavEpisodeBatcher, NavRuntime
+    from visitron_torch.agents.speaker import SpeakerAgent
+    from visitron_torch.data import (SceneFeatureTable, WordPieceTokenizer,
+                                     build_nav_instances, build_wordpiece_vocab)
+    from visitron_torch.ops import crossentropy as tce
+    from visitron_torch.testing import SyntheticWorld
+    from visitron_torch.testing.synthetic import _TARGETS, _WORDS
+
+    world = SyntheticWorld(seed=7, num_scans=2, viewpoints_per_scan=24, scene_feat_dim=64)
+    rt = NavRuntime.build(world.graphs, SceneFeatureTable.pack(
+        world.graphs, world.scene_features(), vfov=60), device=cuda)
+    tok = WordPieceTokenizer(build_wordpiece_vocab([" ".join(_WORDS), " ".join(_TARGETS)],
+                                                   vocab_size=512))
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        instances = build_nav_instances(world.write_task_data(d), ["train"], tok,
+                                        max_seq_length=64)
+    sp = SpeakerAgent(rt, feature_dim=64, vocab_size=len(tok),
+                      bos_id=tok.vocab[tok.cls_token], eos_id=tok.vocab[tok.sep_token],
+                      pad_id=tok.pad_token_id, episode_len=6, max_words=16, hidden_size=32,
+                      wemb=16, feat_dropout=0.3, movement_frame=True, device=cuda)
+    text = {i.inst_idx: SpeakerAgent.instance_text(i) for i in instances}
+    batch = next(NavEpisodeBatcher(instances, rt, batch_size=8).train_batches(1, 6))
+    wrappers = [f for mod in (tatt, tce, tln) for f in vars(mod).values()
+                if hasattr(f, "launches")]
+    assert len(wrappers) == 10
+    before = [f.launches for f in wrappers]
+    state = sp.init_state()
+    state, loss = sp.train_step_fn()(state, sp.attach_words(batch, tok, text))
+    arrays = sp.walk_arrays(sp.sample_walks(np.random.default_rng(0), 8))
+    ids = sp.generate_fn(0.0)(state["params"], arrays)
+    assert torch.isfinite(loss) and ids.shape == (8, 16) and ids.device.type == "cuda"
+    assert [f.launches for f in wrappers] == before

@@ -515,17 +515,13 @@ def test_graft_matches_the_jax_graft(tmp_path, jax_agent):
 
 
 def test_trainer_refuses_unported_options(tmp_path):
-    """Meshes and ZeRO-1 (ROADMAP item 10) and --aug_data (item 7) raise by
-    name; a model path that is not a port pretraining checkpoint goes to the
+    """Meshes and ZeRO-1 (ROADMAP item 10) raise by name; a model path that is not a port pretraining checkpoint goes to the
     Oscar / HuggingFace import (an empty ``pytorch_model.bin`` fails to
     load); a missing model path trains from scratch, as in the JAX
     package."""
     for kw in ({"mesh_dp": 2}, {"mesh_tp": 2}, {"zero1": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
             _torch_trainer(tmp_path, **kw)
-    ttr = _torch_trainer(tmp_path, aug_data="aug.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        ttr.train()
     oscar = tmp_path / "oscar"
     oscar.mkdir()
     (oscar / "pytorch_model.bin").write_bytes(b"")

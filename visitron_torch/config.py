@@ -5,8 +5,7 @@ One dataclass holds every flag of the reference's run scripts; the fields,
 their defaults, the checks of ``__post_init__`` and the (de)serialisation
 are the JAX package's, so every ``run_configs/**/*.json`` parses to the
 same values in both packages.  Fields of features the port has not ported
-yet (the device meshes, ZeRO-1 / FSDP, the speaker and augmentation, the
-feature extraction) stay, so the files keep parsing; the task or option
+yet (the device meshes, ZeRO-1 / FSDP, the feature extraction) stay, so the files keep parsing; the task or option
 that would read them refuses by name.  ``rng_impl`` selects JAX's PRNG
 implementation and has no effect in torch: it is kept so the files stay
 compatible.
@@ -145,8 +144,8 @@ class RunConfig:
     # near its own maximum (pack_padded work-skipping equivalent); 0/1 = off.
     length_sort_window: int = 8
 
-    # Speaker and back-translation augmentation: not ported (ROADMAP item 7);
-    # the speaker and augment tasks refuse, and so does --aug_data.
+    # Speaker and back-translation augmentation: the speaker and augment
+    # tasks, and the viewpoint fine-tune's --aug_data.
     aug_data: str = ""                # speaker-generated R2R-format JSON to
                                       # append to viewpoint training data
     speaker_checkpoint: str = ""      # speaker output_dir for `augment`

@@ -25,9 +25,11 @@ MaskedState(inner_state)})``, the classifier's) becomes the port's
 ``{"inner_states": {label: state}}``; its moment trees hold ``MaskedNode``
 leaves for the other labels' parameters, which carry nothing.
 
-The turn-based and the classifier agents keep the viewpoint agent's
+The turn-based, classifier and speaker agents keep the viewpoint agent's
 ``{"encoder", "decoder"}`` layout, so :func:`convert_agent_params` takes
-theirs too.
+theirs too; the speaker's ``optax.adam`` state (``ScaleByAdamState``, then
+the learning rate's ``EmptyState``) converts into its
+``chain(scale_by_adam(), scale_by_learning_rate(lr))``.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ def convert_agent_params(jax_params: dict, agent) -> dict:
     """The JAX agent's ``{"encoder", "decoder"}`` parameters, and its RL
     ``"critic"`` where the tree has one, as the port agent's parameters, on
     the agent's device (any agent of the port with those modules: the
-    viewpoint, turn-based and classifier agents)."""
+    viewpoint, turn-based, classifier and speaker agents)."""
     parts = set(jax_params)
     if not {"encoder", "decoder"} <= parts <= {"encoder", "decoder", "critic"}:
         raise KeyError(f"expected encoder, decoder and optionally critic trees, "

@@ -10,8 +10,11 @@ from visitron_torch.data.candidates import (
     ScanCandidateTable,
     build_candidate_table,
     build_candidate_tables,
+    candidate_angle_features,
     relative_point_id,
 )
+from visitron_torch.data.env import EnvBatch, SimNavEnv
+from visitron_torch.data.legacy_tokenizer import LegacyTokenizer, build_legacy_vocab
 from visitron_torch.data.pretrain_dataset import PretrainDataset, PretrainExample
 
 __all__ = [
@@ -31,7 +34,12 @@ __all__ = [
     "ScanCandidateTable",
     "build_candidate_table",
     "build_candidate_tables",
+    "candidate_angle_features",
     "relative_point_id",
+    "EnvBatch",
+    "SimNavEnv",
+    "LegacyTokenizer",
+    "build_legacy_vocab",
     "RegionFeatureStore",
     "PretrainDataset",
     "PretrainExample",

@@ -121,6 +121,16 @@ def build_candidate_table(
     )
 
 
+def candidate_angle_features(table: ScanCandidateTable, vp: np.ndarray,
+                             base_view: np.ndarray) -> np.ndarray:
+    """(B, K, 4) angle features of each candidate relative to the camera's
+    base heading (data_loader.py:589-595 re-attachment semantics)."""
+    base_heading = (np.asarray(base_view) % geo.HEADINGS_PER_ROW) * geo.ANGLE_INC
+    h = table.heading[vp] - base_heading[:, None]
+    e = table.elevation[vp]
+    return geo.angle_feature(h, e)
+
+
 def relative_point_id(abs_point: np.ndarray, current_heading: float) -> np.ndarray:
     """Map an absolute best-view id to the rotated frame used for the 1-in-36
     pretraining action label (scripts/generate_pretraining_data.py:196-233:

@@ -72,6 +72,10 @@ class SceneFeatureTable:
     def row(self, scan: str, viewpoint: str) -> int:
         return self.row_index[f"{scan}_{viewpoint}"]
 
+    def get(self, scan: str, viewpoint: str) -> np.ndarray:
+        """The (36, D) features of one viewpoint (the environment's join)."""
+        return self.table[self.row(scan, viewpoint)]
+
     @classmethod
     def pack(cls, graphs: dict, features: dict[str, np.ndarray],
              image_w: int = 640, image_h: int = 480, vfov: int = 60,

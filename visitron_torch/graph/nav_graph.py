@@ -74,6 +74,14 @@ class NavGraph:
             path.append(int(self.next_hop[path[-1], gi]))
         return [self.viewpoints[i] for i in path]
 
+    def next_on_path(self, u: int | str, g: int | str) -> str:
+        """The shortest-path teacher action: the next viewpoint toward g (u
+        itself at g).  Parity: tasks/viewpoint_select/data_loader.py:508-514."""
+        ui, gi = self._idx(u), self._idx(g)
+        if ui == gi:
+            return self.viewpoints[ui]
+        return self.viewpoints[int(self.next_hop[ui, gi])]
+
     def path_length(self, nodes: list[str]) -> float:
         """Sum of shortest-path distances over consecutive node pairs
         (parity: tasks/viewpoint_select/eval.py:82-90)."""

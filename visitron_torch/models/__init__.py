@@ -7,7 +7,7 @@ from visitron_torch.models.encoder import OscarEncoder
 from visitron_torch.models.lstm import LSTM, lstm_cell_step, masked_lstm_scan
 from visitron_torch.models.pretrain import (PretrainModel, masked_accuracy,
                                             masked_cross_entropy, pretrain_loss)
-from visitron_torch.models.speaker import Critic
+from visitron_torch.models.speaker import Critic, SpeakerDecoder, SpeakerEncoder
 
 __all__ = [
     "BertConfig",
@@ -27,4 +27,6 @@ __all__ = [
     "masked_accuracy",
     "pretrain_loss",
     "Critic",
+    "SpeakerEncoder",
+    "SpeakerDecoder",
 ]

@@ -9,6 +9,9 @@
               run's checkpoint (``--model_name_or_path``)
   pretrain    multimodal (MLM + action + region-token) pretraining
   datagen     pretraining-example generation (path walks)
+  speaker     train a speaker (trajectory -> instruction) on the nav data
+  augment     caption sampled walks with a trained speaker -> R2R-format
+              augmentation JSON (``viewpoint --aug_data``)
 
 ``--config run_configs/....json`` reads an experiment file; flags given
 after it override its values (only those present on the command line, so
@@ -16,8 +19,8 @@ a flag set to its default still wins).  ``--debug`` runs in a synthetic
 world.
 
 The JAX package's other tasks are not ported yet and exit with a message
-naming their ROADMAP items: speaker and augment (item 7), extract_scene and
-extract_regions (item 9).  Device meshes, ZeRO-1 and FSDP (item 10) raise.
+naming their ROADMAP item: extract_scene and extract_regions (item 9).
+Device meshes, ZeRO-1 and FSDP (item 10) raise.
 """
 
 from __future__ import annotations
@@ -25,12 +28,12 @@ from __future__ import annotations
 import dataclasses
 import sys
 
+import torch
+
 from visitron_torch.config import RunConfig, refuse_unported_hardware
 from visitron_torch.train.workspace import Workspace
 
 UNPORTED_TASKS = {
-    "speaker": "ROADMAP item 7",
-    "augment": "ROADMAP item 7",
     "extract_scene": "ROADMAP item 9",
     "extract_regions": "ROADMAP item 9",
 }
@@ -129,8 +132,120 @@ def run_datagen(cfg: RunConfig, device=None):
         logger.info("wrote %s pretraining data under %s", ds, out)
 
 
+def _speaker_for(cfg: RunConfig, ws: Workspace, device=None):
+    from visitron_torch.agents.speaker import SpeakerAgent
+
+    tok = ws.tokenizer
+    return SpeakerAgent(
+        runtime=ws.runtime, feature_dim=cfg.lstm_img_feature_dim, vocab_size=len(tok),
+        bos_id=tok.vocab[tok.cls_token], eos_id=tok.vocab[tok.sep_token],
+        pad_id=tok.pad_token_id, episode_len=cfg.episode_len, max_words=cfg.max_words,
+        hidden_size=cfg.rnn_dim, dropout=cfg.dropout, learning_rate=cfg.learning_rate,
+        seed=cfg.seed, feat_dropout=cfg.speaker_feat_dropout,
+        movement_frame=cfg.speaker_movement_frame, device=device)
+
+
+def run_speaker(cfg: RunConfig, device=None):
+    """Train a speaker on the nav training data's (teacher trajectory, text)
+    pairs through the shared train loop; at each checkpoint the held-out
+    word CE of four val_seen batches is logged (when the split exists).
+    Checkpoints land in --output_dir for ``augment``."""
+    import types
+
+    from visitron_torch.agents.batcher import NavEpisodeBatcher
+    from visitron_torch.agents.speaker import SpeakerAgent
+    from visitron_torch.train.checkpoint import CheckpointManager
+    from visitron_torch.train.finetune import nav_batcher, viewpoint_instances
+    from visitron_torch.train.logging import setup_logger
+    from visitron_torch.train.loop import restore_latest, run_loop
+
+    ws = _workspace_for_nav(cfg, device)
+    logger = setup_logger(output_dir=cfg.output_dir)
+    instances = viewpoint_instances(cfg, ws, ["train"], logger)
+    sp = _speaker_for(cfg, ws, device)
+    batch_size = cfg.train_batch_size(1)
+    batcher = nav_batcher(cfg, ws, instances, batch_size)
+    text_by_idx = {i.inst_idx: SpeakerAgent.instance_text(i) for i in instances}
+    val_batches = []
+    try:
+        val_inst = viewpoint_instances(cfg, ws, ["val_seen"], logger)
+        vb = NavEpisodeBatcher(val_inst, ws.runtime, batch_size=batch_size,
+                               path_type=cfg.path_type, seed=cfg.seed)
+        val_text = {i.inst_idx: SpeakerAgent.instance_text(i) for i in val_inst}
+        val_batches = [sp.attach_words(b, ws.tokenizer, val_text)
+                       for b in vb.train_batches(4, episode_len=cfg.episode_len)]
+    except FileNotFoundError:
+        logger.info("no val_seen split; skipping speaker validation")
+    eval_loss = sp.eval_loss_fn()
+
+    def log_val(it, state):
+        if val_batches:
+            ce = torch.stack([eval_loss(state["params"], b) for b in val_batches]).mean()
+            logger.info("speaker ckpt %d val word-CE %.4f", it, float(ce))
+
+    trainer = types.SimpleNamespace(
+        cfg=cfg, logger=logger, device=sp.device,
+        ckpt=CheckpointManager(cfg.output_dir, async_save=cfg.async_checkpoints))
+    state, start_it = sp.init_state(), 0
+    if cfg.resume:
+        state, start_it = restore_latest(trainer.ckpt, state, logger)
+        batcher.skip_batches(start_it)
+    batches = (sp.attach_words(b, ws.tokenizer, text_by_idx)
+               for b in batcher.train_batches(cfg.num_iterations - start_it,
+                                              episode_len=cfg.episode_len))
+    state, _ = run_loop(trainer, sp.train_step_fn(), batches, state, start_it,
+                        on_save=log_val)
+    return state
+
+
+def run_augment(cfg: RunConfig, device=None):
+    """Caption sampled shortest-path walks with the latest speaker
+    checkpoint of --speaker_checkpoint (or --output_dir) and write
+    R2R-format augmentation JSON to <output_dir>/aug_data.json; with
+    --aug_targets each record carries a target word of the NDH train
+    split."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from visitron_torch.agents.speaker import write_aug_records
+    from visitron_torch.data.datasets import load_split
+    from visitron_torch.train.checkpoint import CheckpointManager
+
+    ws = _workspace_for_nav(cfg, device)
+    sp = _speaker_for(cfg, ws, device)
+    ckpt = CheckpointManager(cfg.speaker_checkpoint or cfg.output_dir)
+    step = ckpt.latest()
+    if step is None:
+        raise SystemExit(f"no speaker checkpoint under {ckpt.output_dir!r}; run "
+                         "`run.py speaker` first or pass --speaker_checkpoint")
+    params = ckpt.restore(step, {"params": sp.init_params()})["params"]
+    target_vocab = None
+    if cfg.aug_targets:
+        # Targets of the NDH train split, so that the records carry the
+        # real instances' [TAR] span.
+        if ws.synthetic is not None:
+            with tempfile.TemporaryDirectory(prefix="visitron_synth_") as root:
+                ws.synthetic.write_task_data(root)
+                items = load_split(root, ["train"], "NDH")
+        else:
+            items = load_split(cfg.data_root, ["train"], "NDH")
+        target_vocab = sorted({str(item["target"]) for item in items})
+    records = sp.augment(params, ws.tokenizer, np.random.default_rng(cfg.seed), cfg.num_aug,
+                         temperature=cfg.aug_temperature,
+                         keep_fraction=cfg.aug_keep_fraction or None,
+                         target_vocab=target_vocab)
+    out = os.path.join(cfg.output_dir, "aug_data.json")
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    write_aug_records(records, out)
+    print(f"wrote {len(records)} augmentation records to {out}")
+    return out
+
+
 # Each task runs through run_<task>, looked up when it runs.
-TASKS = ("viewpoint", "turn_based", "classifier", "pretrain", "datagen")
+TASKS = ("viewpoint", "turn_based", "classifier", "pretrain", "datagen", "speaker",
+         "augment")
 
 
 def main(argv=None, device=None):

@@ -16,9 +16,10 @@ written as predictions in the EvalAI format and scored by the
 ``Evaluator`` (train.py:326-348).  ``test_submission()`` writes the
 submission of a split from the latest checkpoint.
 
-Everything runs on the trainer's device (``device=None``: the card), the
-workspace's.  Device meshes, ZeRO-1 and ``--aug_data`` are not ported
-(ROADMAP items 10 and 7) and raise.
+``--aug_data`` appends the speaker-generated instances of that file
+(``run augment``) to the train split.  Everything runs on the trainer's
+device (``device=None``: the card), the workspace's.  Device meshes and
+ZeRO-1 are not ported (ROADMAP item 10) and raise.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from visitron_torch._device import resolve_device
 from visitron_torch.agents import ViewpointAgent
 from visitron_torch.agents.batcher import NavEpisodeBatcher
+from visitron_torch.agents.speaker import build_aug_instances
 from visitron_torch.config import RunConfig, refuse_unported_hardware
 from visitron_torch.data.datasets import build_nav_instances
 from visitron_torch.evaluation import Evaluator
@@ -53,6 +55,20 @@ def nav_instances(cfg: RunConfig, ws: Workspace, splits) -> list:
         add_r4r=cfg.add_r4r_data, add_rxr=cfg.add_rxr_data,
         oscar_setting=cfg.oscar_setting, tar_back=cfg.tar_back,
         max_seq_length=cfg.max_seq_length)
+
+
+def viewpoint_instances(cfg: RunConfig, ws: Workspace, splits, logger) -> list:
+    """:func:`nav_instances`, and with ``--aug_data`` the speaker-generated
+    instances of that file after a train split's (the viewpoint trainer's
+    and the speaker's training data)."""
+    instances = nav_instances(cfg, ws, splits)
+    if cfg.aug_data and "train" in splits:
+        aug = build_aug_instances(cfg.aug_data, ws.tokenizer,
+                                  max_seq_length=cfg.max_seq_length,
+                                  oscar_setting=cfg.oscar_setting, tar_back=cfg.tar_back)
+        logger.info("aug_data: +%d speaker-generated instances", len(aug))
+        instances = instances + aug
+    return instances
 
 
 def nav_batcher(cfg: RunConfig, ws: Workspace, instances, batch_size: int):
@@ -99,10 +115,7 @@ class ViewpointTrainer:
         self.preempted = False
 
     def _instances(self, splits):
-        if self.cfg.aug_data and "train" in splits:
-            raise NotImplementedError(
-                "--aug_data: speaker augmentation is not ported yet (ROADMAP item 7)")
-        return nav_instances(self.cfg, self.ws, splits)
+        return viewpoint_instances(self.cfg, self.ws, splits, self.logger)
 
     def _batcher(self, instances, batch_size):
         return nav_batcher(self.cfg, self.ws, instances, batch_size)

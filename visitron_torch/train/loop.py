@@ -1,5 +1,6 @@
-"""The train loop of the fine-tuning, turn-based and classifier trainers
-(the loop each trainer of visitron_tpu/train/ writes out for itself).
+"""The train loop of the fine-tuning, turn-based, classifier and speaker
+trainers (the loop each trainer of visitron_tpu/train/ and the JAX
+package's ``run_speaker`` write out for themselves).
 
 ``restore_latest`` resumes a state from the latest checkpoint; the caller
 then replays its batch schedule to that iteration.  ``run_loop`` runs the
@@ -39,11 +40,13 @@ def restore_latest(ckpt, state: dict, logger) -> tuple[dict, int]:
 
 
 def run_loop(trainer, step, batches, state: dict, start_it: int = 0,
-             profile_steps: int = 0) -> tuple[dict, bool]:
+             profile_steps: int = 0, on_save=None) -> tuple[dict, bool]:
     """(state, preempted) after ``state, out = step(state, batch)`` over
     ``batches`` for iterations start_it + 1 .. ``num_iterations`` (``out``
     is the loss or (loss, aux)); ``trainer`` gives the run's ``cfg``,
-    ``ckpt``, ``logger`` and ``device``."""
+    ``ckpt``, ``logger`` and ``device``.  ``on_save(it, state)`` runs after
+    each save at ``saving_steps`` and at the last iteration (the speaker's
+    held-out word CE), not after a preemption save."""
     cfg, ckpt = trainer.cfg, trainer.ckpt
     metrics = MetricsLogger(cfg.output_dir, "train")
     losses, aux = [], None
@@ -68,6 +71,8 @@ def run_loop(trainer, step, batches, state: dict, start_it: int = 0,
             saved = it % cfg.saving_steps == 0 or it == cfg.num_iterations
             if saved:
                 ckpt.save(it, state["params"], state["opt_state"])
+                if on_save is not None:
+                    on_save(it, state)
             if guard.should_stop(it):
                 if not saved:
                     ckpt.save(it, state["params"], state["opt_state"], wait=True)
