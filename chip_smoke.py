@@ -203,7 +203,33 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               viewpoint --aug_data`` (ndh_oscar_setting.json) 2 iterations:
               the train split grows by 64, launches per iteration 0 (speaker)
               and K1f 12, K1b 12, K2f 25, K2b 25 (fine-tune), ms per
-              iteration beside phase 22's viewpoint iteration.
+              iteration beside phase 22's viewpoint iteration;
+ 29. options: VisitronBert with history K/V at BERT-base width (bf16,
+              batch 16, 128 fresh tokens over 384 history tokens a layer):
+              launches (K2f 25, K1f 0: the plain attention), ms, and fp32
+              card vs CPU on 2 items; the bidirectional OscarEncoder fp32
+              card vs CPU (zeros at the pads); ``run viewpoint --debug
+              --no_use_fused_layernorm`` 2 iterations (K1f 12, K1b 12, K2f 0,
+              K2b 0 an iteration) beside phase 22's iteration;
+ 30. scene:   the scene extractor (ResNet-152, 640x480, VFOV 60) in faces
+              mode on seeded 1024 px uint8 faces, 2 panoramas (72 views) a
+              forward, bf16 and fp32: frames/s (CUDA events), the idle share
+              (torch.profiler), peak memory, conv FLOPs a view and their
+              share of 989 / 67 TFLOP/s, the bf16-vs-fp32 drift, fp32 card
+              vs CPU on 2 views;
+ 31. regions: the bottom-up Faster R-CNN (ResNet-101, 1601 classes, 401
+              attributes, 300 ROIs, pre-NMS 6000) from a seeded caffe-layout
+              dump, 600x600 at VFOV 80, 6 views a dispatch, fp32 and bf16:
+              frames/s, the idle share, peak memory, nms_fixed's ms and
+              launches a dispatch (run once under
+              torch.cuda.set_sync_debug_mode("error")), the host's
+              post-processing of one view, fp32 card vs CPU on one view (the
+              kept proposals up to the first near tie);
+ 32. extract: ``run extract_scene`` with a seeded torchvision-layout
+              ResNet-152 .pth and ``run extract_regions`` with a seeded .npz
+              dump and 1601 / 401-line vocabularies over a 2-viewpoint scan
+              of 1024 px skybox JPEGs at full geometry: the TSV read back,
+              verify_region_store, no K1-K5 launch, ms a viewpoint.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
@@ -211,7 +237,8 @@ K3b, K4f and K4b: pretrain; K5f and K5b: long-context pretrain), max error,
 and times, for the four NDH kernels their launches in the timed runs of
 phases 11, 16 and 17 (``path_launches``), and for every kernel its launches
 per iteration of phase 22's viewpoint and pretrain runs and of phases
-23-25's and 28's runs (``cli_launches``), and the count of device times that no
+23-25's, 28's, 29's and 32's runs (``cli_launches``), in phases 29-31's
+paths (``option_and_feature_launches``), and the count of device times that no
 torch.profiler session gave (``device_times_unmeasured``; such a time is
 null, and the run fails where K1f, K2f, K1b or K2b has none); the last line
 is ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
@@ -504,7 +531,7 @@ def phase_device() -> dict:
     say(f"device: {kind} (count {count}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(f"nvidia-smi: {smi}")
-    return {"platform": "gpu", "kind": kind, "count": count}
+    return {"platform": "gpu", "kind": kind, "count": count, "nvidia_smi": smi}
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -2760,6 +2787,490 @@ def phase_speaker_cli(device, tmp: str, cli: dict) -> dict:
     return out
 
 
+# -- phases 29-32: the model options no caller sets, the offline feature pipelines -------
+
+# Launches per iteration of `run viewpoint --no_use_fused_layernorm`: the
+# attention kernels as phase 22's, no LayerNorm kernel.
+CLI_NO_FUSED_LN = {"K1f": 12, "K1b": 12}
+# Card vs CPU in fp32 through ResNet-152 (scene) and the ResNet-101 detector:
+# summation order over 50-150 convolutions (no TF32), relative to the largest
+# value.  Probabilities: absolute.
+FEATURE_AGREE = 1e-3
+PROB_AGREE = 1e-4
+# Kept proposals are compared card vs CPU up to the first pick whose score
+# is within this of the next one's (a near tie may pick in either order).
+NMS_MARGIN = 1e-5
+
+
+def feature_launches(what: str) -> dict:
+    """Launches of every kernel since the last zero_counts(), printed; a
+    feature path launches none of K1-K5."""
+    counts = read_counts()
+    say(f"  launches of K1-K5 in {what}: {sum(counts.values())}")
+    if any(counts.values()):
+        fail(f"{what} launched {counts}")
+    return counts
+
+
+def peak_gib() -> float:
+    return 0.0 if REHEARSAL else torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def reset_peak() -> None:
+    if not REHEARSAL:
+        torch.cuda.reset_peak_memory_stats()
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def phase_options(device, opt) -> dict:
+    """29. History K/V and the bidirectional LSTM (the --no_use_fused_layernorm
+    CLI run is phase_no_fused_ln_cli)."""
+    from visitron_torch.models import OscarEncoder, VisitronBert
+    from visitron_torch.models.layers import init_module_params
+
+    b, q, p = opt["batch"], opt["fresh"], opt["history"]
+    cfg = BertConfig(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     dtype=opt["dtype"], **opt["bert"])
+    say(f"options: VisitronBert with history K/V ({cfg.num_hidden_layers} layers, "
+        f"hidden {cfg.hidden_size}, {cfg.num_attention_heads} heads, batch {b}, {q} fresh "
+        f"tokens over {p} history tokens a layer, {str(cfg.dtype).split('.')[-1]})")
+    t_phase = time.perf_counter()
+    g = np.random.default_rng(SEED)
+    ids = g.integers(0, cfg.vocab_size, (b, q))
+    mask = (np.arange(q)[None] < g.integers(q // 2, q + 1, (b, 1))).astype(np.int64)
+    hist = g.standard_normal((cfg.num_hidden_layers, b, p, cfg.hidden_size)).astype(np.float32)
+    sd = init_module_params(VisitronBert(cfg, image=False), torch.Generator().manual_seed(SEED))
+
+    def run(dtype, dev, n):
+        model = VisitronBert(cfg.replace(dtype=dtype), image=False).to(dev)
+        params = {k: v.to(dev) for k, v in sd.items()}
+        args = (torch.as_tensor(ids[:n], device=dev),)
+        kw = {"attention_mask": torch.as_tensor(mask[:n], device=dev),
+              "history_states": torch.as_tensor(hist[:, :n], device=dev).to(dtype)}
+        return lambda: functional_call(model, params, args, kw)
+
+    fwd = run(cfg.dtype, device, b)
+    with torch.inference_mode():
+        zero_counts()
+        seq, pooled = fwd()
+        sync()
+        counts = read_counts()
+        ms = time_ms(fwd, iters=10, warmup=2)
+    want = {k: 0 for k in COUNTED}
+    want["K2f"] = 2 * cfg.num_hidden_layers + 1
+    say(f"  forward: {ms:.2f} ms (CUDA events, mean of 10); launches K2f {counts['K2f']}, "
+        f"K1f {counts['K1f']} (every layer takes the plain attention over {p + q} keys)")
+    if (not REHEARSAL and counts != want) or not (torch.isfinite(seq).all()
+                                                  and torch.isfinite(pooled).all()):
+        fail(f"history K/V forward: launches {counts} (expected {want}), or non-finite")
+    n = opt["agree"]
+    with torch.inference_mode():
+        card, cpu = run(torch.float32, device, n)(), run(torch.float32, "cpu", n)()
+    for name, got, ref in zip(("sequence", "pooled"), card, cpu):
+        err = check_close(f"history K/V fp32 {name}, card vs CPU", got.cpu(), ref, AGREE_TOL)
+        say(f"  history K/V fp32 {name} ({n} items), card vs CPU: max error {err:.3e}")
+
+    ecfg = cfg.replace(dtype=torch.float32, max_position_embeddings=q)
+    enc_sd = init_module_params(OscarEncoder(ecfg, bidirectional=True),
+                                torch.Generator().manual_seed(SEED + 1))
+    lengths = np.array([q, q // 3] + [q // 2] * (n - 2))[:n]
+    outs = {}
+    for dev in (device, "cpu"):
+        enc = OscarEncoder(ecfg, bidirectional=True).to(dev)
+        with torch.inference_mode():
+            outs[dev] = functional_call(enc, {k: v.to(dev) for k, v in enc_sd.items()},
+                                        (torch.as_tensor(ids[:n], device=dev),
+                                         torch.as_tensor(lengths, device=dev)))
+    for name, got, ref in zip(("ctx", "h0", "c0"), outs[device], outs["cpu"]):
+        err = check_close(f"bidirectional OscarEncoder {name}", got.cpu(), ref, AGREE_TOL)
+        say(f"  bidirectional OscarEncoder {name} {tuple(ref.shape)} fp32, card vs CPU: "
+            f"max error {err:.3e}")
+    if outs["cpu"][0][1, lengths[1]:].abs().max() != 0 or \
+            outs[device][0][1, lengths[1]:].abs().max() != 0:
+        fail("bidirectional LSTM: outputs at pads not zero")
+    say(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "ms": ms}
+
+
+def phase_no_fused_ln_cli(device, tmp: str, cli: dict) -> dict:
+    """29 (CLI). ``run viewpoint --debug --no_use_fused_layernorm`` for 2
+    iterations (phase 22's config and world): launches per iteration, ms
+    beside phase 22's viewpoint iteration."""
+    say("options: run viewpoint --debug --no_use_fused_layernorm, 2 iterations")
+    with BoundaryHooks() as hooks:
+        rows = hooks.run(["viewpoint", "--config",
+                          "run_configs/viewpoint_train/ndh_oscar_setting.json", "--debug",
+                          "--no_use_fused_layernorm", "--num_iterations", "2",
+                          "--saving_steps", "2", "--logging_steps", "1", "--eval_iters", "2",
+                          "--output_dir", os.path.join(tmp, "no_fused_ln")]
+                         + (REHEARSAL_SEQ if REHEARSAL else []), device)
+    counts = check_iteration_launches("viewpoint --no_use_fused_layernorm", rows,
+                                      CLI_NO_FUSED_LN)
+    ms = rows[-1][1]
+    say(f"  ms of iteration 2: {ms:.1f}, phase 22's viewpoint iteration {cli['vp_ms']:.1f} "
+        f"({ms / cli['vp_ms']:.2f}x)")
+    return {"counts": counts, "ms": ms}
+
+
+def conv_flops(model, images) -> int:
+    """FLOPs (2 a multiply-add) of the convolutions of one image, from the
+    shapes a forward hook sees."""
+    total = [0]
+
+    def hook(mod, _, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1] * mod.in_channels // mod.groups
+        total[0] += 2 * k * out[0].numel()
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        model(images[:1])
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def phase_scene(device, sc) -> dict:
+    """30. The scene extractor in faces mode at its production geometry:
+    frames/s, idle share, peak memory, FLOP share, bf16 drift, fp32 card vs
+    CPU."""
+    from visitron_torch.models.resnet import ResNet, random_state
+    from visitron_torch.pipelines.scene_features import SceneFeatureExtractor
+
+    n_views = sc["panos"] * geo.NUM_VIEWS
+    say(f"scene features: ResNet-{sc['depth']} at {sc['w']}x{sc['h']}, VFOV {sc['vfov']}, "
+        f"faces mode ({sc['face']} px uint8 faces), {sc['panos']} panoramas ({n_views} "
+        "views) a forward, bf16 and fp32")
+    t_phase = time.perf_counter()
+    state = random_state(ResNet(sc["depth"]), SEED)
+    faces = np.random.default_rng(SEED).integers(
+        0, 256, (sc["panos"], 6, sc["face"], sc["face"], 3), dtype=np.uint8)
+    out, feats = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        ex = SceneFeatureExtractor(state=state, depth=sc["depth"], image_w=sc["w"],
+                                   image_h=sc["h"], vfov=sc["vfov"],
+                                   viewpoints_per_batch=sc["panos"], dtype=dt, device=device)
+        reset_peak()
+        zero_counts()
+        feats[dt] = ex.forward_faces(faces)
+        counts = feature_launches(f"a {name} scene forward")
+        ms = time_ms(lambda: ex.forward_faces(faces), iters=sc["iters"], warmup=1)
+        peak = peak_gib()
+        idle = None if REHEARSAL else profile_device(lambda: ex.forward_faces(faces),
+                                                     f"{name} scene forward")
+        views = ex._lut.render_torch(torch.as_tensor(faces[:1], device=device), dtype=dt)[0]
+        flops = conv_flops(ex.model, views)
+        share = flops * n_views / (ms / 1e3) / PEAK_OPS_PER_S[dt]
+        say(f"  {name}: {ms:.2f} ms a forward of {n_views} views (CUDA events, mean of "
+            f"{sc['iters']}), {n_views / ms * 1e3:.1f} frames/s; conv {flops / 1e9:.2f} "
+            f"GFLOP a view, {share:.1%} of {PEAK_OPS_PER_S[dt] / 1e12:.0f} TFLOP/s; peak "
+            f"{peak:.2f} GiB")
+        if feats[dt].shape != (n_views, 2048) or not np.isfinite(feats[dt]).all():
+            fail(f"scene features {feats[dt].shape}, or non-finite")
+        out[name] = {"ms": ms, "fps": n_views / ms * 1e3, "idle": idle, "peak_gib": peak,
+                     "gflop_per_view": flops / 1e9, "flop_share": share, "counts": counts}
+        if dt == torch.float32:
+            with torch.inference_mode():
+                card = ex.model(views[:sc["agree_views"]])
+            cpu_model = ResNet(sc["depth"])
+            cpu_model.load_state_dict(ex.model.state_dict())
+            with torch.inference_mode():
+                ref = cpu_model(views[:sc["agree_views"]].cpu())
+            err = rel_err(card, ref)
+            say(f"  fp32 card vs CPU ({sc['agree_views']} views): max error {err:.3e} of "
+                f"the largest feature (limit {FEATURE_AGREE})")
+            if err > FEATURE_AGREE:
+                fail("scene features: fp32 card and CPU disagree")
+            out["agree"] = err
+    bf, f32 = feats[torch.bfloat16], feats[torch.float32]
+    drift = np.linalg.norm(bf - f32, axis=1) / np.linalg.norm(f32, axis=1)
+    say(f"  bf16 vs fp32 features: relative L2 drift mean {drift.mean():.3e}, max "
+        f"{drift.max():.3e}")
+    out["drift"] = {"mean": float(drift.mean()), "max": float(drift.max())}
+    say(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def caffe_dump(depth: int, classes: int, attrs: int, seed: int) -> dict:
+    """Random weights in the bottom-up caffe dump layout
+    (models/detector.py:convert_caffe_bottomup) from ``seed``, with
+    tests/test_detector_torch_parity.py's distributions.  At 600 px every
+    proposal of this detector grows to the whole image and NMS keeps one
+    ROI a view (see spread_proposals)."""
+    from visitron_torch.models.detector import _caffe_stage_names
+    from visitron_torch.models.resnet import STAGE_BLOCKS
+
+    rng = np.random.default_rng(seed)
+    s: dict = {}
+
+    def conv(name, cout, cin, k, bias=False):
+        s[name + ".weight"] = (rng.standard_normal((cout, cin, k, k), np.float32)
+                               / np.float32(np.sqrt(cin * k * k)))
+        if bias:
+            s[name + ".bias"] = rng.normal(0, 0.02, cout).astype(np.float32)
+
+    def bn(cname, c):
+        s[f"bn{cname}.mean"] = rng.normal(0, 0.05, c).astype(np.float32)
+        s[f"bn{cname}.var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        s[f"scale{cname}.weight"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+        s[f"scale{cname}.bias"] = rng.normal(0, 0.05, c).astype(np.float32)
+
+    def dense(name, cout, cin):
+        s[name + ".weight"] = (rng.standard_normal((cout, cin), np.float32)
+                               / np.float32(np.sqrt(cin)))
+        s[name + ".bias"] = rng.normal(0, 0.02, cout).astype(np.float32)
+
+    conv("conv1", 64, 3, 7)
+    bn("_conv1", 64)
+    names = _caffe_stage_names(depth)
+    inplanes = 64
+    for si, n in enumerate(STAGE_BLOCKS[depth]):
+        width = 64 * 2 ** si
+        for bi in range(n):
+            cn = names[(si, bi)].removeprefix("res")
+            for part, (cout, cin, k) in zip("abc", ((width, inplanes if bi == 0 else width * 4, 1),
+                                                    (width, width, 3), (width * 4, width, 1))):
+                conv(f"res{cn}_branch2{part}", cout, cin, k)
+                bn(f"{cn}_branch2{part}", cout)
+            if bi == 0:
+                conv(f"res{cn}_branch1", width * 4, inplanes, 1)
+                bn(f"{cn}_branch1", width * 4)
+        inplanes = width * 4
+    conv("rpn_conv/3x3", 512, 1024, 3, bias=True)
+    conv("rpn_cls_score", 24, 512, 1, bias=True)
+    conv("rpn_bbox_pred", 48, 512, 1, bias=True)
+    dense("cls_score", classes, 2048)
+    dense("bbox_pred", 4 * classes, 2048)
+    s["cls_embedding.weight"] = rng.normal(0, 0.1, (classes, 256)).astype(np.float32)
+    dense("fc_attr", 512, 2048 + 256)
+    dense("attr_score", attrs, 512)
+    return s
+
+
+def spread_proposals(dump: dict) -> dict:
+    """``dump`` with conv1 scaled for caffe's input (0-255 pixels less their
+    means, ~64x the unit scale) and the RPN's box regression and objectness
+    made small: the proposals spread over the image near their anchors with
+    unsaturated scores, and NMS keeps its full ``num_rois``, as with trained
+    weights."""
+    out = dict(dump)
+    for name, factor in (("conv1.weight", 1 / 64), ("rpn_bbox_pred.weight", 0.01),
+                         ("rpn_cls_score.weight", 0.1)):
+        out[name] = dump[name] * np.float32(factor)
+    return out
+
+
+def kernel_count(fn) -> int | None:
+    """Device kernels one call of ``fn`` launches (torch.profiler); None
+    when the profiler recorded none, or in a rehearsal."""
+    if REHEARSAL:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def kept_prefix(scores: np.ndarray) -> int:
+    """Picks of a (R,) NMS score list that are decided: up to the first whose
+    score is within NMS_MARGIN of the next live one."""
+    live = scores > np.finfo(np.float32).min / 2
+    n = int(live.sum())
+    gaps = np.where(scores[:n - 1] - scores[1:n] < NMS_MARGIN)[0]
+    return int(gaps[0]) + 1 if len(gaps) else n
+
+
+def phase_regions(device, rg) -> dict:
+    """31. The bottom-up detector at its production configuration: frames/s,
+    idle share, peak memory, nms_fixed's ms and launches a dispatch (and no
+    synchronising call in it), fp32 card vs CPU on one view."""
+    from visitron_torch.models.detector import BottomUpDetector, nms_fixed
+    from visitron_torch.pipelines.region_features import RegionFeatureExtractor
+
+    per = rg["per_dispatch"]
+    say(f"region features: FasterRCNN ResNet-{rg['depth']} from a seeded caffe-layout dump "
+        f"({rg['classes']} classes, {rg['attrs']} attributes, {rg['rois']} ROIs, pre-NMS "
+        f"{rg['pre_nms']}), {rg['side']}x{rg['side']} at VFOV {rg['vfov']}, {per} views a "
+        f"dispatch, fp32 and bf16")
+    t_phase = time.perf_counter()
+    dump = spread_proposals(caffe_dump(rg["depth"], rg["classes"], rg["attrs"], SEED))
+    faces = np.random.default_rng(SEED + 1).integers(
+        0, 256, (6, rg["face"], rg["face"], 3), dtype=np.uint8)
+    kw = dict(depth=rg["depth"], num_classes=rg["classes"], num_attributes=rg["attrs"],
+              num_rois=rg["rois"], pre_nms_top_n=rg["pre_nms"])
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        det = BottomUpDetector.from_caffe_dump(dump, dtype=dt, device=device, **kw)
+        ex = RegionFeatureExtractor(det, [f"c{i}" for i in range(rg["classes"])],
+                                    [f"a{i}" for i in range(rg["attrs"])],
+                                    image_w=rg["side"], image_h=rg["side"], vfov=rg["vfov"])
+        views = ex.render(faces)
+        batches = [views[s:s + per] for s in range(0, geo.NUM_VIEWS, per)][:rg["dispatches"]]
+        n_views = per * len(batches)
+        reset_peak()
+        zero_counts()
+        raws = det.detect_batch(batches[0])
+        counts = feature_launches(f"a {name} detector dispatch")
+        ms = time_ms(lambda: [det.detect_batch(b) for b in batches], iters=2, warmup=1)
+        peak = peak_gib()
+        idle = None if REHEARSAL else profile_device(lambda: det.detect_batch(batches[0]),
+                                                     f"{name} detector dispatch")
+        live = [len(r["boxes"]) for r in raws]
+        t0 = time.perf_counter()
+        ex._postprocess(raws[0], geo.heading_of_view(0), geo.elevation_of_view(0))
+        post_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            feat = det.model.body(batches[0])
+            boxes, scores = det.model.proposals(feat, rg["side"], rg["side"])
+            nms = lambda: nms_fixed(boxes, scores, det.model.nms_thresh, rg["rois"])  # noqa: E731
+            nms_ms = time_ms(nms, iters=5, warmup=1)
+            launches = kernel_count(nms)
+            sync()
+            if not REHEARSAL:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                nms()
+            finally:
+                if not REHEARSAL:
+                    torch.cuda.set_sync_debug_mode(0)
+        say(f"  {name}: {ms / len(batches):.2f} ms a dispatch of {per} views ({n_views} views "
+            f"in {ms:.2f} ms, CUDA events), {n_views / ms * 1e3:.1f} frames/s; live ROIs a "
+            f"view {min(live)}-{max(live)}; peak {peak:.2f} GiB; nms_fixed {nms_ms:.2f} ms a "
+            f"dispatch ({per} x {boxes.shape[1]} proposals, {rg['rois']} picks), "
+            f"{launches} launches, no synchronising call; the host's post-processing "
+            f"(ops/detection.py: per-class NMS over {rg['classes'] - 1} classes, dedup, "
+            f"tokens) {post_s:.2f} s for one view of {live[0]} live ROIs")
+        if any(not np.isfinite(r["features"]).all() for r in raws) or \
+                min(live) < rg["rois"] // 2:
+            fail(f"detector: non-finite features, or views with {min(live)} live ROIs")
+        out[name] = {"ms_dispatch": ms / len(batches), "fps": n_views / ms * 1e3,
+                     "idle": idle, "peak_gib": peak, "nms_ms": nms_ms,
+                     "nms_launches": launches, "counts": counts, "live": live,
+                     "post_s_per_view": post_s}
+        if dt == torch.float32:
+            out["agree"] = region_agreement(det, dump, kw, views[:1])
+    say(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def region_agreement(det, dump, kw, view) -> dict:
+    """fp32 card vs CPU on one view: the kept proposals equal up to the first
+    near tie (NMS_MARGIN) of the CPU's scores, features and probabilities of
+    those rows within FEATURE_AGREE / PROB_AGREE."""
+    from visitron_torch.models.detector import BottomUpDetector
+
+    cpu = BottomUpDetector.from_caffe_dump(dump, device="cpu", **kw)
+    with torch.inference_mode():
+        card = {k: v[0].cpu() for k, v in det.model(view).items()}
+        ref = {k: v[0] for k, v in cpu.model(view.cpu()).items()}
+    n = kept_prefix(ref["scores"].numpy())
+    live = int((ref["scores"] > np.finfo(np.float32).min / 2).sum())
+    errs = {"boxes": rel_err(card["boxes"][:n], ref["boxes"][:n]) if n else 0.0,
+            "features": rel_err(card["features"][:n], ref["features"][:n]) if n else 0.0}
+    for k in ("cls_prob", "attr_prob"):
+        errs[k] = float((card[k][:n] - ref[k][:n]).abs().max()) if n else 0.0
+    say(f"  fp32 card vs CPU (1 view): {n} of {live} live picks before the first score "
+        f"margin below {NMS_MARGIN}; their boxes within {errs['boxes']:.2e} of the "
+        f"largest coordinate, features {errs['features']:.2e} of the largest, cls_prob "
+        f"{errs['cls_prob']:.2e}, attr_prob {errs['attr_prob']:.2e}")
+    if n == 0 or errs["boxes"] > 1e-5 or errs["features"] > FEATURE_AGREE \
+            or max(errs["cls_prob"], errs["attr_prob"]) > PROB_AGREE:
+        fail("detector: fp32 card and CPU disagree")
+    return {"picks_compared": n, "live": live, **errs}
+
+
+def write_skyboxes(root: str, scan: str, vps, face: int, seed: int) -> None:
+    """Matterport-layout skybox JPEGs of seeded uint8 faces under ``root``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, scan, "matterport_skybox_images")
+    os.makedirs(d)
+    for vp in vps:
+        for i in range(6):
+            Image.fromarray(rng.integers(0, 256, (face, face, 3), dtype=np.uint8)).save(
+                os.path.join(d, f"{vp}_skybox{i}_sami.jpg"), quality=95)
+
+
+def phase_extract_cli(device, tmp: str, ec) -> dict:
+    """32. ``run extract_scene`` with a seeded torchvision-layout ResNet-152
+    .pth and ``run extract_regions`` with a seeded .npz caffe dump and
+    1601 / 401-line vocabularies, over a 2-viewpoint scan of 1024 px skybox
+    faces at full geometry: the TSV read back, verify_region_store, no K1-K5
+    launch, ms a viewpoint."""
+    from visitron_torch import run as cli
+    from visitron_torch.data.features import read_tsv_img_features
+    from visitron_torch.models.resnet import ResNet, random_state
+    from visitron_torch.pipelines.region_features import verify_region_store
+
+    say("extract CLI: run extract_scene and run extract_regions over a 2-viewpoint scan"
+        + (" (--debug geometry: random ResNet-50, StubDetector)" if REHEARSAL else
+           f" ({ec['face']} px faces, ResNet-{ec['depth']} .pth, ResNet-101 detector .npz)"))
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "extract")
+    conn = os.path.join(root, "conn")
+    os.makedirs(conn)
+    entries = [{"image_id": vp, "pose": [1, 0, 0, 2.0 * i, 0, 1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1],
+                "included": True, "unobstructed": [j != i for j in range(2)], "height": 1.5}
+               for i, vp in enumerate(("vpA", "vpB"))]
+    with open(os.path.join(conn, "sc1_connectivity.json"), "w") as f:
+        json.dump(entries, f)
+    write_skyboxes(os.path.join(root, "mp"), "sc1", ("vpA", "vpB"), ec["face"], SEED)
+    out = os.path.join(root, "out")
+    args = ["--connectivity_dir", conn, "--matterport_dir", os.path.join(root, "mp"),
+            "--output_dir", out, "--img_feature_file", os.path.join(out, "scene.tsv"),
+            "--region_feature_prefix", os.path.join(out, "regions")]
+    if REHEARSAL:
+        args = ["--debug"] + args
+    else:
+        pth = os.path.join(root, "resnet152.pth")
+        torch.save(random_state(ResNet(ec["depth"]), SEED), pth)
+        npz = os.path.join(root, "detector.npz")
+        np.savez(npz, **caffe_dump(101, 1601, 401, SEED))
+        for name, n, prefix in (("objects", 1601, "obj"), ("attributes", 401, "attr")):
+            with open(os.path.join(root, f"{name}.txt"), "w") as f:
+                f.write("\n".join(["__background__" if name == "objects" else
+                                   "__no_attribute__"] + [f"{prefix}{i}" for i in range(n - 1)]))
+        args += ["--resnet_checkpoint", pth, "--detector_weights", npz,
+                 "--objects_vocab", os.path.join(root, "objects.txt"),
+                 "--attributes_vocab", os.path.join(root, "attributes.txt")]
+    os.makedirs(out)
+    res = {}
+    for task in ("extract_scene", "extract_regions"):
+        zero_counts()
+        t0 = time.perf_counter()
+        cli.main([task] + args, device=device)
+        res[task] = {"ms_per_viewpoint": (time.perf_counter() - t0) * 1e3 / 2,
+                     "counts": feature_launches(f"run {task}")}
+    tsv = read_tsv_img_features(os.path.join(out, "scene.tsv"), 2048)
+    shapes = {k: v.shape for k, v in tsv["features"].items()}
+    say(f"  extract_scene: {res['extract_scene']['ms_per_viewpoint']:.1f} ms a viewpoint "
+        f"with set-up; TSV read back {shapes}, {tsv['image_w']}x{tsv['image_h']} VFOV "
+        f"{tsv['vfov']}")
+    if shapes != {"sc1_vpA": (36, 2048), "sc1_vpB": (36, 2048)} or not all(
+            np.isfinite(v).all() for v in tsv["features"].values()):
+        fail(f"extract_scene TSV {shapes}, or non-finite")
+    ver = verify_region_store(os.path.join(out, "regions"))
+    say(f"  extract_regions: {res['extract_regions']['ms_per_viewpoint']:.1f} ms a viewpoint "
+        f"with set-up; verify_region_store {ver}" + ("" if REHEARSAL else
+        " (this seeded dump keeps one ROI a view, see caffe_dump: phase 31 times the "
+        "host's post-processing of a full view)"))
+    if ver["num_keys"] != 72 or ver["feature_dim"] != 2054:
+        fail(f"extract_regions store {ver}")
+    say(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 # -- phase 12: pretrain --------------------------------------------------------------
 
 def pretrain_batch(rng, sizes, vocab, img_dim, classes):
@@ -3074,7 +3585,7 @@ def phase_long_dropout_agreement(device, sizes) -> None:
 DEVICE_KEYS = ("device_ms", "library_device_ms", "step_device_ms")
 
 
-def kernels_line(times, sl, tr, pt, lc, st, rl, cli) -> dict:
+def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
     run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
@@ -3085,8 +3596,11 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli) -> dict:
     kernel carries ``cli_launches``: its launches per iteration of phase
     22's viewpoint and pretrain runs, of phase 23's turn_based run, per
     batch of its argmax rollout, per iteration of phase 24's classifier run,
-    of phase 25's viewpoint run from the HF file, and of phase 28's speaker
-    and ``--aug_data`` fine-tune runs."""
+    of phase 25's viewpoint run from the HF file, of phase 28's speaker
+    and ``--aug_data`` fine-tune runs, of phase 29's ``--no_use_fused_layernorm``
+    run and per run of phase 32's extract tasks; and
+    ``option_and_feature_launches``: its launches in phase 29's history-K/V
+    forward, a phase 30 scene forward and a phase 31 detector dispatch."""
     code = {fn.__name__: k for k, fn in COUNTED.items()}
     ndh = {"fused_attention_packed": "K1f", "fused_add_layernorm": "K2f",
            "fused_attention_packed_bwd": "K1b", "fused_add_layernorm_bwd": "K2b"}
@@ -3133,7 +3647,16 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli) -> dict:
                           "classifier": cli["classifier"]["counts"][code[name]],
                           "viewpoint_from_hf": cli["oscar"]["counts"][code[name]],
                           "speaker": cli["speaker"]["counts"][code[name]],
-                          "viewpoint_aug_data": cli["speaker"]["vp_counts"][code[name]]}}
+                          "viewpoint_aug_data": cli["speaker"]["vp_counts"][code[name]],
+                          "viewpoint_no_fused_layernorm":
+                              cli["no_fused_ln"]["counts"][code[name]],
+                          "extract_scene": cli["extract"]["extract_scene"]["counts"][code[name]],
+                          "extract_regions":
+                              cli["extract"]["extract_regions"]["counts"][code[name]]},
+         "option_and_feature_launches": {
+             "history_kv_forward": opt["counts"][code[name]],
+             "scene_forward": scene["bfloat16"]["counts"][code[name]],
+             "region_dispatch": regions["float32"]["counts"][code[name]]}}
         for name, (src, replaces), t, launches in entries]}
 
 
@@ -3167,6 +3690,13 @@ def main(argv=None) -> int:
                  "long_batch": 1, "long_seq": 512, "cross": (128, 256), "fused_seq": 256}
         spk = {"batch": 4, "episode_len": 6, "max_words": 12, "rnn": 24, "wemb": 16,
                "feat": sizes["feat"], "vocab": 30522, "agree": 2}
+        opt = {"batch": 2, "fresh": 16, "history": 24, "agree": 2, "dtype": torch.float32,
+               "bert": sizes["bert"]}
+        scene = {"depth": 50, "w": 64, "h": 48, "vfov": 60, "face": 64, "panos": 2,
+                 "iters": 1, "agree_views": 2}
+        regions = {"depth": 50, "classes": 12, "attrs": 7, "rois": 8, "pre_nms": 256,
+                   "side": 256, "vfov": 80, "per_dispatch": 6, "face": 64, "dispatches": 1}
+        extract = {"face": 32}
     else:
         device = "cuda"
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
@@ -3190,7 +3720,19 @@ def main(argv=None) -> int:
         # trajectories), 80 words; rnn 512, wemb 256; BERT-base's vocabulary.
         spk = {"batch": 32, "episode_len": 40, "max_words": 80, "rnn": 512, "wemb": 256,
                "feat": sizes["feat"], "vocab": 30522, "agree": 4}
+        # BERT-base, batch 16, 128 fresh tokens over 384 history tokens a layer.
+        opt = {"batch": 16, "fresh": 128, "history": 384, "agree": 2,
+               "dtype": torch.bfloat16, "bert": {}}
+        # The JAX package's production geometry (visitron_tpu/run.py:478-562,
+        # FasterRCNN's defaults), over 1024 px skybox faces.
+        scene = {"depth": 152, "w": 640, "h": 480, "vfov": 60, "face": 1024, "panos": 2,
+                 "iters": 5, "agree_views": 2}
+        regions = {"depth": 101, "classes": 1601, "attrs": 401, "rois": 300,
+                   "pre_nms": 6000, "side": 600, "vfov": 80, "per_dispatch": 6,
+                   "face": 1024, "dispatches": 6}
+        extract = {"face": 1024, "depth": 152}
     dev_info = phase_device()
+    smi = dev_info.pop("nvidia_smi", None)
     phase_build()
     times = {"k1": phase_k1(device, attn), "k2": phase_k2(device, ln),
              "k1b": phase_k1b(device, attn), "k2b": phase_k2b(device, ln),
@@ -3221,6 +3763,9 @@ def main(argv=None) -> int:
     phase_evaluate(sl)
     phase_turn_based_agreement(device, sizes, sl)
     speaker = phase_speaker(device, spk, sl)
+    options = phase_options(device, opt)
+    scene_out = phase_scene(device, scene)
+    regions_out = phase_regions(device, regions)
     with tempfile.TemporaryDirectory() as tmp, cli_bert():
         cli = phase_cli(device, tmp)
         cli["turn_based"] = phase_turn_based(device, tmp, cli)
@@ -3228,6 +3773,8 @@ def main(argv=None) -> int:
         cli["oscar"] = phase_oscar(device, tmp)
         phase_datagen(device, tmp)
         cli["speaker"] = phase_speaker_cli(device, tmp, cli)
+        cli["no_fused_ln"] = phase_no_fused_ln_cli(device, tmp, cli)
+        cli["extract"] = phase_extract_cli(device, tmp, extract)
     say(f"speaker: step {speaker['ms']:.2f} ms (full width), CLI iteration "
         f"{cli['speaker']['ms']:.1f} ms, --aug_data fine-tune iteration "
         f"{cli['speaker']['vp_ms']:.1f} ms, phase 22's viewpoint iteration {cli['vp_ms']:.1f} ms")
@@ -3244,7 +3791,9 @@ def main(argv=None) -> int:
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if REHEARSAL:
         return 0
-    print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl, cli)), flush=True)
+    say(f"nvidia-smi: {smi}")
+    print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl, cli, options, scene_out,
+                                  regions_out)), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

@@ -80,7 +80,10 @@ def test_package_lists_every_ported_module():
                 "agents.classifier", "models.classification", "data.classifier_dataset",
                 "evaluation.classifier_metrics", "train.turn_based", "train.classifier",
                 "agents.speaker", "sim", "sim.simulator", "sim.native", "data.env",
-                "data.legacy_tokenizer", "utils", "utils.timer"):
+                "data.legacy_tokenizer", "utils", "utils.timer", "ops.detection",
+                "models.resnet", "models.detector", "pipelines.rendering",
+                "pipelines.scene_features", "pipelines.region_features",
+                "pipelines.orientation"):
         assert f"visitron_torch.{mod}" in names, mod
 
 
@@ -121,7 +124,8 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SpeakerAgent(rt, **speaker)
     assert SpeakerAgent(rt, **speaker, device="cpu").device.type == "cpu"
-    for task in ("turn_based", "classifier", "datagen", "speaker", "augment"):
+    for task in ("turn_based", "classifier", "datagen", "speaker", "augment",
+                 "extract_scene", "extract_regions"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run.main([task, "--debug", "--lstm_img_feature_dim", "8",
                       "--output_dir", os.path.join(tmp_path, task)])

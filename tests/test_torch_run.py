@@ -7,7 +7,7 @@ overrides and the same validation errors; ``run.main`` drives
 on the ``--debug`` world with the tiny BERT of the JAX package's own drive
 tests (hidden 32, 2 layers, 4 heads) patched into ``Workspace._bert_config``,
 and scale-only overrides (iterations, epochs, batch, sequence lengths, as
-tests/test_run_config_drive.py does); unported tasks and options refuse.
+tests/test_run_config_drive.py does); unported options refuse.
 """
 
 import csv
@@ -262,12 +262,6 @@ def test_debug_world_has_a_test_split_where_the_jax_one_has_none(tmp_path):
         jtr._instances(["test"])
 
 
-@pytest.mark.parametrize("task", sorted(trun.UNPORTED_TASKS))
-def test_unported_tasks_refuse_by_roadmap_item(task):
-    with pytest.raises(SystemExit, match=r"ROADMAP item \d+"):
-        trun.main([task, "--debug"], device="cpu")
-
-
 def test_unported_options_and_unknown_tasks_refuse(tmp_path):
     for flags in (["--mesh_dp", "2"], ["--mesh_tp", "2"], ["--zero1"]):
         with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
@@ -280,9 +274,6 @@ def test_unported_options_and_unknown_tasks_refuse(tmp_path):
         trun.main(["viewpoint", "--debug", "--fsdp"], device="cpu")
     with pytest.raises(SystemExit, match="unknown task"):
         trun.main(["navigate"], device="cpu")
-    with pytest.raises(NotImplementedError, match="use_fused_layernorm"):
-        trun.main(["viewpoint", "--debug", "--no_use_fused_layernorm",
-                   "--output_dir", str(tmp_path)], device="cpu")
 
 
 def test_main_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):

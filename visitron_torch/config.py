@@ -5,8 +5,8 @@ One dataclass holds every flag of the reference's run scripts; the fields,
 their defaults, the checks of ``__post_init__`` and the (de)serialisation
 are the JAX package's, so every ``run_configs/**/*.json`` parses to the
 same values in both packages.  Fields of features the port has not ported
-yet (the device meshes, ZeRO-1 / FSDP, the feature extraction) stay, so the files keep parsing; the task or option
-that would read them refuses by name.  ``rng_impl`` selects JAX's PRNG
+yet (the device meshes, ZeRO-1 / FSDP) stay, so the files keep parsing; the
+task or option that would read them refuses by name.  ``rng_impl`` selects JAX's PRNG
 implementation and has no effect in torch: it is kept so the files stay
 compatible.
 """
@@ -30,8 +30,7 @@ class RunConfig:
     model_name_or_path: str = ""       # pretrained Oscar weights (torch/HF dir)
     output_dir: str = "output"
     vocab_file: str = ""
-    # offline feature pipeline inputs (extract_scene / extract_regions; not
-    # ported, ROADMAP item 9)
+    # offline feature pipeline inputs (extract_scene / extract_regions)
     matterport_dir: str = ""           # Matterport root with skybox JPEGs
     resnet_checkpoint: str = ""        # torchvision ResNet-152 .pth
     detector_weights: str = ""         # VG Faster R-CNN weight dump (.npz)
@@ -136,8 +135,9 @@ class RunConfig:
     # too): not ported (ROADMAP item 10); the tasks refuse them.
     zero1: bool = False
     fsdp: bool = False
-    # Conv compute dtype of the offline feature extractors ("default",
-    # "bfloat16" or "float32"); their tasks are not ported (ROADMAP item 9).
+    # Conv compute dtype of the offline feature extractors ("default": bf16
+    # for extract_scene, fp32 for extract_regions; "bfloat16" or "float32"
+    # forces both).
     feature_extract_dtype: str = "default"
     # Length-grouped shuffle batching: window (in batches) within which
     # instances are ordered by dialog length so padded length per batch stays

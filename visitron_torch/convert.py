@@ -1,5 +1,5 @@
-"""Carry parameters of the JAX package's agent and pretraining model into
-the port.
+"""Carry parameters of the JAX package's agent, pretraining model and feature
+extractors (ResNet, Faster R-CNN) into the port.
 
 The JAX ``ViewpointAgent`` keeps ``{"encoder": {"params": ...}, "decoder":
 {"params": ...}}`` flax trees (and ``"critic"`` for RL), the
@@ -11,6 +11,14 @@ state-dict key by joining it with dots, with these leaf renames:
   Embed ``embedding``             -> ``weight``
   LSTM ``wi/wh/bi/bh``            -> the same (already in torch layout)
   ``mlm_bias`` (PretrainModel)    -> the same
+  Conv ``kernel`` (H, W, in, out) -> ``weight`` (out, in, H, W)
+  FrozenBatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
+                                     running_var``
+
+and, for the ResNet and Faster R-CNN trees (models/resnet.py,
+models/detector.py, whose modules carry torchvision's names), the blocks
+``layer{s}_{b}`` -> ``layer{s}.{b}`` and ``downsample_conv`` /
+``downsample_bn`` -> ``downsample.0`` / ``downsample.1``.
 
 The trees arrive as numpy arrays (``np.asarray`` of each leaf); nothing here
 imports JAX.  A key missing on either side, or a shape that differs, raises.
@@ -34,13 +42,23 @@ the learning rate's ``EmptyState``) converts into its
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
 
 _RENAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
             "bias": "bias", "wi": "wi", "wh": "wh", "bi": "bi", "bh": "bh",
-            "mlm_bias": "mlm_bias"}
+            "mlm_bias": "mlm_bias", "mean": "running_mean", "var": "running_var"}
+_SEGMENTS = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+_BLOCK = re.compile(r"layer(\d+)_(\d+)")
+
+
+def _segment(name: str) -> str:
+    """A flax module name as the port's (torchvision's, for ResNet blocks)."""
+    m = _BLOCK.fullmatch(name)
+    return f"layer{m[1]}.{m[2]}" if m else _SEGMENTS.get(name, name)
 
 
 def _flatten(tree, prefix=()):
@@ -74,10 +92,10 @@ def _flax_to_named(tree: dict, expected: dict, owner: str, device=None) -> dict:
     for path, leaf in _flatten(tree):
         if path[-1] not in _RENAMES:
             raise KeyError(f"unknown flax parameter leaf {'/'.join(path)}")
-        name = ".".join(path[:-1] + (_RENAMES[path[-1]],))
+        name = ".".join(tuple(map(_segment, path[:-1])) + (_RENAMES[path[-1]],))
         arr = _float_array(leaf)
         if path[-1] == "kernel":
-            arr = arr.T
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         if name not in expected:
             raise KeyError(f"flax parameter {'/'.join(path)} has no counterpart "
                            f"{name!r} in {owner}")

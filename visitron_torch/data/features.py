@@ -1,5 +1,5 @@
-"""Feature stores: the reference TSV reader, the packed scene-feature table
-and the in-memory region-feature store.
+"""Feature stores: the reference TSV reader and writer, the packed
+scene-feature table and the in-memory region-feature store.
 
 Reference format (tasks/viewpoint_select/utils_data.py:331-373): one TSV row
 per (scan, viewpoint) with base64 (36, 2048) float32 features.
@@ -52,6 +52,28 @@ def read_tsv_img_features(path: str | None = None, feature_size: int = 2048, bli
                     base64.b64decode(item["features"]), dtype=np.float32
                 ).reshape((geo.NUM_VIEWS, feature_size))
     return {"features": features, "image_w": image_w, "image_h": image_h, "vfov": vfov}
+
+
+def write_tsv_img_features(path: str, features: dict[str, np.ndarray],
+                           image_w: int = 640, image_h: int = 480, vfov: int = 60) -> None:
+    """Write the reference TSV format (output parity with
+    scripts/precompute_resnet_img_features.py)."""
+    with open(path, "wt") as f:
+        writer = csv.DictWriter(f, delimiter="\t", fieldnames=TSV_FIELDNAMES)
+        for long_id, feat in features.items():
+            scan, vp = long_id.split("_", 1)
+            writer.writerow(
+                {
+                    "scanId": scan,
+                    "viewpointId": vp,
+                    "image_w": image_w,
+                    "image_h": image_h,
+                    "vfov": vfov,
+                    "features": base64.b64encode(
+                        np.ascontiguousarray(feat, dtype=np.float32).tobytes()
+                    ).decode("ascii"),
+                }
+            )
 
 
 @dataclass

@@ -22,21 +22,26 @@ checkpoint (visitron_torch/convert.py) loads one to one:
     ``attend_vocab``, the tied MLM decoder (a plain product);
   * every LayerNorm is the fused add+LayerNorm kernel (K2,
     ops/layernorm.py): the embedding LayerNorm without a residual, two
-    residual LayerNorms per layer;
+    residual LayerNorms per layer; with ``use_fused_layernorm`` off, flax's
+    LayerNorm math in plain PyTorch instead (``FlaxLayerNorm``: the residual
+    added in the input dtype, fp32 statistics and output);
+  * ``history_states``: one (B, P, H) state per layer, prepended to that
+    layer's keys and values (queries stay over the fresh tokens), the key
+    mask extended with ones over it; such a layer always takes the plain
+    ``multi_head_attention``, as the JAX package's gate decides;
   * activations in ``BertConfig.dtype`` (bf16 on the card), parameters in
     fp32: each Dense casts its input and its fp32 parameters to that dtype
     (flax ``Dense(dtype=...)``), explicitly rather than through autocast;
   * exact (erf) gelu.
 
 There is no backend gate: the kernels' wrappers run the CUDA kernels for
-tensors on the card and their plain twins for tensors on the CPU.  History
-states raise ``NotImplementedError``.  Dropout applies only in a training
-pass, which passes a ``DropoutRng`` as ``rng``: hidden dropout after the
-embedding LayerNorm, on the image embeddings and after each layer's two
-output projections, and the kernels' hash dropout on the attention
-probabilities with a fresh seed per layer and step (the plain attention
-draws its mask from ``rng.masks``).  ``rng=None`` is the deterministic
-(serving) pass.
+tensors on the card and their plain twins for tensors on the CPU.  Dropout
+applies only in a training pass, which passes a ``DropoutRng`` as ``rng``:
+hidden dropout after the embedding LayerNorm, on the image embeddings and
+after each layer's two output projections, and the kernels' hash dropout on
+the attention probabilities with a fresh seed per layer and step (the plain
+attention draws its mask from ``rng.masks``).  ``rng=None`` is the
+deterministic (serving) pass.
 """
 
 from __future__ import annotations
@@ -93,6 +98,9 @@ class BertConfig:
     # The MLM loss through the fused masked softmax-CE kernel (K3), with the
     # MLM logits kept in ``dtype`` (models/pretrain.py).
     use_fused_mlm_ce: bool = True
+    # Every LayerNorm through the fused add+LayerNorm kernel (K2); off, flax's
+    # LayerNorm math in plain PyTorch (FlaxLayerNorm).
+    use_fused_layernorm: bool = True
     # Recompute each transformer layer in the backward, keeping only the
     # outputs of its 2-D products (the Denses): the JAX package's
     # nn.remat(policy=dots_with_no_batch_dims_saveable).  More operations for
@@ -133,8 +141,11 @@ class FusedResidualLayerNorm(nn.Module):
 
 class FlaxLayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=float32)`` math in plain PyTorch (fast
-    variance, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``); fp32
-    output.  The optional image LayerNorm; not a kernel in either package."""
+    variance, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``) of
+    ``x [+ residual]``, the sum taken in the input dtype; fp32 output.  The
+    optional image LayerNorm, and every LayerNorm with
+    ``use_fused_layernorm`` off (the JAX package's FusedResidualLayerNorm
+    fallback); not a kernel in either package."""
 
     def __init__(self, hidden: int, eps: float):
         super().__init__()
@@ -142,7 +153,9 @@ class FlaxLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(hidden))
         self.bias = nn.Parameter(torch.zeros(hidden))
 
-    def forward(self, x):
+    def forward(self, x, residual=None):
+        if residual is not None:
+            x = x + residual
         h = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = h.mean(dim=-1, keepdim=True)
         var = torch.clamp((h * h).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
@@ -153,6 +166,14 @@ class FlaxLayerNorm(nn.Module):
                 "bias": torch.zeros(self.bias.shape)}
 
 
+def _layer_norm(cfg: BertConfig, hidden: int) -> nn.Module:
+    """The model's residual LayerNorm: the K2 kernel, or flax's math with
+    ``use_fused_layernorm`` off."""
+    if cfg.use_fused_layernorm:
+        return FusedResidualLayerNorm(cfg, hidden)
+    return FlaxLayerNorm(hidden, cfg.layer_norm_eps)
+
+
 class BertEmbeddings(nn.Module):
     """Position + token-type embeddings added to the (shared) word
     embeddings, then the embedding LayerNorm (no residual)."""
@@ -161,7 +182,7 @@ class BertEmbeddings(nn.Module):
         super().__init__()
         self.position_embeddings = _embed(cfg.max_position_embeddings, cfg)
         self.token_type_embeddings = _embed(cfg.type_vocab_size, cfg)
-        self.layer_norm = FusedResidualLayerNorm(cfg, cfg.hidden_size)
+        self.layer_norm = _layer_norm(cfg, cfg.hidden_size)
         self.dropout_prob = cfg.hidden_dropout_prob
 
     def forward(self, word_emb, position_ids, token_type_ids,
@@ -179,16 +200,26 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, hidden, key_bias, history_state=None,
                 rng: DropoutRng | None = None):
-        if history_state is not None:
-            raise NotImplementedError("history_state is not ported yet")
         cfg = self.cfg
         h = cfg.num_attention_heads
         d = cfg.hidden_size // h
         s = hidden.shape[1]
-        q, k, v = self.qkv(hidden).split(cfg.hidden_size, dim=-1)
+        if history_state is None:
+            q, k, v = self.qkv(hidden).split(cfg.hidden_size, dim=-1)
+        else:
+            # Queries over the fresh tokens through the first third of the
+            # QKV weight, keys and values over history + fresh through the
+            # other two (modeling_bert.py:37-45).
+            dt, hid = cfg.dtype, cfg.hidden_size
+            w, b = self.qkv.weight.to(dt), self.qkv.bias.to(dt)
+            q = F.linear(hidden.to(dt), w[:hid], b[:hid])
+            kv_in = torch.cat([history_state.to(dt), hidden.to(dt)], dim=1)
+            k, v = F.linear(kv_in, w[hid:], b[hid:]).split(hid, dim=-1)
         rate = 0.0 if rng is None else float(cfg.attention_probs_dropout_prob)
-        fused = cfg.use_fused_attention and attention_supports_fused(s, s, d)
-        flash = (not fused and cfg.use_flash_attention
+        # With history the JAX package's fused_ok is false: plain attention.
+        fused = (history_state is None and cfg.use_fused_attention
+                 and attention_supports_fused(s, s, d))
+        flash = (history_state is None and not fused and cfg.use_flash_attention
                  and attention_supports_flash(s, s, d))
         split = lambda t: t.unflatten(-1, (h, d)).transpose(1, 2)  # noqa: E731
         seed = rng.seed() if (fused or flash) and rate > 0.0 else None
@@ -214,10 +245,10 @@ class BertLayer(nn.Module):
         h = cfg.hidden_size
         self.attention = BertSelfAttention(cfg)
         self.attention_output = _dense(h, h, cfg)
-        self.attention_layer_norm = FusedResidualLayerNorm(cfg, h)
+        self.attention_layer_norm = _layer_norm(cfg, h)
         self.intermediate = _dense(h, cfg.intermediate_size, cfg)
         self.output = _dense(cfg.intermediate_size, h, cfg)
-        self.output_layer_norm = FusedResidualLayerNorm(cfg, h)
+        self.output_layer_norm = _layer_norm(cfg, h)
 
     def forward(self, hidden, key_bias, history_state=None,
                 rng: DropoutRng | None = None):
@@ -243,8 +274,10 @@ def _save_products(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat_layer(layer: nn.Module, hidden, key_bias, rng: DropoutRng | None):
-    """``layer(hidden, key_bias, rng=rng)`` under a selective checkpoint.
+def _remat_layer(layer: nn.Module, hidden, key_bias, history_state,
+                 rng: DropoutRng | None):
+    """``layer(hidden, key_bias, history_state, rng=rng)`` under a selective
+    checkpoint.
 
     The recompute runs in the backward, after any ``functional_call`` around
     the model has put its parameters back, so the layer's parameters (the
@@ -260,13 +293,13 @@ def _remat_layer(layer: nn.Module, hidden, key_bias, rng: DropoutRng | None):
         replay = DropoutRng(masks=torch.Generator(device=rng.masks.device),
                             seeds=torch.Generator())
 
-    def run(h, kb, *ps):
+    def run(h, kb, hs, *ps):
         if replay is not None:
             replay.masks.set_state(states[0])
             replay.seeds.set_state(states[1])
-        return functional_call(layer, dict(zip(names, ps)), (h, kb), {"rng": replay})
+        return functional_call(layer, dict(zip(names, ps)), (h, kb, hs), {"rng": replay})
 
-    out = checkpoint(run, hidden, key_bias, *params, use_reentrant=False,
+    out = checkpoint(run, hidden, key_bias, history_state, *params, use_reentrant=False,
                      preserve_rng_state=False,
                      context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                   _save_products))
@@ -286,14 +319,13 @@ class BertEncoder(nn.Module):
 
     def forward(self, hidden, key_bias, history_states=None,
                 rng: DropoutRng | None = None):
-        if history_states is not None:
-            raise NotImplementedError("history_states are not ported yet")
         for i in range(self.num_layers):
             layer = getattr(self, f"layer_{i}")
+            hs = None if history_states is None else history_states[i]
             if self.remat and torch.is_grad_enabled():
-                hidden = _remat_layer(layer, hidden, key_bias, rng)
+                hidden = _remat_layer(layer, hidden, key_bias, hs, rng)
             else:
-                hidden = layer(hidden, key_bias, rng=rng)
+                hidden = layer(hidden, key_bias, hs, rng=rng)
         return hidden
 
 
@@ -338,10 +370,12 @@ class VisitronBert(nn.Module):
 
     def embed_joint(self, input_ids, token_type_ids=None, attention_mask=None,
                     position_ids=None, img_feats=None, img_location_embeddings=None,
-                    rng: DropoutRng | None = None):
+                    history_states=None, rng: DropoutRng | None = None):
         """Everything before the transformer stack: the text embeddings and,
         with ``img_feats``, the image embeddings concatenated after them;
-        returns (embeddings in ``cfg.dtype``, (B, K) fp32 key bias)."""
+        returns (embeddings in ``cfg.dtype``, (B, K) fp32 key bias).  With
+        ``history_states`` the mask gains ones in front over the history
+        (always visible) where it does not cover it already."""
         cfg = self.cfg
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
@@ -351,6 +385,8 @@ class VisitronBert(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         emb = self.embeddings(self.word_embeddings(input_ids), position_ids,
                               token_type_ids, rng).to(cfg.dtype)
+        if history_states is not None and img_feats is not None:
+            raise ValueError("cannot take image features while using encoder history states")
         if img_feats is not None:
             if not self.image:
                 raise ValueError("this VisitronBert was built without image projections")
@@ -360,21 +396,26 @@ class VisitronBert(nn.Module):
                 img = self.img_layer_norm(img).to(cfg.dtype)
             img = maybe_drop(img, cfg.hidden_dropout_prob, rng)
             emb = torch.cat([emb, img], dim=1)
-        if attention_mask.shape[-1] != emb.shape[1]:
+        key_len = emb.shape[1]
+        if history_states is not None:
+            key_len += history_states[0].shape[1]
+            if attention_mask.shape[-1] < key_len:
+                pad = attention_mask.new_ones(
+                    attention_mask.shape[:-1] + (key_len - attention_mask.shape[-1],))
+                attention_mask = torch.cat([pad, attention_mask], dim=-1)
+        if attention_mask.shape[-1] != key_len:
             raise ValueError(f"attention_mask covers {attention_mask.shape[-1]} tokens, "
-                             f"the joint sequence has {emb.shape[1]}")
+                             f"the keys number {key_len}")
         key_bias = make_attention_bias(attention_mask)[:, 0, 0, :].contiguous()
         return emb, key_bias
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 position_ids=None, img_feats=None, img_location_embeddings=None,
                 history_states=None, rng: DropoutRng | None = None):
-        if history_states is not None:
-            raise NotImplementedError("history_states are not ported yet")
         emb, key_bias = self.embed_joint(input_ids, token_type_ids, attention_mask,
                                          position_ids, img_feats,
-                                         img_location_embeddings, rng)
-        seq = self.encoder(emb, key_bias, rng=rng)
+                                         img_location_embeddings, history_states, rng)
+        seq = self.encoder(emb, key_bias, history_states, rng=rng)
         return seq, self.pooler(seq)
 
 

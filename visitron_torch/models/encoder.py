@@ -29,10 +29,11 @@ class OscarEncoder(nn.Module):
         self.dropout_ratio = dropout_ratio
         self.bert = BertTextModel(cfg)
         self.lstm = LSTM(cfg.hidden_size, hidden_size, bidirectional=bidirectional)
-        self.encoder_lstm2decoder_ht = Dense(hidden_size, decoder_hidden_size)
-        self.project_c = hidden_size != decoder_hidden_size
+        enc_out = hidden_size * (2 if bidirectional else 1)
+        self.encoder_lstm2decoder_ht = Dense(enc_out, decoder_hidden_size)
+        self.project_c = enc_out != decoder_hidden_size
         if self.project_c:
-            self.encoder_lstm2decoder_ct = Dense(hidden_size, decoder_hidden_size)
+            self.encoder_lstm2decoder_ct = Dense(enc_out, decoder_hidden_size)
 
     def forward(self, input_ids, lengths, token_type_ids=None, attention_mask=None,
                 rng: DropoutRng | None = None):

@@ -86,15 +86,33 @@ def masked_lstm_scan(params, inputs, lengths, dtype=None):
 
 
 class LSTM(nn.Module):
-    """Masked unidirectional sequence LSTM with pack_padded parity."""
+    """Masked uni- or bidirectional sequence LSTM with pack_padded parity.
+
+    The backward direction (``bwd``) runs over each row reversed within its
+    own length; its outputs are put back in order and zeroed at the pads,
+    and they, ``h`` and ``c`` are concatenated after the forward
+    direction's."""
 
     def __init__(self, input_size: int, hidden_size: int,
                  bidirectional: bool = False, dtype=torch.float32):
         super().__init__()
-        if bidirectional:
-            raise NotImplementedError("the bidirectional LSTM is not ported yet")
         self.dtype = dtype
         self.fwd = LSTMCellParams(input_size, hidden_size)
+        self.bwd = LSTMCellParams(input_size, hidden_size) if bidirectional else None
 
     def forward(self, inputs, lengths):
-        return masked_lstm_scan(self.fwd(), inputs.to(self.dtype), lengths, self.dtype)
+        inputs = inputs.to(self.dtype)
+        ys_f, (h_f, c_f) = masked_lstm_scan(self.fwd(), inputs, lengths, self.dtype)
+        if self.bwd is None:
+            return ys_f, (h_f, c_f)
+        t = inputs.shape[1]
+        steps = torch.arange(t, device=inputs.device)
+        # Row b's step s reads step len_b - 1 - s; the clip sends the pad
+        # slots to step 0, whose outputs are zeroed again below.
+        idx = torch.clamp(lengths[:, None] - 1 - steps[None, :], 0, t - 1).long()
+        gather = lambda x: torch.take_along_dim(x, idx[:, :, None], dim=1)  # noqa: E731
+        ys_b, (h_b, c_b) = masked_lstm_scan(self.bwd(), gather(inputs), lengths, self.dtype)
+        pad_mask = (steps[None, :] < lengths[:, None]).to(ys_b.dtype)
+        ys_b = gather(ys_b) * pad_mask[:, :, None]
+        return (torch.cat([ys_f, ys_b], dim=-1),
+                (torch.cat([h_f, h_b], dim=-1), torch.cat([c_f, c_b], dim=-1)))

@@ -24,8 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from visitron_torch.models.bert import (BertConfig, FusedResidualLayerNorm,
-                                        VisitronBert, _dense)
+from visitron_torch.models.bert import (BertConfig, VisitronBert, _dense,
+                                        _layer_norm)
 from visitron_torch.models.layers import DropoutRng
 from visitron_torch.ops.crossentropy import fused_masked_softmax_ce
 
@@ -55,7 +55,7 @@ class PretrainModel(nn.Module):
         self.cfg = cfg
         self.bert = VisitronBert(cfg)
         self.mlm_transform = _dense(cfg.hidden_size, cfg.hidden_size, cfg)
-        self.mlm_layer_norm = FusedResidualLayerNorm(cfg, cfg.hidden_size)
+        self.mlm_layer_norm = _layer_norm(cfg, cfg.hidden_size)
         self.next_action = _dense(cfg.hidden_size, cfg.action_space, cfg)
         self.token_head = _dense(cfg.hidden_size, cfg.detector_classes, cfg)
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))

@@ -12,15 +12,17 @@
   speaker     train a speaker (trajectory -> instruction) on the nav data
   augment     caption sampled walks with a trained speaker -> R2R-format
               augmentation JSON (``viewpoint --aug_data``)
+  extract_scene    ResNet-152 scene features of every panorama from its
+                   skybox JPEGs -> the reference TSV
+  extract_regions  bottom-up Faster R-CNN region features of every view ->
+                   the reference region pickle store
 
 ``--config run_configs/....json`` reads an experiment file; flags given
 after it override its values (only those present on the command line, so
 a flag set to its default still wins).  ``--debug`` runs in a synthetic
 world.
 
-The JAX package's other tasks are not ported yet and exit with a message
-naming their ROADMAP item: extract_scene and extract_regions (item 9).
-Device meshes, ZeRO-1 and FSDP (item 10) raise.
+Device meshes, ZeRO-1 and FSDP (ROADMAP item 10) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -32,11 +34,6 @@ import torch
 
 from visitron_torch.config import RunConfig, refuse_unported_hardware
 from visitron_torch.train.workspace import Workspace
-
-UNPORTED_TASKS = {
-    "extract_scene": "ROADMAP item 9",
-    "extract_regions": "ROADMAP item 9",
-}
 
 
 def _train_and_val(trainer, cfg: RunConfig, do_val: bool, **train_kw):
@@ -243,9 +240,99 @@ def run_augment(cfg: RunConfig, device=None):
     return out
 
 
+def _extract_graphs(cfg: RunConfig) -> dict:
+    """Nav graphs for the offline pipelines (which come before any feature
+    store, so no Workspace): every scan with a connectivity file."""
+    import os
+
+    from visitron_torch.graph import load_nav_graphs
+
+    scans = sorted(
+        f.removesuffix("_connectivity.json")
+        for f in os.listdir(cfg.connectivity_dir)
+        if f.endswith("_connectivity.json"))
+    return load_nav_graphs(cfg.connectivity_dir, scans)
+
+
+def run_extract_scene(cfg: RunConfig, device=None):
+    """Scene (ResNet) features from skybox JPEGs -> TSV
+    (scripts/precompute_resnet_img_features.py parity): the six uint8 faces
+    of each panorama go to the card, which resamples the 36 views and runs
+    the backbone; the host only decodes JPEGs."""
+    from visitron_torch.pipelines.rendering import SkyboxRenderer
+    from visitron_torch.pipelines.scene_features import SceneFeatureExtractor
+    from visitron_torch.train.logging import setup_logger
+
+    logger = setup_logger(output_dir=cfg.output_dir)
+    # Reference geometry: 640x480 VFOV 60 (precompute_resnet_img_features.py);
+    # --debug without a checkpoint shrinks the render for smoke runs.
+    w, h = (64, 48) if cfg.debug and not cfg.resnet_checkpoint else (640, 480)
+    renderer = SkyboxRenderer(cfg.matterport_dir, image_w=w, image_h=h, vfov=60)
+    # "default" = bf16 for scene features (config.py:feature_extract_dtype).
+    dt = torch.float32 if cfg.feature_extract_dtype == "float32" else torch.bfloat16
+    kw = dict(image_w=w, image_h=h, vfov=60, dtype=dt, device=device)
+    if cfg.resnet_checkpoint:
+        ex = SceneFeatureExtractor.from_torch_checkpoint(cfg.resnet_checkpoint, **kw)
+    else:
+        logger.warning("no --resnet_checkpoint; using a randomly initialized "
+                       "backbone (debug only)")
+        ex = SceneFeatureExtractor.random_init(depth=50, **kw)
+    out = cfg.img_feature_file or f"{cfg.output_dir}/scene_features.tsv"
+    ex.extract_all(_extract_graphs(cfg), renderer.load_faces, out_tsv=out,
+                   logger=logger, provider="faces")
+    logger.info("wrote scene features to %s", out)
+    return out
+
+
+def run_extract_regions(cfg: RunConfig, device=None):
+    """Bottom-up region features from skybox JPEGs -> pickle store
+    (scripts/precompute_bottom-up_features.py + add_orientation parity)."""
+    import numpy as np
+
+    from visitron_torch.models.detector import BottomUpDetector
+    from visitron_torch.pipelines.region_features import (RegionFeatureExtractor,
+                                                          StubDetector)
+    from visitron_torch.pipelines.rendering import SkyboxRenderer
+    from visitron_torch.train.logging import setup_logger
+
+    logger = setup_logger(output_dir=cfg.output_dir)
+    # Reference geometry: 600x600 VFOV 80 (precompute_bottom-up_features.py);
+    # --debug with the stub shrinks the render for smoke runs.
+    side = 60 if cfg.debug and not cfg.detector_weights else 600
+    renderer = SkyboxRenderer(cfg.matterport_dir, image_w=side, image_h=side, vfov=80)
+    if cfg.detector_weights:
+        state = dict(np.load(cfg.detector_weights, allow_pickle=True))
+        # "default" = fp32 for the detector: bf16 backbone drift can flip
+        # which boxes survive NMS (config.py:feature_extract_dtype).
+        dt = torch.bfloat16 if cfg.feature_extract_dtype == "bfloat16" else torch.float32
+        detector = BottomUpDetector.from_caffe_dump(state, dtype=dt, device=device)
+        with open(cfg.objects_vocab) as f:
+            classes = f.read().splitlines()
+        with open(cfg.attributes_vocab) as f:
+            attributes = f.read().splitlines()
+    elif cfg.debug:
+        logger.warning("no --detector_weights; StubDetector (--debug)")
+        detector = StubDetector()
+        classes = ["__background__"] + [f"c{i}" for i in range(detector.num_classes - 1)]
+        attributes = ["__no_attribute__"] + [f"a{i}" for i in range(detector.num_attributes - 1)]
+    else:
+        raise SystemExit("extract_regions needs --detector_weights (VG Faster "
+                         "R-CNN dump) + --objects_vocab/--attributes_vocab, "
+                         "or --debug for the stub")
+    ex = RegionFeatureExtractor(detector, classes, attributes, image_w=side,
+                                image_h=side, vfov=80, device=device)
+    # The uint8 faces go to the card, which renders the views; they reach the
+    # detector without leaving it.
+    store = ex.extract_all(_extract_graphs(cfg), renderer.load_faces, provider="faces")
+    prefix = cfg.region_feature_prefix or f"{cfg.output_dir}/region_features"
+    store.to_pickle(prefix)
+    logger.info("wrote region store (%d keys) to %s*", len(store), prefix)
+    return prefix
+
+
 # Each task runs through run_<task>, looked up when it runs.
 TASKS = ("viewpoint", "turn_based", "classifier", "pretrain", "datagen", "speaker",
-         "augment")
+         "augment", "extract_scene", "extract_regions")
 
 
 def main(argv=None, device=None):
@@ -256,9 +343,6 @@ def main(argv=None, device=None):
         print(__doc__)
         return
     task, rest = argv[0], argv[1:]
-    if task in UNPORTED_TASKS:
-        raise SystemExit(f"task {task!r} is not ported to visitron_torch yet "
-                         f"({UNPORTED_TASKS[task]})")
     if task not in TASKS:
         raise SystemExit(f"unknown task {task!r}; see --help")
     if rest and rest[0] == "--config":

@@ -116,10 +116,6 @@ class Workspace:
 
     @staticmethod
     def _bert_config(cfg: RunConfig, tokenizer) -> BertConfig:
-        if not cfg.use_fused_layernorm:
-            raise NotImplementedError(
-                "use_fused_layernorm false: the port's BERT always runs its add+LayerNorm "
-                "kernel (K2) and has no other LayerNorm path")
         return BertConfig(
             vocab_size=len(tokenizer),
             max_position_embeddings=max(cfg.max_seq_length, 512),
@@ -133,5 +129,6 @@ class Workspace:
             use_flash_attention=cfg.use_flash_attention,
             use_fused_attention=cfg.use_fused_attention,
             use_fused_mlm_ce=cfg.use_fused_mlm_ce,
+            use_fused_layernorm=cfg.use_fused_layernorm,
             remat=cfg.remat,
         )
