@@ -229,7 +229,40 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               ResNet-152 .pth and ``run extract_regions`` with a seeded .npz
               dump and 1601 / 401-line vocabularies over a 2-viewpoint scan
               of 1024 px skybox JPEGs at full geometry: the TSV read back,
-              verify_region_store, no K1-K5 launch, ms a viewpoint.
+              verify_region_store, no K1-K5 launch, ms a viewpoint;
+ 33. dp world of one: ``chip_smoke.py --dp-phase world1`` under
+              ``python -m torch.distributed.run --standalone
+              --nproc_per_node 1`` (NCCL on cuda:0, checked): the NDH dp
+              step at phase 11's set-up (batch 64) and the S 768
+              pretraining step (batch 16) under dp, ZeRO-1 and FSDP, and
+              one S 1024 FSDP step with ``use_flash_attention`` (batch 8,
+              K5f), each in fp32 with the dropouts at 0 against the
+              single-device step from the same start (loss within 1e-5
+              relative, parameters within 2 lr and 1e-2 lr for 99% of
+              them; bit-for-bit equality reported, beside whether the
+              single-device step run twice is equal bit for bit), the collective
+              counters (the counts' and the gradients' all-reduces, no
+              reduce-scatter or all-gather at world 1); then the bf16
+              steps timed in one process: NDH plain, dp and dp + ZeRO-1,
+              pretraining plain, dp, ZeRO-1 and FSDP (ms a step, launches
+              a step checked as phases 11 and 12, collectives a step, peak
+              memory, and a torch.profiler step: busy time, idle share,
+              the NCCL kernels' device time);
+ 34. dp CLI: ``torch.distributed.run --nproc_per_node 1 -m
+              visitron_torch.run viewpoint --debug --zero1`` (4 iterations,
+              checkpoints 2 and 4, val) and ``pretrain --debug --fsdp``
+              (one epoch): checkpoints in the single-device layout, finite
+              losses, seconds with start-up;
+ 35. dp two ranks: ``--dp-phase two`` with 2 processes: NCCL on two
+              cards, else gloo with CUDA tensors on cuda:0 (NCCL refuses
+              two ranks on one card); a probe of the collectives the group
+              carries on those tensors; each arm (NDH dp, NDH ZeRO-1,
+              pretraining ZeRO-1 and FSDP) whose collectives it carries
+              runs on the two halves of a batch against rank 0's
+              one-process step on the whole batch (fp32, dropouts 0, as
+              phase 33); a line names the arms that ran and those that
+              could not, which count as not passed (the NDH dp arm must
+              run).
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
@@ -238,7 +271,8 @@ and times, for the four NDH kernels their launches in the timed runs of
 phases 11, 16 and 17 (``path_launches``), and for every kernel its launches
 per iteration of phase 22's viewpoint and pretrain runs and of phases
 23-25's, 28's, 29's and 32's runs (``cli_launches``), in phases 29-31's
-paths (``option_and_feature_launches``), and the count of device times that no
+paths (``option_and_feature_launches``), its launches a step in phase 33's
+data-parallel runs (``dp_launches``), and the count of device times that no
 torch.profiler session gave (``device_times_unmeasured``; such a time is
 null, and the run fails where K1f, K2f, K1b or K2b has none); the last line
 is ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
@@ -265,11 +299,13 @@ import numpy as np
 os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.func import functional_call  # noqa: E402
 
 from visitron_torch import _build
 from visitron_torch import geometry as geo
+from visitron_torch import parallel
 from visitron_torch.agents import NavEpisodeBatcher, NavRuntime, ViewpointAgent, decoding
 from visitron_torch.agents.decoding import select_action
 from visitron_torch.data import (SceneFeatureTable, WordPieceTokenizer,
@@ -3585,7 +3621,465 @@ def phase_long_dropout_agreement(device, sizes) -> None:
 DEVICE_KEYS = ("device_ms", "library_device_ms", "step_device_ms")
 
 
-def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions) -> dict:
+# -- phases 33-35: data parallelism (torch.distributed.run) ------------------------------
+
+# Each dp phase runs in processes of its own, started through
+# torch.distributed.run (``--standalone``: a rendezvous on localhost), so that
+# no process group outlives its phase.  A rank runs this script with
+# ``--dp-phase``.
+DP_TIMEOUT_S = 420
+
+
+def run_dp_child(phase: str, nproc: int, tmp: str) -> dict:
+    """Run ``phase`` in ``nproc`` ranks; relay their output; rank 0's result."""
+    out = os.path.join(tmp, f"dp_{phase}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__), "--dp-phase", phase,
+           "--dp-result", out] + (["--cpu-rehearsal"] if REHEARSAL else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in proc.stdout.splitlines():
+        print(f"  | {line}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], flush=True)
+        fail(f"dp phase {phase!r} ({nproc} ranks) exited {proc.returncode}")
+    say(f"  dp phase {phase!r}: {nproc} rank(s), {time.perf_counter() - t0:.1f} s with "
+        "start-up")
+    with open(out) as f:
+        return json.load(f)
+
+
+def dp_nav(sizes, device, dtype, dropouts: bool):
+    """Phase 10's world on ``device`` and an NDH agent maker: BERT-base at
+    ``dtype``, the agent's dropouts (or none)."""
+    world, table, tok, _, train_instances, runtime = build_world(sizes, device, dtype)
+    drop = {} if dropouts else {"hidden_dropout_prob": 0.0,
+                                "attention_probs_dropout_prob": 0.0}
+    cfg = BertConfig(vocab_size=len(tok), max_position_embeddings=sizes["seq"],
+                     type_vocab_size=4, dtype=dtype, **drop, **sizes["bert"])
+
+    def agent(mesh=None, zero1=False):
+        return ViewpointAgent(cfg, runtime, feature_dim=sizes["feat"],
+                              episode_len=sizes["episode_len"], rnn_dim=sizes["rnn"],
+                              encoder_hidden_size=sizes["rnn"],
+                              **({} if dropouts else {"dropout": 0.0}), device=device,
+                              mesh=mesh, zero1=zero1)
+
+    return agent, train_instances, runtime
+
+
+def dp_update_check(name: str, want, got, lr: float) -> dict:
+    """Two (loss, flat params) records of one step from the same start: the
+    loss within 1e-5 relative, the parameters within 2 lr everywhere and
+    1e-2 lr for at least 99% of them (an Adam step moves a parameter by
+    ~lr; a gradient near eps may flip it)."""
+    (l0, p0), (l1, p1) = want, got
+    rel = abs(float(l1) - float(l0)) / max(abs(float(l0)), 1e-12)
+    diff = (p1.float() - p0.float()).abs()
+    close = float((diff <= 1e-2 * lr).float().mean())
+    same = bool(torch.equal(p0, p1)) and float(l0) == float(l1)
+    say(f"  {name}: loss {float(l1):.6f} vs {float(l0):.6f} (rel err {rel:.2e}), "
+        f"params max|diff| {float(diff.max()) / lr:.3g} lr, {close:.4%} within 1e-2 lr; "
+        f"bit for bit: {same}")
+    if rel > 1e-5 or float(diff.max()) > 2 * lr or close < 0.99:
+        fail(f"{name}: the data-parallel step disagrees with the one-process step")
+    return {"loss_rel_err": rel, "max_diff_lr": float(diff.max()) / lr,
+            "within_1e-2_lr": close, "bit_equal": same}
+
+
+def dp_repeat(name: str, first, second) -> bool:
+    """Whether two runs of the same single-device step from the same start
+    give the same loss and parameters bit for bit (reported: the yardstick
+    of the data-parallel steps' bit-for-bit equality)."""
+    same = float(first[0]) == float(second[0]) and bool(torch.equal(first[1], second[1]))
+    say(f"  {name} run twice: bit for bit: {same}"
+        + ("" if same else f" (params max|diff| {float((first[1] - second[1]).abs().max()):.3g})"))
+    return same
+
+
+def flat_params(params) -> torch.Tensor:
+    return torch.cat([t.detach().float().flatten().cpu() for t in tree_leaves(params)])
+
+
+def dp_ndh_step(agent, batch, mesh=None):
+    """(loss, flat params after one teacher-forced step) of ``agent`` on its
+    rows of ``batch`` (a trimmed global batch)."""
+    state = agent.init_state()
+    new, loss = agent.train_step_fn()(state, parallel.shard_batch(mesh, batch))
+    return loss.detach().cpu(), flat_params(new["params"])
+
+
+def dp_pretrain_run(sizes, device, mesh, strategy: str, batches, **cfg_kw):
+    """(loss of the last step, flat params) after ``len(batches)`` fp32
+    pretraining steps with the dropouts at 0 unless ``cfg_kw`` sets them (the
+    first AdamW step has lr 0); ``mesh`` None is the one-process trainer on
+    the whole batches."""
+    cfg = pretrain_config(sizes, torch.float32, **{"hidden_dropout_prob": 0.0,
+                                                   "attention_probs_dropout_prob": 0.0,
+                                                   **cfg_kw})
+    trainer = PretrainTrainer(cfg, learning_rate=5e-5, total_steps=100, device=device,
+                              mesh=mesh, zero1=strategy == "zero1", fsdp=strategy == "fsdp")
+    state = trainer.init_state()
+    step = trainer.step_fn()
+    for batch in batches:
+        state, bundle = step(state, parallel.shard_batch(mesh, batch))
+    params = state["params"] if trainer.dp is None else trainer.dp.gather(
+        state["params"], state["opt_state"])[0]
+    out = (bundle["loss"].detach().cpu(), flat_params(params))
+    del trainer, state, params
+    release()
+    return out
+
+
+def release() -> None:
+    if not REHEARSAL:
+        torch.cuda.empty_cache()
+
+
+def dp_profile(fn, what: str) -> dict:
+    """One warm call of ``fn`` under torch.profiler: device busy time, idle
+    share, and the collectives' device time (NCCL or gloo kernels and the
+    copies around them are named ``nccl*``; gloo's work is on the host)."""
+    if REHEARSAL:
+        return {"busy_ms": None, "wall_ms": None, "idle": None, "collective_ms": None}
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    coll = [e for e in kernels if "nccl" in e.name.lower()]
+    coll_us = sum(e.time_range.elapsed_us() for e in coll)
+    # torch.cat's kernel: the flat buckets' packing (and the model's own cats).
+    cat_us = sum(e.time_range.elapsed_us() for e in kernels if "CatArrayBatchedCopy" in e.name)
+    out = {"busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3,
+           "idle": (1 - busy / wall_us) if kernels else None,
+           "collective_ms": coll_us / 1e3, "collective_kernels": len(coll),
+           "cat_ms": cat_us / 1e3, "device_kernels": len(kernels)}
+    say(f"    profile of one {what}: {len(kernels)} device kernels, busy "
+        f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall (idle share "
+        f"{out['idle'] if out['idle'] is None else round(out['idle'] * 100, 1)}%), "
+        f"collectives {len(coll)} kernels {coll_us / 1e3:.3f} ms, torch.cat kernels "
+        f"{cat_us / 1e3:.3f} ms")
+    return out
+
+
+def dp_timed(name: str, make_state, step, batches, n_warm: int) -> dict:
+    """``n_warm`` warm-up steps, then the rest timed one by one (host clock
+    around a sync); launches and collectives counted over the timed run;
+    peak memory; a profile of one more step."""
+    state = make_state()
+    for batch in batches[:n_warm]:
+        state, _ = step(state, batch)
+    sync()
+    if not REHEARSAL:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    parallel.reset_collective_counts()
+    ms, losses = [], []
+    for batch in batches[n_warm:]:
+        sync()
+        t1 = time.perf_counter()
+        state, out = step(state, batch)
+        sync()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float((out["loss"] if isinstance(out, dict) else out).float()))
+    n = len(ms)
+    launches = {k: v // n for k, v in read_counts().items()}
+    coll = {k: v / n for k, v in parallel.collective_counts().items()}
+    peak = None if REHEARSAL else torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"{name}: non-finite losses {losses}")
+    med = sorted(ms)[n // 2]
+    say(f"  {name}: {med:.2f} ms/step (median of {n}, range {min(ms):.2f}-{max(ms):.2f}); "
+        f"peak {'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}; launches a step "
+        f"{', '.join(f'{k} {v}' for k, v in launches.items() if v)}; collectives a step "
+        f"{', '.join(f'{k} {v:g}' for k, v in coll.items() if v)}")
+    prof = dp_profile(lambda: step(state, batches[n_warm]), f"{name} step")
+    del state
+    release()
+    return {"ms_per_step": med, "range": [min(ms), max(ms)], "peak_bytes": peak,
+            "launches": launches, "collectives": coll, **prof}
+
+
+def dp_world1(sz: dict) -> dict:
+    """33. NCCL, a world of one: the dp / ZeRO-1 / FSDP steps in fp32 with the
+    dropouts at 0 against the single-device step, then the bf16 timings."""
+    device = parallel.init_process_group("cpu" if REHEARSAL else None)
+    mesh = parallel.make_mesh(device=device)
+    backend = dist.get_backend()
+    say(f"dp world of one: backend {backend}, device {device}, rank {mesh.rank} of "
+        f"{mesh.dp}")
+    if backend != ("gloo" if REHEARSAL else "nccl"):
+        fail(f"the world of one runs on {backend}, not NCCL")
+    sizes, pre, long = sz["sizes"], sz["pre"], sz["long"]
+    out = {"backend": backend}
+    # The NDH step at full width, fp32.
+    agent, instances, runtime = dp_nav(sizes, device, torch.float32, dropouts=False)
+    batcher = NavEpisodeBatcher(instances, runtime, batch_size=sizes["batch"],
+                                path_type="planner_path")
+    plain = agent()
+    batch = plain.trim_batch(next(batcher.train_batches(1, episode_len=sizes["episode_len"])))
+    want = dp_ndh_step(plain, batch)
+    out["ndh_plain_repeat"] = dp_repeat("NDH single-device step", want,
+                                        dp_ndh_step(plain, batch))
+    parallel.reset_collective_counts()
+    zero_counts()
+    got = dp_ndh_step(agent(mesh), batch, mesh)
+    counts, coll = read_counts(), parallel.collective_counts()
+    out["ndh_agree"] = dp_update_check(
+        f"NDH dp step (fp32, batch {sizes['batch']}, S {batch['ids'].shape[1]})", want, got,
+        plain.learning_rate)
+    out["ndh_agree"]["collectives"] = coll
+    say(f"    its launches {', '.join(f'{k} {v}' for k, v in counts.items() if v)}; "
+        f"collectives {coll}")
+    if coll["all_reduce_sum"] < 2 or coll["reduce_scatter"] or coll["all_gather"]:
+        fail(f"the dp step's collectives {coll}: expected the counts' and the "
+             "gradients' all-reduces, no reduce-scatter or all-gather at world 1")
+    del plain, want, got
+    release()
+    # Pretraining at S 768 (K4) and S 1024 under FSDP (K5), fp32.
+    rng = np.random.default_rng(SEED)
+    batches = [pretrain_batch(rng, pre, pre["vocab"], 2054, 1601) for _ in range(2)]
+    want = dp_pretrain_run(pre, device, None, "dp", batches)
+    out["pretrain_plain_repeat"] = dp_repeat(
+        "pretraining single-device steps", want,
+        dp_pretrain_run(pre, device, None, "dp", batches))
+    out["pretrain_agree"] = {}
+    for strategy in ("dp", "zero1", "fsdp"):
+        got = dp_pretrain_run(pre, device, mesh, strategy, batches)
+        out["pretrain_agree"][strategy] = dp_update_check(
+            f"pretrain {strategy} (fp32, batch {pre['batch']}, S "
+            f"{pre['text'] + pre['img']}, 2 steps)", want, got, 5e-5)
+    # Attention dropout 0.1 (K5b runs only at a rate above 0; at world 1 the
+    # rank fold is 0, so both sides draw the same kernel seeds), hidden
+    # dropouts 0.
+    lng = {**long, "batch": max(long["batch"] // 2, 1)}
+    rng = np.random.default_rng(SEED + 1)
+    batches = [pretrain_batch(rng, lng, lng["vocab"], 2054, 1601) for _ in range(2)]
+    flash = {"use_flash_attention": True, "attention_probs_dropout_prob": 0.1}
+    want = dp_pretrain_run(lng, device, None, "dp", batches, **flash)
+    zero_counts()
+    got = dp_pretrain_run(lng, device, mesh, "fsdp", batches, **flash)
+    out["long_fsdp_launches"] = {k: v // 2 for k, v in read_counts().items()}
+    out["long_fsdp_agree"] = dp_update_check(
+        f"pretrain fsdp with use_flash_attention, attention dropout 0.1 (fp32, batch "
+        f"{lng['batch']}, S {lng['text'] + lng['img']}, 2 steps)", want, got, 5e-5)
+    say(f"    its launches a step {out['long_fsdp_launches']}")
+    layers = pretrain_config(lng, torch.float32).num_hidden_layers
+    if not REHEARSAL and (out["long_fsdp_launches"]["K5f"] != layers
+                          or out["long_fsdp_launches"]["K5b"] != layers):
+        fail(f"the S 1024 FSDP step launched K5f / K5b {out['long_fsdp_launches']}, not "
+             f"{layers} each")
+    del want, got, batches
+    release()
+    # bf16 timings: NDH at batch 64 (phase 11's set-up), plain then dp.
+    agent, instances, runtime = dp_nav(sizes, device, sizes["dtype"], dropouts=True)
+    batcher = NavEpisodeBatcher(instances, runtime, batch_size=sizes["batch"],
+                                path_type="planner_path")
+    nb = list(batcher.train_batches(12, episode_len=sizes["episode_len"]))
+    say(f"  bf16 timings (BERT-base {str(sizes['dtype'])[6:]}, the training dropouts)")
+    out["ndh_time"] = {}
+    # In turns, plain first and last (host-bound times drift within a call).
+    for name, a in (("plain", agent()), ("dp", agent(mesh)), ("dp zero1", agent(mesh, True)),
+                    ("plain again", agent())):
+        out["ndh_time"][name] = dp_timed(f"NDH {name}", a.init_state, a.train_step_fn(),
+                                         [a.trim_batch(b) for b in nb], 2)
+    del agent, nb
+    release()
+    rng = np.random.default_rng(SEED + 2)
+    pb = [pretrain_batch(rng, pre, pre["vocab"], 2054, 1601) for _ in range(pre["steps"] + 2)]
+    out["pretrain_time"] = {}
+    for strategy in ("plain", "dp", "zero1", "fsdp", "plain again"):
+        trainer = PretrainTrainer(pretrain_config(pre, pre["dtype"]), learning_rate=5e-5,
+                                  total_steps=100, device=device,
+                                  mesh=None if strategy.startswith("plain") else mesh,
+                                  zero1=strategy == "zero1", fsdp=strategy == "fsdp")
+        out["pretrain_time"][strategy] = dp_timed(
+            f"pretrain {strategy} (S {pre['text'] + pre['img']})", trainer.init_state,
+            trainer.step_fn(), pb, 2)
+        del trainer
+        release()
+    return out
+
+
+TWO_RANK_ARMS = {"ndh dp": ("all_reduce",), "ndh zero1": ("all_reduce", "all_gather"),
+                 "pretrain zero1": ("all_reduce", "all_gather"),
+                 "pretrain fsdp": ("all_reduce", "all_gather", "reduce_scatter")}
+
+
+def dp_probe(mesh) -> dict:
+    """Which collectives the group carries on this rank's tensors: each tried
+    once on a few elements (every rank tries the same in the same order)."""
+    x = torch.ones(2 * mesh.dp, device=mesh.device)
+    tries = {"all_reduce": lambda: parallel.all_reduce_sum([x], mesh),
+             "all_gather": lambda: parallel.all_gather([x], [0], mesh),
+             "reduce_scatter": lambda: parallel.reduce_scatter([x], [0], mesh)}
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            out[name] = None
+        except (RuntimeError, ValueError, NotImplementedError) as err:
+            out[name] = f"{type(err).__name__}: {str(err).splitlines()[0][:160]}"
+    return out
+
+
+def dp_two(sz: dict) -> dict:
+    """35. Two ranks on the card(s): NCCL on two cards, else gloo with CUDA
+    tensors on cuda:0 (NCCL refuses two ranks on one card): each arm's
+    data-parallel step on the two halves of a batch against the one-process
+    step on the whole batch (rank 0 computes it), fp32, dropouts 0."""
+    two_cards = not REHEARSAL and torch.cuda.device_count() >= 2
+    shared = not REHEARSAL and not two_cards
+    device = parallel.init_process_group(
+        "cpu" if REHEARSAL else ("cuda:0" if shared else None),
+        backend=None if two_cards else "gloo")
+    mesh = parallel.make_mesh(device=device)
+    backend = dist.get_backend()
+    say(f"dp two ranks: rank {mesh.rank}, backend {backend}, device {device}"
+        + (" (both ranks on one card)" if shared else ""))
+    probe = dp_probe(mesh)
+    sizes, pre = sz["sizes"], sz["pre"]
+    ran, not_run, out = [], {}, {"backend": backend, "shared_card": shared, "probe": probe}
+    for arm, needs in TWO_RANK_ARMS.items():
+        missing = [c for c in needs if probe[c] is not None]
+        if missing:
+            not_run[arm] = f"{backend} does not carry {', '.join(missing)} on " + \
+                f"{device.type} tensors ({probe[missing[0]]})"
+            continue
+        if arm.startswith("ndh"):
+            agent, instances, runtime = dp_nav(sizes, device, torch.float32, dropouts=False)
+            batcher = NavEpisodeBatcher(instances, runtime, batch_size=sizes["batch"],
+                                        path_type="planner_path")
+            plain = agent()
+            batch = plain.trim_batch(next(batcher.train_batches(
+                1, episode_len=sizes["episode_len"])))
+            want = dp_ndh_step(plain, batch) if mesh.rank == 0 else None
+            del plain
+            release()
+            parallel.reset_collective_counts()
+            got = dp_ndh_step(agent(mesh, zero1=arm.endswith("zero1")), batch, mesh)
+            lr = 5e-5
+        else:
+            rng = np.random.default_rng(SEED + 3)
+            batches = [pretrain_batch(rng, pre, pre["vocab"], 2054, 1601) for _ in range(2)]
+            want = (dp_pretrain_run(pre, device, None, "dp", batches)
+                    if mesh.rank == 0 else None)
+            parallel.reset_collective_counts()
+            got = dp_pretrain_run(pre, device, mesh, arm.split()[1], batches)
+            lr = 5e-5
+        coll = parallel.collective_counts()
+        if mesh.rank == 0:
+            out[arm] = dp_update_check(f"two ranks, {arm}", want, got, lr)
+            out[arm]["collectives"] = coll
+            say(f"    collectives {coll}")
+        ran.append(arm)
+        del want, got
+        release()
+    out["ran"], out["not_run"] = ran, not_run
+    return out
+
+
+def dp_child_main(args) -> int:
+    """A rank of a dp phase (``--dp-phase``); rank 0 writes the result."""
+    global REHEARSAL
+    REHEARSAL = args.cpu_rehearsal
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {"world1": dp_world1, "two": dp_two}[args.dp_phase](phase_sizes())
+        if dist.get_rank() == 0:
+            with open(args.dp_result, "w") as f:
+                json.dump(out, f)
+    finally:
+        parallel.destroy_process_group()
+    return 0
+
+
+def phase_dp_cli(tmp: str) -> dict:
+    """34. ``python -m torch.distributed.run --nproc_per_node 1 -m
+    visitron_torch.run viewpoint --debug --zero1`` and ``pretrain --debug
+    --fsdp`` on the card (NCCL, a world of one; BERT-base from the --debug
+    workspace): their checkpoints in the single-device layout, finite
+    losses."""
+    if REHEARSAL:
+        say("dp CLI: skipped in a rehearsal (the CLI under torchrun runs on the card)")
+        return {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    runs = {"viewpoint --zero1": ["viewpoint", "--config",
+                                  "run_configs/viewpoint_train/ndh_oscar_setting.json",
+                                  "--debug", "--zero1", "--num_iterations", "4",
+                                  "--saving_steps", "2", "--logging_steps", "1",
+                                  "--eval_iters", "4"],
+            "pretrain --fsdp": ["pretrain", "--config",
+                                "run_configs/pretrain/pretrain_ndh_r2r.json", "--debug",
+                                "--fsdp", "--num_epochs", "1", "--logging_steps", "10"]}
+    out = {}
+    for name, argv in runs.items():
+        d = os.path.join(tmp, "dp_cli_" + name.split()[0])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "1", "-m", "visitron_torch.run", *argv,
+                               "--output_dir", d], capture_output=True, text=True,
+                              timeout=DP_TIMEOUT_S, cwd=repo)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-6000:], flush=True)
+            fail(f"torchrun {name} exited {proc.returncode}")
+        from visitron_torch.train.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(d)
+        steps = ckpt.steps()
+        with open(os.path.join(d, "train.csv")) as f:
+            losses = [float(r["loss"]) for r in csv.DictReader(f) if r.get("loss")]
+        if not steps or not losses or not all(np.isfinite(losses)):
+            fail(f"torchrun {name}: checkpoints {steps}, losses {losses[:5]}")
+        opt = ckpt.restore_raw(steps[-1], "opt_state")
+        params = ckpt.restore_raw(steps[-1])
+        sd = params if name.startswith("pretrain") else params["encoder"]
+        mu = opt[1]["mu"] if name.startswith("pretrain") else opt[1]["mu"]["encoder"]
+        if any(mu[k].shape != v.shape for k, v in sd.items()):
+            fail(f"torchrun {name}: the checkpoint's moments are not in the parameters' "
+                 "layout")
+        say(f"dp CLI: torchrun --nproc_per_node 1 {name}: {seconds:.1f} s with start-up "
+            f"and val, checkpoints {steps}, {len(losses)} logged losses (last "
+            f"{losses[-1]:.4f})")
+        out[name] = {"seconds": seconds, "steps": steps}
+    return out
+
+
+def phase_dp(tmp: str) -> dict:
+    """Phases 33-35."""
+    release()
+    world1 = run_dp_child("world1", 1, tmp)
+    cli = phase_dp_cli(tmp)
+    two = run_dp_child("two", 2, tmp)
+    say(f"dp two ranks ({two['backend']}{', one card' if two['shared_card'] else ''}): "
+        f"arms that ran: {', '.join(two['ran']) or 'none'}; arms that could not run: "
+        + ("; ".join(f"{k} ({v})" for k, v in two["not_run"].items()) or "none"))
+    if "ndh dp" not in two["ran"]:
+        fail("the two-rank NDH dp step could not run")
+    layers = BertConfig(**phase_sizes()["sizes"]["bert"]).num_hidden_layers
+    want = {"ndh": {"K1f": layers, "K1b": layers, "K2f": 2 * layers + 1,
+                    "K2b": 2 * layers + 1},
+            "pretrain": {"K4f": layers, "K4b": layers, "K3f": 1, "K3b": 1,
+                         "K2f": 2 * layers + 2, "K2b": 2 * layers + 2}}
+    runs = {**{f"NDH {k}": ("ndh", v) for k, v in world1["ndh_time"].items()},
+            **{f"pretrain {k}": ("pretrain", v) for k, v in world1["pretrain_time"].items()}}
+    for name, (kind, run) in runs.items():
+        if not REHEARSAL and run["launches"] != {k: want[kind].get(k, 0) for k in COUNTED}:
+            fail(f"{name}: launches a step {run['launches']}, expected {want[kind]}")
+    return {"world1": world1, "cli": cli, "two": two}
+
+
+def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
     run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
@@ -3598,9 +4092,12 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions) -> dic
     batch of its argmax rollout, per iteration of phase 24's classifier run,
     of phase 25's viewpoint run from the HF file, of phase 28's speaker
     and ``--aug_data`` fine-tune runs, of phase 29's ``--no_use_fused_layernorm``
-    run and per run of phase 32's extract tasks; and
+    run and per run of phase 32's extract tasks;
     ``option_and_feature_launches``: its launches in phase 29's history-K/V
-    forward, a phase 30 scene forward and a phase 31 detector dispatch."""
+    forward, a phase 30 scene forward and a phase 31 detector dispatch; and
+    ``dp_launches``: its launches a step of phase 33's data-parallel runs
+    (NCCL, a world of one): the NDH dp and dp + ZeRO-1 steps, the S 768
+    pretraining step under dp, ZeRO-1 and FSDP, the S 1024 FSDP step."""
     code = {fn.__name__: k for k, fn in COUNTED.items()}
     ndh = {"fused_attention_packed": "K1f", "fused_add_layernorm": "K2f",
            "fused_attention_packed_bwd": "K1b", "fused_add_layernorm_bwd": "K2b"}
@@ -3656,23 +4153,19 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions) -> dic
          "option_and_feature_launches": {
              "history_kv_forward": opt["counts"][code[name]],
              "scene_forward": scene["bfloat16"]["counts"][code[name]],
-             "region_dispatch": regions["float32"]["counts"][code[name]]}}
+             "region_dispatch": regions["float32"]["counts"][code[name]]},
+         "dp_launches": {
+             "ndh_dp_step": dp["world1"]["ndh_time"]["dp"]["launches"][code[name]],
+             "ndh_zero1_step": dp["world1"]["ndh_time"]["dp zero1"]["launches"][code[name]],
+             **{f"pretrain_{k}": dp["world1"]["pretrain_time"][k]["launches"][code[name]]
+                for k in ("dp", "zero1", "fsdp")},
+             "long_fsdp_s1024": dp["world1"]["long_fsdp_launches"][code[name]]}}
         for name, (src, replaces), t, launches in entries]}
 
 
-def main(argv=None) -> int:
-    global REHEARSAL
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run every phase at a tiny size with the plain twins on "
-                         "the CPU; prints no result")
-    args = ap.parse_args(argv)
-    REHEARSAL = args.cpu_rehearsal
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+def phase_sizes() -> dict:
+    """Every phase's shapes: a rehearsal's tiny ones, or the card's."""
     if REHEARSAL:
-        device = "cpu"
         attn = {"batch": 2, "heads": 2, "head_dim": 64, "seqs": (128,)}
         ln = {"hidden": 128, "rows": (2 * 128,)}
         sizes = {"scans": 1, "viewpoints": 12, "feat": 32, "instances": 6, "seq": 128,
@@ -3698,7 +4191,6 @@ def main(argv=None) -> int:
                    "side": 256, "vfov": 80, "per_dispatch": 6, "face": 64, "dispatches": 1}
         extract = {"face": 32}
     else:
-        device = "cuda"
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
         # R 12288: the S 768 pretraining step's; 16384 and 32768: NDH at S 256
         # and 512 (16384 also the S 1024 step's).
@@ -3731,6 +4223,33 @@ def main(argv=None) -> int:
                    "pre_nms": 6000, "side": 600, "vfov": 80, "per_dispatch": 6,
                    "face": 1024, "dispatches": 6}
         extract = {"face": 1024, "depth": 152}
+    return {"attn": attn, "ln": ln, "sizes": sizes, "ce": ce, "attn4": attn4, "pre": pre,
+            "long": long, "flash": flash, "spk": spk, "opt": opt, "scene": scene,
+            "regions": regions, "extract": extract}
+
+
+def main(argv=None) -> int:
+    global REHEARSAL
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="run every phase at a tiny size with the plain twins on "
+                         "the CPU; prints no result")
+    ap.add_argument("--dp-phase", choices=("world1", "two"),
+                    help="run one rank of a data-parallel phase (started by the "
+                         "script itself through torch.distributed.run)")
+    ap.add_argument("--dp-result", help="where rank 0 of a --dp-phase writes its result")
+    args = ap.parse_args(argv)
+    if args.dp_phase:
+        return dp_child_main(args)
+    REHEARSAL = args.cpu_rehearsal
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    device = "cpu" if REHEARSAL else "cuda"
+    sz = phase_sizes()
+    attn, ln, sizes, ce, attn4, pre, long, flash, spk, opt, scene, regions, extract = (
+        sz[k] for k in ("attn", "ln", "sizes", "ce", "attn4", "pre", "long", "flash", "spk",
+                        "opt", "scene", "regions", "extract"))
     dev_info = phase_device()
     smi = dev_info.pop("nvidia_smi", None)
     phase_build()
@@ -3775,6 +4294,8 @@ def main(argv=None) -> int:
         cli["speaker"] = phase_speaker_cli(device, tmp, cli)
         cli["no_fused_ln"] = phase_no_fused_ln_cli(device, tmp, cli)
         cli["extract"] = phase_extract_cli(device, tmp, extract)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = phase_dp(tmp)
     say(f"speaker: step {speaker['ms']:.2f} ms (full width), CLI iteration "
         f"{cli['speaker']['ms']:.1f} ms, --aug_data fine-tune iteration "
         f"{cli['speaker']['vp_ms']:.1f} ms, phase 22's viewpoint iteration {cli['vp_ms']:.1f} ms")
@@ -3793,7 +4314,7 @@ def main(argv=None) -> int:
         return 0
     say(f"nvidia-smi: {smi}")
     print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl, cli, options, scene_out,
-                                  regions_out)), flush=True)
+                                  regions_out, dp)), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

@@ -83,7 +83,7 @@ def test_package_lists_every_ported_module():
                 "data.legacy_tokenizer", "utils", "utils.timer", "ops.detection",
                 "models.resnet", "models.detector", "pipelines.rendering",
                 "pipelines.scene_features", "pipelines.region_features",
-                "pipelines.orientation"):
+                "pipelines.orientation", "parallel", "parallel.mesh"):
         assert f"visitron_torch.{mod}" in names, mod
 
 

@@ -294,8 +294,12 @@ def test_pretrain_examples_and_batches_match_jax(worlds, tmp_path):
     assert tb["img_feats"].shape == (4, 128, IMG_DIM)
     assert tb["labels"].shape == (4, 128 + 128)
     assert (tb["token_labels"] >= 0).any()
-    with pytest.raises(NotImplementedError):
-        next(tds.epoch_batches(4, host_id=0, num_hosts=2))
+    # Multi-host epochs: each host's strided share of the same shuffle.
+    for host in range(2):
+        jb = next(jds.epoch_batches(2, host_id=host, num_hosts=2))
+        tb = next(tds.epoch_batches(2, host_id=host, num_hosts=2))
+        for key in jb:
+            np.testing.assert_array_equal(tb[key], jb[key], err_msg=key)
     # The preprocessed-example cache: written on the first build, read on the
     # second (the same batches as the JAX dataset's), ignored when the
     # fingerprint differs.
@@ -335,10 +339,18 @@ def test_train_epoch_lowers_the_loss_on_a_repeated_batch(worlds):
 
 
 def test_trainer_refuses_unported_options():
+    """A tensor-parallel mesh is refused by name (ROADMAP item 10b); ZeRO-1
+    and FSDP without a mesh shard nothing (the JAX trainer's one-device
+    mesh shards nothing either)."""
     cfg = TConfig(**{**SMALL, "max_position_embeddings": 64})
-    for kw in ({"mesh": object()}, {"zero1": True}, {"fsdp": True}):
-        with pytest.raises(NotImplementedError):
-            TTrainer(cfg, device="cpu", **kw)
+
+    class TPMesh:
+        shape, size, device = {"dp": 1, "tp": 2}, 2, torch.device("cpu")
+
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+        TTrainer(cfg, device="cpu", mesh=TPMesh())
+    for kw in ({"zero1": True}, {"fsdp": True}):
+        assert TTrainer(cfg, device="cpu", **kw).dp is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TTrainer(cfg)

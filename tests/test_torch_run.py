@@ -263,12 +263,12 @@ def test_debug_world_has_a_test_split_where_the_jax_one_has_none(tmp_path):
 
 
 def test_unported_options_and_unknown_tasks_refuse(tmp_path):
-    for flags in (["--mesh_dp", "2"], ["--mesh_tp", "2"], ["--zero1"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            trun.main(["viewpoint", "--debug", "--output_dir", str(tmp_path), *flags],
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        trun.main(["pretrain", "--debug", "--fsdp", "--output_dir", str(tmp_path)],
+    for axis in ("tp", "pp", "sp", "cp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+            trun.main(["viewpoint", "--debug", "--output_dir", str(tmp_path),
+                       f"--mesh_{axis}", "2"], device="cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        trun.main(["pretrain", "--debug", "--mesh_dp", "2", "--output_dir", str(tmp_path)],
                   device="cpu")
     with pytest.raises(SystemExit, match="--fsdp applies to the pretrain task"):
         trun.main(["viewpoint", "--debug", "--fsdp"], device="cpu")

@@ -515,13 +515,17 @@ def test_graft_matches_the_jax_graft(tmp_path, jax_agent):
 
 
 def test_trainer_refuses_unported_options(tmp_path):
-    """Meshes and ZeRO-1 (ROADMAP item 10) raise by name; a model path that is not a port pretraining checkpoint goes to the
+    """Tensor parallelism (ROADMAP item 10b) raises by name, a dp mesh of
+    more ranks than the process group has is refused, ZeRO-1 in one process
+    shards nothing; a model path that is not a port pretraining checkpoint goes to the
     Oscar / HuggingFace import (an empty ``pytorch_model.bin`` fails to
     load); a missing model path trains from scratch, as in the JAX
     package."""
-    for kw in ({"mesh_dp": 2}, {"mesh_tp": 2}, {"zero1": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            _torch_trainer(tmp_path, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+        _torch_trainer(tmp_path, mesh_tp=2)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        _torch_trainer(tmp_path, mesh_dp=2)
+    assert _torch_trainer(tmp_path, zero1=True).agent.dp is None
     oscar = tmp_path / "oscar"
     oscar.mkdir()
     (oscar / "pytorch_model.bin").write_bytes(b"")

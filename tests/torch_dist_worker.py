@@ -1,0 +1,152 @@
+"""One rank of the port's multi-process tests (tests/test_torch_multiprocess.py).
+
+Run as ``python tests/torch_dist_worker.py <work dir> <rank> <world>``: joins
+a gloo process group through ``file://<work dir>/pg`` (no port, so parallel
+test workers cannot collide), runs every case of ``<work dir>/inputs.pt`` in
+order, and writes ``<work dir>/<case>_<rank>.pt`` for each.  Imports torch
+and the port only.
+"""
+
+import os
+import signal
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+sys.path.insert(0, REPO)
+
+from visitron_torch import agents as ta  # noqa: E402
+from visitron_torch import data as td  # noqa: E402
+from visitron_torch import parallel  # noqa: E402
+from visitron_torch.models import BertConfig  # noqa: E402
+from visitron_torch.testing import SyntheticWorld  # noqa: E402
+from visitron_torch.train import PretrainTrainer  # noqa: E402
+from visitron_torch.train.preemption import PreemptionGuard  # noqa: E402
+
+
+def _runtime(world: dict):
+    """The runtime of the parent's synthetic world: its graphs, and the
+    scene features the parent drew."""
+    tw = SyntheticWorld(**world["kw"])
+    return ta.NavRuntime.build(tw.graphs, td.SceneFeatureTable.pack(
+        tw.graphs, world["feats"], vfov=60), device="cpu")
+
+
+def _flat(params: dict) -> dict:
+    return {f"{part}/{k}": v for part, sub in params.items() for k, v in sub.items()}
+
+
+def case_pretrain(mesh, inp):
+    """Two pretraining steps on this rank's rows of the global batches."""
+    trainer = PretrainTrainer(BertConfig(**inp["bert"]), mesh=mesh, zero1=inp["zero1"],
+                              fsdp=inp["fsdp"], total_steps=100,
+                              learning_rate=inp["lr"], device="cpu")
+    state = trainer.init_state(params=inp["params"])
+    local = sum(t.numel() for t in parallel.mesh._leaves(state["opt_state"])
+                if isinstance(t, torch.Tensor))
+    step = trainer.step_fn()
+    bundles = []
+    for batch in inp["batches"]:
+        state, bundle = step(state, parallel.shard_batch(mesh, batch))
+        bundles.append({k: float(v) for k, v in bundle.items()})
+    params, _ = trainer.dp.gather(state["params"], state["opt_state"])
+    return {"params": params, "bundles": bundles, "opt_numel": local,
+            "param_numel": sum(t.numel() for t in state["params"].values())}
+
+
+def _agent_step(mesh, inp, agent, state, batch):
+    step = {"teacher": agent.train_step_fn,
+            "sample": lambda: agent.sample_train_step_fn("argmax")}[inp.get("feedback",
+                                                                         "teacher")]()
+    state, loss = step(state, parallel.shard_batch(mesh, batch, inp.get("axes")))
+    return {"params": _flat(state["params"]), "loss": float(loss),
+            "opt_numel": sum(t.numel() for t in parallel.mesh._leaves(state["opt_state"])
+                             if isinstance(t, torch.Tensor))}
+
+
+def case_viewpoint(mesh, inp):
+    agent = ta.ViewpointAgent(BertConfig(**inp["bert"]), _runtime(inp["world"]),
+                              **inp["agent"], device="cpu", mesh=mesh, zero1=inp["zero1"])
+    return _agent_step(mesh, inp, agent, agent.init_state(params=inp["params"]),
+                       inp["batch"])
+
+
+def case_turn_based(mesh, inp):
+    from visitron_torch.agents.turn_based import TurnBasedAgent
+
+    agent = TurnBasedAgent(BertConfig(**inp["bert"]), _runtime(inp["world"]),
+                           **inp["agent"], device="cpu", mesh=mesh)
+    return _agent_step(mesh, inp, agent, agent.init_state(params=inp["params"]),
+                       inp["batch"])
+
+
+def case_classifier(mesh, inp):
+    from visitron_torch.agents.classifier import ClassifierAgent
+
+    agent = ClassifierAgent(BertConfig(**inp["bert"]), _runtime(inp["world"]),
+                            **inp["agent"], device="cpu", mesh=mesh)
+    items = inp["items"]
+    n = len(items) // mesh.dp
+    batch = agent.prepare_batch(items[mesh.rank * n:(mesh.rank + 1) * n], event_items=items)
+    state = agent.init_state(params=inp["params"])
+    state, loss = agent.train_step_fn()(state, batch)
+    return {"params": _flat(state["params"]), "loss": float(loss)}
+
+
+def case_consensus(mesh, inp):
+    """Rank 1 takes a SIGTERM at step 3; the step each rank stops at."""
+    stopped = None
+    with PreemptionGuard(sync_every=inp["sync_every"]) as guard:
+        for it in range(1, 13):
+            if mesh.rank == 1 and it == 3:
+                signal.raise_signal(signal.SIGTERM)
+            if guard.should_stop(it):
+                stopped = it
+                break
+    return {"stopped": stopped, "fired": guard.fired}
+
+
+def case_cli(mesh, inp):
+    """``run.main`` of each argv in turn, with the tiny BERT of the CLI tests."""
+    import visitron_torch.train.workspace as tws
+    from visitron_torch import run
+
+    def tiny(cfg, tokenizer):
+        return BertConfig(vocab_size=len(tokenizer), hidden_size=32, num_hidden_layers=2,
+                          num_attention_heads=4, intermediate_size=64,
+                          max_position_embeddings=max(cfg.max_seq_length, 512),
+                          type_vocab_size=4, img_feature_dim=cfg.img_feature_dim,
+                          detector_classes=cfg.detector_classes,
+                          hidden_dropout_prob=cfg.drop_out,
+                          attention_probs_dropout_prob=cfg.drop_out)
+
+    tws.Workspace._bert_config = staticmethod(tiny)
+    for argv in inp["argvs"]:
+        parallel.reset_collective_counts()
+        run.main(argv, device="cpu")
+    return {"counts": parallel.collective_counts()}
+
+
+def main():
+    work, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    torch.set_num_threads(1)
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    parallel.init_process_group("cpu", init_method=f"file://{os.path.join(work, 'pg')}",
+                                rank=rank, world_size=world, timeout_s=100)
+    try:
+        mesh = parallel.make_mesh()
+        for name, inp in inputs:
+            parallel.reset_collective_counts()
+            torch.manual_seed(0)
+            np.random.seed(0)
+            out = globals()[f"case_{inp['case']}"](mesh, inp)
+            out.setdefault("counts", parallel.collective_counts())
+            torch.save(out, os.path.join(work, f"{name}_{rank}.pt"))
+    finally:
+        parallel.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

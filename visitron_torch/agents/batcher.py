@@ -4,11 +4,17 @@ the training schedule ``train_batches`` / ``skip_batches`` and
 ``eval_batches``).  Host-side numpy; the agent moves each batch onto the
 device.
 
-The training schedule is the JAX package's for one host: epoch-shuffled with
+The training schedule is the JAX package's: epoch-shuffled with
 ``np.random.default_rng(seed)``, length-sorted within windows of
 ``length_sort_window`` batches (default ``LENGTH_SORT_WINDOW``; 0 or 1
 turns it off), the epoch tail wrapped into the next epoch, so the same seed
-gives the same batches.  Multi-host streams are not ported.
+gives the same batches.  Under data parallelism each rank is a JAX "host"
+(``host_id`` = rank, ``num_hosts`` = world size): it takes the strided
+shard ``instances[host_id::num_hosts]`` (DistributedSampler's), and runs
+every other host's stream as a shadow (each shard's schedule is
+deterministic given the instances and the seed), so it trims its batch to
+the global length bucket, the longest dialog of every host's concurrent
+batch rounded up to ``length_bucket``, with no collective.
 """
 
 from __future__ import annotations
@@ -40,14 +46,21 @@ def trim_to_bucket(batch: dict, max_len: int, bucket: int) -> dict:
 class NavEpisodeBatcher:
     def __init__(self, instances: list[NavInstance], runtime: NavRuntime,
                  batch_size: int, path_type: str = "trusted_path", seed: int = 88,
-                 length_sort_window: int = LENGTH_SORT_WINDOW):
-        self.instances = instances
+                 host_id: int = 0, num_hosts: int = 1,
+                 length_sort_window: int = LENGTH_SORT_WINDOW, length_bucket: int = 128):
+        self.instances_all = instances
+        self.instances = instances[host_id::num_hosts]
         self.runtime = runtime
         self.batch_size = batch_size
         self.path_type = path_type
+        self.seed = seed
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.length_sort_window = length_sort_window
+        self.length_bucket = length_bucket
         self.rng = np.random.default_rng(seed)
-        self._stream = None
+        self._streams = None
+        self._shards = None
 
     def _make_batch(self, items: list[NavInstance]) -> dict:
         rt = self.runtime
@@ -102,50 +115,77 @@ class NavEpisodeBatcher:
             batch["goal_rows"], episode_len))
         return batch
 
-    def _window_sort(self, idx: list[int]) -> list[int]:
-        """Length-sort ``idx`` within windows of ``length_sort_window``
-        batches, starting at index 0 so window boundaries stay aligned to
-        batch boundaries."""
+    def _window_sort(self, idx: list[int], shard) -> list[int]:
+        """Length-sort ``idx`` (into ``shard``) within windows of
+        ``length_sort_window`` batches, starting at index 0 so window
+        boundaries stay aligned to batch boundaries."""
         w = self.length_sort_window * self.batch_size
         if self.length_sort_window <= 1 or len(idx) <= self.batch_size:
             return list(idx)
         arr = np.asarray(idx)
-        lengths = np.array([self.instances[i].length for i in arr])
+        lengths = np.array([shard[i].length for i in arr])
         out: list[int] = []
         for s in range(0, len(arr), w):
             chunk, cl = arr[s:s + w], lengths[s:s + w]
             out.extend(chunk[np.argsort(cl, kind="stable")].tolist())
         return out
 
-    def _batch_stream(self):
-        """Yield ``batch_size`` index lists: epoch-shuffled, window-aligned
-        length-sorted, the tail wrapped into the next epoch."""
+    def _batch_stream(self, shard, rng):
+        """Yield ``batch_size`` index lists into ``shard``: epoch-shuffled,
+        window-aligned length-sorted, the tail wrapped into the next epoch."""
         order: list[int] = []
         while True:
             while len(order) < self.batch_size:
-                epoch = np.arange(len(self.instances))
-                self.rng.shuffle(epoch)
-                order = self._window_sort(order + epoch.tolist())
+                epoch = np.arange(len(shard))
+                rng.shuffle(epoch)
+                order = self._window_sort(order + epoch.tolist(), shard)
             take, order = order[: self.batch_size], order[self.batch_size:]
             yield take
 
-    def _next_take(self) -> list[int]:
-        if self._stream is None:
-            self._stream = self._batch_stream()
-        return next(self._stream)
+    def _ensure_streams(self) -> None:
+        """Every host's stream: this host's draws from ``self.rng``, the
+        shadows from fresh generators of the same seed (what each of them
+        runs itself)."""
+        if self._streams is not None:
+            return
+        if self.num_hosts > 1:
+            self._shards = [self.instances_all[h::self.num_hosts]
+                            for h in range(self.num_hosts)]
+            self._streams = [self._batch_stream(sh, self.rng if h == self.host_id
+                                                else np.random.default_rng(self.seed))
+                             for h, sh in enumerate(self._shards)]
+        else:
+            self._shards = [self.instances]
+            self._streams = [self._batch_stream(self.instances, self.rng)]
+
+    def _global_trim(self, batch: dict, global_max_len: int) -> dict:
+        return trim_to_bucket(batch, global_max_len, self.length_bucket)
 
     def skip_batches(self, n: int) -> None:
         """Advance the schedule by ``n`` batches without building them (a
-        resumed run replays the stream to its checkpoint position)."""
+        resumed run replays the stream to its checkpoint position); the
+        shadow streams advance in lock-step, so the global length buckets
+        stay the same after a resume."""
+        self._ensure_streams()
         for _ in range(n):
-            self._next_take()
+            for stream in self._streams:
+                next(stream)
 
     def train_batches(self, num_batches: int, episode_len: int | None = None):
         """``num_batches`` full-size batches of the training schedule, each
         with its teacher-forced episode arrays of ``episode_len`` steps
-        (None: without them); the schedule's state persists across calls."""
+        (None: without them); the schedule's state persists across calls.
+        With several hosts each batch is trimmed to the global length
+        bucket."""
+        self._ensure_streams()
+        my = self.host_id if self.num_hosts > 1 else 0
         for _ in range(num_batches):
-            batch = self._make_batch([self.instances[i] for i in self._next_take()])
+            takes = [next(stream) for stream in self._streams]
+            batch = self._make_batch([self._shards[my][i] for i in takes[my]])
+            if self.num_hosts > 1:
+                gmax = max(self._shards[h][i].length
+                           for h, take in enumerate(takes) for i in take)
+                batch = self._global_trim(batch, int(gmax))
             yield batch if episode_len is None else self.with_teacher(batch, episode_len)
 
     def eval_batches(self, episode_len: int | None = None):

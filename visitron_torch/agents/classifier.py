@@ -23,6 +23,13 @@ over labels that mark the ``question_linear`` parameters "train": the clip's
 norm and the Adam moments cover those parameters alone, and every other
 parameter stays as it is: it takes no gradient, no zero update and no
 rewrite, so a step touches the question head's parameters alone.
+
+Under a dp ``mesh`` each rank prepares its rows, with the encode events of
+the global batch (``prepare_batch(items, event_items=...)``: the steps at
+which some item of any rank asks), divides each step's loss by the global
+count of its kept items, and sums the gradients and the loss over the ranks;
+the optimizer state stays replicated (no ``--zero1`` for this task, as in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -74,7 +81,8 @@ class ClassifierAgent(DialogAgent):
     only_finetune_classifier: bool = True
     bf16_adam_moments: bool = False
     seed: int = 88
-    device: object = None  # None: the card
+    device: object = None  # None: the mesh's device, else the card
+    mesh: object = None  # a dp parallel.Mesh: data-parallel training
 
     def __post_init__(self):
         self._resolve_device()
@@ -94,12 +102,11 @@ class ClassifierAgent(DialogAgent):
                                           question_head_labels)
                           if self.only_finetune_classifier else base)
 
-    def init_state(self) -> dict:
-        """Training state: ``params``, ``opt_state`` and the decoder's
-        dropout generators ``rng``."""
-        params = self.init_params()
-        return {"params": params, "opt_state": self.optimizer.init(params),
-                "rng": self.dropout_rng()}
+    def init_state(self, params: dict | None = None) -> dict:
+        """Training state: ``params`` (fresh, or the given full ones),
+        ``opt_state`` and the decoder's dropout generators ``rng``."""
+        return self._train_state(self.init_params() if params is None else params,
+                                 rng=self.dropout_rng())
 
     def load_nav_decoder(self, params: dict, nav_decoder_params: dict) -> dict:
         """``params`` with the decoder initialised from a fine-tuned nav
@@ -116,12 +123,14 @@ class ClassifierAgent(DialogAgent):
         return {**params, "decoder": dec}
 
     # -- batch preparation (host) ---------------------------------------------------
-    def prepare_batch(self, items: list[ClassifierInstance]) -> dict:
+    def prepare_batch(self, items: list[ClassifierInstance],
+                      event_items: list[ClassifierInstance] | None = None) -> dict:
         """Host arrays of a batch: the teacher-forced nav episode toward the
         player goal, the QA targets and ignores, and the dialog snapshots
         (E, B, S) of every encode event (step 0 and each step at which some
-        item asked; E is their number, with no padding), with
-        ``step2event`` (T,) mapping steps to events."""
+        item of ``event_items`` asked, default ``items``: a rank's rows take
+        the events of the global batch; E is their number, with no
+        padding), with ``step2event`` (T,) mapping steps to events."""
         rt = self.runtime
         b = len(items)
         t_len = self.episode_len
@@ -150,7 +159,7 @@ class ClassifierAgent(DialogAgent):
         # Encode events: step 0 plus every step t at which some item asked
         # (the whole batch re-encoded; classifier/agent.py:424-462).
         events = [0] + [t for t in range(1, t_len)
-                        if any(t in it.request_locations for it in items)]
+                        if any(t in it.request_locations for it in (event_items or items))]
         s = items[0].token_ids.shape[1]
         e = len(events)
         lang_ids = np.zeros((e, b, s), np.int32)
@@ -216,15 +225,21 @@ class ClassifierAgent(DialogAgent):
             qa.append(qa_logit[:, 0])
         return torch.stack(qa, dim=1)
 
-    def loss_fn(self, params, batch: dict, rng: DropoutRng | None = None):
+    def loss_fn(self, params, batch: dict, rng: DropoutRng | None = None,
+                count_sum=None):
         """(loss, qa_logits): the per-step masked mean of the pos-weighted
-        BCE, summed over T and divided by T (classifier/agent.py:493-507,585)."""
+        BCE, summed over T and divided by T (classifier/agent.py:493-507,585).
+        ``count_sum`` (:meth:`_count_sum`) takes the kept counts to the
+        global batch's; None: this batch's."""
         qa_logits = self.episode_outputs(params, batch, rng)
         t = torch.as_tensor(np.stack([~np.asarray(batch["qa_ignore"]),
                                       np.asarray(batch["qa_target"]) > 0])).to(self.device)
         keep, target = t[0].float(), t[1].float()
         per = bce_with_logits(qa_logits, target, self.pos_weight) * keep
-        step_losses = per.sum(dim=0) / torch.clamp(keep.sum(dim=0), min=1.0)
+        n = keep.sum(dim=0)
+        if count_sum is not None:  # each step's kept count over the global batch
+            n = count_sum(n)
+        step_losses = per.sum(dim=0) / torch.clamp(n, min=1.0)
         return step_losses.sum() / qa_logits.shape[1], qa_logits
 
     def train_step_fn(self):
@@ -237,9 +252,12 @@ class ClassifierAgent(DialogAgent):
             # gradient and no update: only the question head is touched.
             labels = (question_head_labels(state["params"])
                       if self.only_finetune_classifier else None)
+            count_sum = self._count_sum()
             loss, _, grads = self.value_and_grads(
-                state["params"], lambda p: self.loss_fn(p, batch, state["rng"]), labels)
-            return self.apply_grads(state, grads), loss
+                state["params"], lambda p: self.loss_fn(p, batch, state["rng"], count_sum),
+                labels)
+            state, logged = self.apply_grads(state, grads, {"loss": loss})
+            return state, logged["loss"]
 
         return run
 

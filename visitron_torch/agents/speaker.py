@@ -185,7 +185,7 @@ class SpeakerAgent(DialogAgent):
             batch = self.device_batch(batch)
             loss, _, grads = self.value_and_grads(
                 state["params"], lambda p: (self.loss(p, batch, state["rng"]), None))
-            return self.apply_grads(state, grads), loss
+            return self.apply_grads(state, grads)[0], loss
 
         return run
 

@@ -14,6 +14,11 @@ dropout active, takes the gradients with ``torch.autograd.grad`` (the BERT
 attention and LayerNorms backward through K1b and K2b), clips them and
 applies Adam.
 
+Under a dp ``mesh`` the step is the viewpoint agent's data-parallel step
+(global per-step active counts, summed gradients and loss, rank-folded
+dropout and sampling seeds); the optimizer state stays replicated, as in
+the JAX package, whose turn-based task takes no ``--zero1``.
+
 The student rollout (``rollout_student``, ``test``) applies each turn on the
 host, as the JAX package does: the navigable locations of a (viewpoint,
 view) pair come from host tables, so every step moves the (B,) rows, views
@@ -58,7 +63,8 @@ class TurnBasedAgent(DialogAgent):
     learning_rate: float = 1e-4
     bf16_adam_moments: bool = False
     seed: int = 88
-    device: object = None  # None: the card
+    device: object = None  # None: the mesh's device, else the card
+    mesh: object = None  # a dp parallel.Mesh: data-parallel training
 
     def __post_init__(self):
         self._resolve_device()
@@ -78,13 +84,15 @@ class TurnBasedAgent(DialogAgent):
         self.results: dict = {}
         self.readbacks = 0  # (B,) action vectors the student rollouts read back
 
-    def init_state(self) -> dict:
-        """Training state: ``params``, ``opt_state``, the dropout generators
-        ``rng`` and ``sampler`` (seed + 2), as in ViewpointAgent."""
-        params = self.init_params()
-        sampler = torch.Generator(device=self.device).manual_seed(self.seed + 2)
-        return {"params": params, "opt_state": self.optimizer.init(params),
-                "rng": self.dropout_rng(), "sampler": sampler}
+    def init_state(self, params: dict | None = None) -> dict:
+        """Training state: ``params`` (fresh, or the given full ones),
+        ``opt_state``, the dropout generators ``rng`` and ``sampler`` (seed +
+        2), as in ViewpointAgent."""
+        if params is None:
+            params = self.init_params()
+        sampler = torch.Generator(device=self.device).manual_seed(
+            self._rank_seed(self.seed + 2))
+        return self._train_state(params, rng=self.dropout_rng(), sampler=sampler)
 
     def decode_step(self, params, a_prev, h, c, ctx, ctx_mask, cur_row, view, fwd_ok,
                     rng: DropoutRng | None = None):
@@ -99,11 +107,14 @@ class TurnBasedAgent(DialogAgent):
         return logit.masked_fill(forward[None, :] & ~fwd_ok[:, None], NEG_INF), h, c
 
     # -- teacher-forced training ------------------------------------------------
-    def episode_loss(self, params, batch: dict, rng: DropoutRng | None = None):
+    def episode_loss(self, params, batch: dict, rng: DropoutRng | None = None,
+                     count_sum=None):
         """Mean teacher-forced loss of a trimmed batch with turn-teacher
         arrays: each step's CE over its active items (n = max(sum(active),
         1)), summed over T and divided by T.  After the end the next input is
-        the <ignore> id (turn_based/agent.py:212-232)."""
+        the <ignore> id (turn_based/agent.py:212-232).  ``count_sum``
+        (:meth:`_count_sum`) takes the active counts to the global batch's;
+        None: this batch's."""
         ctx, h, c, ctx_mask = self.encode(params, batch, rng)
         cur_row, view = self._index(batch["cur_row"]), self._index(batch["view"])
         teacher = self._index(batch["teacher"])
@@ -112,6 +123,9 @@ class TurnBasedAgent(DialogAgent):
         t_len = cur_row.shape[1]
         a_prev = torch.full((cur_row.shape[0],), START_ID, dtype=torch.int64,
                             device=self.device)
+        counts = active.float().sum(0)
+        if count_sum is not None:  # each step's active count over the global batch
+            counts = count_sum(counts)
         loss = torch.zeros((), device=self.device)
         for t in range(t_len):
             logit, h, c = self.decode_step(params, a_prev, h, c, ctx, ctx_mask,
@@ -119,8 +133,7 @@ class TurnBasedAgent(DialogAgent):
             act = active[:, t]
             ce = F.cross_entropy(logit.float(), torch.where(act, teacher[:, t], 0),
                                  reduction="none")
-            weight = act.float()
-            loss = loss + torch.sum(ce * weight) / torch.clamp(weight.sum(), min=1.0)
+            loss = loss + torch.sum(ce * act.float()) / torch.clamp(counts[t], min=1.0)
             a_prev = torch.where(act, teacher[:, t], IGNORE_ID)
         return loss / t_len
 
@@ -129,10 +142,13 @@ class TurnBasedAgent(DialogAgent):
         with every dropout active, the global-norm clip and Adam."""
 
         def run(state, batch):
-            batch = self.trim_batch(batch)
+            batch = self.train_trim(batch)
+            count_sum = self._count_sum()
             loss, _, grads = self.value_and_grads(
-                state["params"], lambda p: (self.episode_loss(p, batch, state["rng"]), None))
-            return self.apply_grads(state, grads), loss
+                state["params"],
+                lambda p: (self.episode_loss(p, batch, state["rng"], count_sum), None))
+            state, logged = self.apply_grads(state, grads, {"loss": loss})
+            return state, logged["loss"]
 
         return run
 

@@ -43,6 +43,16 @@ them and applies Adam:
 
 The T-step decode loops of the sampled and RL losses read nothing back to
 the host.
+
+Under a dp ``mesh`` (``parallel.make_mesh``; the JAX agent's ``mesh``) each
+rank steps on its rows of the global batch (``NavEpisodeBatcher(host_id,
+num_hosts)`` trims them to the global length bucket): every loss divides by
+the counts of the global batch (the per-step active counts, one all-reduce
+a step), the gradients and the logged loss and aux values are summed over
+the ranks in flat buckets, the attention kernels' dropout seed is folded by
+the rank and the hidden-dropout and sampling generators are seeded per
+rank.  ``zero1`` shards the Adam moments over the ranks
+(``parallel.DataParallel``).
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from visitron_torch.agents.runtime import NavRuntime
 from visitron_torch.models import AttnDecoderLSTM, BertConfig, Critic, OscarEncoder
 from visitron_torch.models.layers import DropoutRng, init_module_params
 from visitron_torch.ops.masking import NEG_INF
+from visitron_torch.parallel.mesh import DataParallel, jax_axis_orders
 from visitron_torch.train.optim import (agent_optimizer, apply_updates, tree_leaves,
                                         tree_unflatten)
 
@@ -107,12 +118,45 @@ class DialogAgent:
     ``device`` fields and set ``encoder``, ``decoder`` and ``optimizer``."""
 
     def _resolve_device(self) -> None:
-        """``device`` resolved (None: the card); the runtime's tables must
-        live on the same kind of device."""
+        """``device`` resolved (None: the mesh's device, else the card); the
+        runtime's tables must live on the same kind of device.  Under a
+        ``mesh``, ``dp`` carries the step's collectives (``zero1`` where the
+        agent has it)."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None and self.device is None:
+            self.device = mesh.device
         self.device = resolve_device(self.device)
         if self.runtime.device.type != self.device.type:
             raise ValueError(f"runtime tables are on {self.runtime.device}, "
                              f"the agent on {self.device}")
+        self.dp = None
+        if mesh is not None:
+            self.dp = DataParallel(mesh, zero1=getattr(self, "zero1", False))
+
+    def _clip_norm(self):
+        """The optimizer clip's norm: the dp step's (over every rank's
+        shards under ZeRO-1), None (the plain norm) without a mesh."""
+        return None if self.dp is None else self.dp.global_norm
+
+    def _rank_seed(self, seed: int) -> int:
+        """``seed`` folded by the rank under a mesh (each rank's rows draw
+        their own dropout masks and samples), ``seed`` itself otherwise."""
+        return seed if self.dp is None else self.dp.mesh.fold_seed(seed)
+
+    def _count_sum(self):
+        """What a training step's losses pass their counts through: the sum
+        over the ranks under a mesh (the global batch's counts), None (this
+        batch's own) otherwise."""
+        return None if self.dp is None else self.dp.global_count
+
+    def _train_state(self, params: dict, **extra) -> dict:
+        """{params, opt_state, **extra} from full parameters: under ZeRO-1
+        the optimizer state holds this rank's shards."""
+        if self.dp is None:
+            return {"params": params, "opt_state": self.optimizer.init(params), **extra}
+        self.dp.plan(params, {part: jax_axis_orders(getattr(self, part)) for part in params})
+        params, opt_state = self.dp.place(params, self.optimizer)
+        return {"params": params, "opt_state": opt_state, **extra}
 
     def init_params(self, seed: int | None = None, parts=("encoder", "decoder")) -> dict:
         """Fresh parameters of ``parts`` from a CPU ``torch.Generator`` (so
@@ -125,10 +169,13 @@ class DialogAgent:
 
     def dropout_rng(self) -> DropoutRng:
         """A training pass's dropout generators: masks on the agent's
-        device, kernel seeds on the CPU, both seeded with seed + 1."""
+        device, kernel seeds on the CPU, both seeded with seed + 1; under a
+        mesh the masks' seed and the kernel seeds are folded by the rank."""
         return DropoutRng(
-            masks=torch.Generator(device=self.device).manual_seed(self.seed + 1),
-            seeds=torch.Generator().manual_seed(self.seed + 1))
+            masks=torch.Generator(device=self.device).manual_seed(
+                self._rank_seed(self.seed + 1)),
+            seeds=torch.Generator().manual_seed(self.seed + 1),
+            seed_offset=self._rank_seed(0))
 
     @staticmethod
     def trim_batch(batch: dict, bucket: int = 128) -> dict:
@@ -136,6 +183,14 @@ class DialogAgent:
         ``bucket`` multiple (padded keys are masked and the LSTM freezes at
         pads, so the result is unchanged)."""
         return trim_to_bucket(batch, int(batch["lengths"].max()), bucket)
+
+    def train_trim(self, batch: dict) -> dict:
+        """A training batch trimmed to its bucket; under a mesh of several
+        ranks the batcher has trimmed it to the global bucket already (every
+        rank's rows in the same shapes, as in the JAX package)."""
+        if self.dp is not None and self.dp.mesh.dp > 1:
+            return batch
+        return self.trim_batch(batch)
 
     def _index(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.int64).to(self.device)
@@ -171,12 +226,22 @@ class DialogAgent:
             grads.append(torch.zeros_like(p) if g is None and not f else g)
         return loss.detach(), aux, tree_unflatten(params, grads)
 
-    def apply_grads(self, state: dict, grads) -> dict:
-        """``state`` after the global-norm clip and one Adam step."""
-        updates, opt_state = self.optimizer.update(grads, state["opt_state"],
-                                                   state["params"])
-        return {**state, "params": apply_updates(state["params"], updates),
-                "opt_state": opt_state}
+    def apply_grads(self, state: dict, grads, logged: dict | None = None):
+        """(``state`` after the global-norm clip and one Adam step,
+        ``logged``: 0-d tensors, the loss and aux values).  Under a mesh the
+        gradients and ``logged`` are first summed over the ranks (one flat
+        all-reduce), and the update is ZeRO-1's where the agent shards its
+        optimizer state."""
+        logged = logged or {}
+        if self.dp is None:
+            updates, opt_state = self.optimizer.update(grads, state["opt_state"],
+                                                       state["params"])
+            return {**state, "params": apply_updates(state["params"], updates),
+                    "opt_state": opt_state}, logged
+        grads, logged = self.dp.reduce(grads, logged)
+        params, opt_state = self.dp.update(self.optimizer, grads, state["opt_state"],
+                                           state["params"], apply_updates)
+        return {**state, "params": params, "opt_state": opt_state}, logged
 
     def write_results(self, path: str) -> None:
         """``self.results`` ({inst_idx: trajectory}) as the EvalAI JSON."""
@@ -202,7 +267,9 @@ class ViewpointAgent(DialogAgent):
     bf16_adam_moments: bool = False  # store Adam mu/nu in bf16
     temperature: float = 1.0  # temperature / penalty feedback scaling
     seed: int = 88
-    device: object = None  # None: the card
+    device: object = None  # None: the mesh's device, else the card
+    zero1: bool = False  # shard the optimizer state over the mesh's ranks
+    mesh: object = None  # a dp parallel.Mesh: data-parallel training
 
     def __post_init__(self):
         self._resolve_device()
@@ -220,7 +287,8 @@ class ViewpointAgent(DialogAgent):
                              dropout_ratio=self.dropout).to(self.device).eval()
         self.optimizer = agent_optimizer(self.learning_rate, self.optimizer_kind,
                                          self.max_grad_norm,
-                                         bf16_moments=self.bf16_adam_moments)
+                                         bf16_moments=self.bf16_adam_moments,
+                                         norm=self._clip_norm())
         self.results: dict = {}
 
     # -- parameters ----------------------------------------------------------
@@ -230,17 +298,21 @@ class ViewpointAgent(DialogAgent):
         return super().init_params(seed, ("encoder", "decoder")
                                    + (("critic",) if with_critic else ()))
 
-    def init_state(self, with_critic: bool = False) -> dict:
+    def init_state(self, with_critic: bool = False, params: dict | None = None) -> dict:
         """Training state: ``params`` (:meth:`init_params` at the agent's
         seed; ``with_critic`` adds the value head RL fine-tuning needs),
         ``opt_state``, ``rng``, the dropout generators (masks on the agent's
         device, kernel seeds on the CPU, both seeded with seed + 1), and
         ``sampler``, the generator of the sampled actions (on the agent's
-        device, seed + 2)."""
-        params = self.init_params(with_critic=with_critic)
-        sampler = torch.Generator(device=self.device).manual_seed(self.seed + 2)
-        return {"params": params, "opt_state": self.optimizer.init(params),
-                "rng": self.dropout_rng(), "sampler": sampler}
+        device, seed + 2); under a mesh the device generators' seeds are
+        folded by the rank, and under ``zero1`` the optimizer state holds
+        this rank's shards.  ``params``: full parameters to start from
+        instead (the same on every rank)."""
+        if params is None:
+            params = self.init_params(with_critic=with_critic)
+        sampler = torch.Generator(device=self.device).manual_seed(
+            self._rank_seed(self.seed + 2))
+        return self._train_state(params, rng=self.dropout_rng(), sampler=sampler)
 
     def decode_step(self, params, h1, c, ctx, ctx_mask, cur_row, view,
                     visited_mask=None, rng: DropoutRng | None = None):
@@ -255,23 +327,30 @@ class ViewpointAgent(DialogAgent):
         return logit.masked_fill(cand_mask, NEG_INF), h_tilde, c_new
 
     # -- teacher-forced training ------------------------------------------------
-    def episode_loss(self, params, batch: dict, rng: DropoutRng | None = None):
+    def episode_loss(self, params, batch: dict, rng: DropoutRng | None = None,
+                     count_sum=None):
         """Mean teacher-forced loss of a trimmed batch with teacher arrays
         (agent.py:406-412, 469-472): the encoder, then T decoder steps fed
         the teacher's states; each step's masked CE is averaged over its
         active items (n = max(sum(active), 1)), and the loss is the sum of
-        the step losses over T.  ``rng`` None: no dropout."""
+        the step losses over T.  ``rng`` None: no dropout.  ``count_sum``
+        (:meth:`_count_sum`) takes the active counts to the global batch's;
+        None: this batch's."""
         ctx, h1, c, ctx_mask = self.encode(params, batch, rng)
-        return self.teacher_forced_loss(params, batch, ctx, h1, c, ctx_mask, rng)
+        return self.teacher_forced_loss(params, batch, ctx, h1, c, ctx_mask, rng,
+                                        count_sum)
 
     def teacher_forced_loss(self, params, batch: dict, ctx, h1, c, ctx_mask,
-                            rng: DropoutRng | None = None):
+                            rng: DropoutRng | None = None, count_sum=None):
         """The decoder half of :meth:`episode_loss`: T teacher-forced steps
         from the encoder's outputs, and the mean of the step losses."""
         cur_row, view = self._index(batch["cur_row"]), self._index(batch["view"])
         teacher = self._index(batch["teacher"])
         active = torch.as_tensor(np.asarray(batch["active"], bool)).to(self.device)
         t_len = cur_row.shape[1]
+        counts = active.float().sum(0)
+        if count_sum is not None:  # each step's active count over the global batch
+            counts = count_sum(counts)
         loss = torch.zeros((), device=self.device)
         for t in range(t_len):
             logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask,
@@ -279,14 +358,14 @@ class ViewpointAgent(DialogAgent):
             act = active[:, t]
             ce = F.cross_entropy(logit.float(), torch.where(act, teacher[:, t], 0),
                                  reduction="none")
-            weight = act.float()
-            loss = loss + torch.sum(ce * weight) / torch.clamp(weight.sum(), min=1.0)
+            loss = loss + torch.sum(ce * act.float()) / torch.clamp(counts[t], min=1.0)
         return loss / t_len
 
-    def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None):
+    def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None,
+                       count_sum=None):
         """(loss, grads) of :meth:`episode_loss` for a trimmed batch."""
         loss, _, grads = self.value_and_grads(
-            params, lambda p: (self.episode_loss(p, batch, rng), None))
+            params, lambda p: (self.episode_loss(p, batch, rng, count_sum), None))
         return loss, grads
 
     def train_step_fn(self):
@@ -294,9 +373,11 @@ class ViewpointAgent(DialogAgent):
         with every dropout active, the global-norm clip and Adam."""
 
         def run(state, batch):
-            batch = self.trim_batch(batch)
-            loss, grads = self.loss_and_grads(state["params"], batch, state["rng"])
-            return self.apply_grads(state, grads), loss
+            batch = self.train_trim(batch)
+            loss, grads = self.loss_and_grads(state["params"], batch, state["rng"],
+                                              self._count_sum())
+            state, logged = self.apply_grads(state, grads, {"loss": loss})
+            return state, logged["loss"]
 
         return run
 
@@ -338,30 +419,32 @@ class ViewpointAgent(DialogAgent):
                 torch.where(moved, rt.point[cur_row, safe_a], view), stop)
 
     def sampled_episode_loss(self, params, batch: dict, rng: DropoutRng | None,
-                             gen: torch.Generator | None, feedback: str = "sample"):
+                             gen: torch.Generator | None, feedback: str = "sample",
+                             count_sum=None):
         """Student-forced loss of a trimmed batch with teacher columns
         (reference feedback='sample' training, agent.py:406-425): the
         encoder, then :meth:`decode_sampled`.  ``rng`` None: no dropout;
         ``gen`` draws the sampled actions."""
         ctx, h1, c, ctx_mask = self.encode(params, batch, rng)
         return self.decode_sampled(params, self.sample_inputs(batch), ctx, h1, c,
-                                   ctx_mask, rng, gen, feedback)
+                                   ctx_mask, rng, gen, feedback, count_sum)
 
     def decode_sampled(self, params, d: dict, ctx, h1, c, ctx_mask,
                        rng: DropoutRng | None, gen: torch.Generator | None,
-                       feedback: str = "sample"):
+                       feedback: str = "sample", count_sum=None):
         """The decoder half of :meth:`sampled_episode_loss` from the
         encoder's outputs and :meth:`sample_inputs`: ``episode_len`` steps,
         each a masked CE against the on-device teacher averaged over the
         items that have not ended, then the action of ``feedback`` and the
-        transition; the loss is the sum of the step losses over T."""
+        transition; the loss is the sum of the step losses over T.
+        ``count_sum`` as in :meth:`episode_loss`."""
         rt = self.runtime
         cur_row, view = d["start_rows"], d["start_views"]
         b = cur_row.shape[0]
         slots = torch.arange(rt.max_candidates + 1, device=self.device)
         ended = torch.zeros(b, dtype=torch.bool, device=self.device)
         taken = torch.zeros((b, slots.numel()), dtype=torch.bool, device=self.device)
-        loss = torch.zeros((), device=self.device)
+        sums, n_active = [], []
         for _ in range(self.episode_len):
             logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask, cur_row, view,
                                             rng=rng)
@@ -370,12 +453,19 @@ class ViewpointAgent(DialogAgent):
             teacher = self.teacher_slot(d, cur_row, counts)
             active = (~ended).float()
             ce = F.cross_entropy(logit, teacher, reduction="none")
-            loss = loss + torch.sum(ce * active) / torch.clamp(active.sum(), min=1.0)
+            sums.append(torch.sum(ce * active))
+            n_active.append(active.sum())
             a = select_action(feedback, logit.detach(), gen, target=teacher,
                               temperature=self.temperature, taken_mask=taken)
             taken = taken | (slots[None, :] == a[:, None])
             cur_row, view, stop = self.move(cur_row, view, ended, a, counts)
             ended = ended | stop
+        n_active = torch.stack(n_active)
+        if count_sum is not None:  # the global batch's (one all-reduce of T counts)
+            n_active = count_sum(n_active)
+        loss = torch.zeros((), device=self.device)
+        for t, total in enumerate(sums):
+            loss = loss + total / torch.clamp(n_active[t], min=1.0)
         return loss / self.episode_len
 
     def sample_train_step_fn(self, feedback: str = "sample"):
@@ -387,11 +477,13 @@ class ViewpointAgent(DialogAgent):
             raise ValueError(f"invalid feedback option {feedback!r}")
 
         def run(state, batch):
-            batch = self.trim_batch(batch)
+            batch = self.train_trim(batch)
+            count_sum = self._count_sum()
             loss, _, grads = self.value_and_grads(state["params"], lambda p: (
                 self.sampled_episode_loss(p, batch, state["rng"], state["sampler"],
-                                          feedback), None))
-            return self.apply_grads(state, grads), loss
+                                          feedback, count_sum), None))
+            state, logged = self.apply_grads(state, grads, {"loss": loss})
+            return state, logged["loss"]
 
         return run
 
@@ -399,8 +491,8 @@ class ViewpointAgent(DialogAgent):
                         gen: torch.Generator | None, **opts):
         """Advantage actor-critic loss of a trimmed batch with teacher
         columns: the encoder, then :meth:`decode_rl` (``opts``: its gamma,
-        ml_weight, entropy_weight, success_margin, success_bonus).  Returns
-        (total, aux)."""
+        ml_weight, entropy_weight, success_margin, success_bonus,
+        count_sum).  Returns (total, aux)."""
         if "critic" not in params:
             raise KeyError("RL needs the critic's parameters: init_state(with_critic=True)")
         ctx, h1, c, ctx_mask = self.encode(params, batch, rng)
@@ -410,7 +502,7 @@ class ViewpointAgent(DialogAgent):
     def decode_rl(self, params, d: dict, ctx, h1, c, ctx_mask, rng: DropoutRng | None,
                   gen: torch.Generator | None, gamma: float = 0.9,
                   ml_weight: float = 0.05, entropy_weight: float = 0.01,
-                  success_margin: float = 3.0, success_bonus: float = 3.0):
+                  success_margin: float = 3.0, success_bonus: float = 3.0, count_sum=None):
         """The decoder half of :meth:`rl_episode_loss` (an extension beyond
         the reference, whose Critic ships unwired): ``episode_len`` steps,
         each drawing its action from the policy (``decoding.categorical``),
@@ -419,8 +511,8 @@ class ViewpointAgent(DialogAgent):
         metres of the goal), for the items that have not ended.  Discounted
         returns at ``gamma``; total = policy loss (advantage from the critic
         on h_tilde, detached) + 0.5 critic loss - ``entropy_weight`` entropy
-        + ``ml_weight`` teacher CE, each averaged over the active steps.
-        ``aux``: policy_loss, critic_loss, entropy, ml_loss, mean_return
+        + ``ml_weight`` teacher CE, each averaged over the active steps
+        (``count_sum`` as in :meth:`episode_loss`).  ``aux``: policy_loss, critic_loss, entropy, ml_loss, mean_return
         (detached device scalars)."""
         rt = self.runtime
         cur_row, view = d["start_rows"], d["start_views"]
@@ -460,7 +552,8 @@ class ViewpointAgent(DialogAgent):
             ret = r + gamma * ret
             returns.append(ret)
         returns = torch.stack(returns[::-1])
-        n = torch.clamp(active.sum(), min=1.0)
+        n = active.sum()
+        n = torch.clamp(n if count_sum is None else count_sum(n), min=1.0)
         adv = (returns - value).detach()
         policy_loss = -torch.sum(logp * adv * active) / n
         critic_loss = torch.sum((returns - value) ** 2 * active) / n
@@ -478,11 +571,14 @@ class ViewpointAgent(DialogAgent):
         ``init_state(with_critic=True)``)."""
 
         def run(state, batch):
-            batch = self.trim_batch(batch)
+            batch = self.train_trim(batch)
+            count_sum = self._count_sum()
             loss, aux, grads = self.value_and_grads(state["params"], lambda p: (
-                self.rl_episode_loss(p, batch, state["rng"], state["sampler"], gamma=gamma,
-                                     ml_weight=ml_weight, entropy_weight=entropy_weight)))
-            return self.apply_grads(state, grads), (loss, aux)
+                self.rl_episode_loss(p, batch, state["rng"], state["sampler"],
+                                     gamma=gamma, ml_weight=ml_weight,
+                                     entropy_weight=entropy_weight, count_sum=count_sum)))
+            state, logged = self.apply_grads(state, grads, {"loss": loss, **aux})
+            return state, (logged.pop("loss"), logged)
 
         return run
 

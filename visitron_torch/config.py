@@ -267,10 +267,12 @@ class RunConfig:
 
 
 def refuse_unported_hardware(cfg: RunConfig) -> None:
-    """Device meshes, ZeRO-1 and FSDP are not ported (ROADMAP item 10)."""
-    flags = [k for k in ("mesh_dp", "mesh_tp", "mesh_pp", "mesh_sp", "mesh_cp")
-             if getattr(cfg, k) > 1] + [k for k in ("zero1", "fsdp") if getattr(cfg, k)]
+    """Tensor, pipeline, sequence and context parallelism are not ported
+    (ROADMAP item 10b); data parallelism (``--mesh_dp``, ``--zero1``,
+    ``--fsdp``) is (visitron_torch/parallel)."""
+    flags = [k for k in ("mesh_tp", "mesh_pp", "mesh_sp", "mesh_cp") if getattr(cfg, k) > 1]
     if flags:
         raise NotImplementedError(
-            f"{', '.join('--' + f for f in flags)}: device meshes, ZeRO-1 and FSDP are "
-            "not ported yet (ROADMAP item 10); the port trains on one device")
+            f"{', '.join('--' + f for f in flags)}: tensor, pipeline, sequence and context "
+            "parallelism are not ported yet (ROADMAP item 10b); the port runs data "
+            "parallelism across processes (--mesh_dp, --zero1, --fsdp)")

@@ -308,16 +308,24 @@ class PretrainDataset:
     def epoch_batches(self, batch_size: int, shuffle: bool = True,
                       drop_last: bool = True, host_id: int = 0,
                       num_hosts: int = 1):
-        """Epoch iterator over batches of ``batch_size`` for one host
-        (``num_hosts > 1`` is not ported)."""
-        if num_hosts > 1:
-            raise NotImplementedError("multi-host epoch_batches are not ported yet")
+        """Epoch iterator over batches of ``batch_size``, the per-host batch.
+
+        With ``num_hosts > 1`` every host derives the same global shuffle
+        from the (seed, epoch) stream, takes its strided shard
+        (DistributedSampler's) and yields the same number of batches,
+        counted from the global example count, so no host waits in a step
+        for another's extra batch."""
         order = np.arange(len(self.examples))
         if shuffle:
             # Epoch-keyed stream, not self.rng (which batch() consumes for
-            # the masking): the order depends only on (seed, epoch).
+            # the masking, differently on each host): the order depends only
+            # on (seed, epoch), so the hosts' shards stay complementary.
             np.random.default_rng((self.seed, self._epoch)).shuffle(order)
             self._epoch += 1
-        end = (len(order) // batch_size) * batch_size if drop_last else len(order)
+        if num_hosts > 1:
+            order = order[host_id::num_hosts]
+            end = (len(self.examples) // num_hosts) // batch_size * batch_size
+        else:
+            end = (len(order) // batch_size) * batch_size if drop_last else len(order)
         for i in range(0, end, batch_size):
             yield self.batch(order[i : i + batch_size])

@@ -291,7 +291,7 @@ def _remat_layer(layer: nn.Module, hidden, key_bias, history_state,
     if rng is not None:
         states = (rng.masks.get_state(), rng.seeds.get_state())
         replay = DropoutRng(masks=torch.Generator(device=rng.masks.device),
-                            seeds=torch.Generator())
+                            seeds=torch.Generator(), seed_offset=rng.seed_offset)
 
     def run(h, kb, hs, *ps):
         if replay is not None:

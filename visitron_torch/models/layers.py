@@ -112,16 +112,20 @@ class DropoutRng:
     """The randomness of one training step's dropouts: ``masks`` draws the
     hidden-dropout masks on the activations' device; ``seeds`` (a CPU
     generator, so drawing needs no device sync) draws the int32 seeds of the
-    attention kernels' hash dropout.  Modules take ``rng=None`` for the
+    attention kernels' hash dropout, plus ``seed_offset``: a rank's fold
+    under a dp mesh (rank x 1000003, as the JAX mesh wrappers fold
+    dp_index), 0 on one device.  Modules take ``rng=None`` for the
     deterministic (serving) pass."""
 
     masks: torch.Generator
     seeds: torch.Generator
+    seed_offset: int = 0
 
     def seed(self) -> int:
         """A seed in [0, 2**31 - 1), as jax.random.randint draws it
-        (visitron_tpu/models/bert.py:350-352)."""
-        return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.seeds))
+        (visitron_tpu/models/bert.py:350-352), plus ``seed_offset`` (the
+        kernels read its low 32 bits)."""
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.seeds)) + self.seed_offset
 
 
 def maybe_drop(x: torch.Tensor, rate: float, rng: DropoutRng | None) -> torch.Tensor:

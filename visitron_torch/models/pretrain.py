@@ -30,23 +30,24 @@ from visitron_torch.models.layers import DropoutRng
 from visitron_torch.ops.crossentropy import fused_masked_softmax_ce
 
 
-def masked_cross_entropy(logits, labels, ignore_id: int = -1):
+def masked_cross_entropy(logits, labels, ignore_id: int = -1, count=None):
     """Mean softmax CE over labels != ignore_id (CrossEntropyLoss parity);
-    returns (loss, valid mask)."""
+    returns (loss, valid mask).  ``count``: the count to divide by (the
+    global batch's, under data parallelism; None: this batch's)."""
     valid = labels != ignore_id
     safe = torch.where(valid, labels, 0).long()
     ce = F.cross_entropy(logits.float().flatten(0, -2), safe.flatten(),
                          reduction="none").reshape(labels.shape)
     total = torch.sum(ce * valid)
-    count = torch.clamp(torch.sum(valid), min=1)
+    count = torch.clamp(torch.sum(valid) if count is None else count, min=1)
     return total / count, valid
 
 
-def masked_accuracy(logits, labels, ignore_id: int = -1):
+def masked_accuracy(logits, labels, ignore_id: int = -1, count=None):
     valid = labels != ignore_id
     pred = torch.argmax(logits, dim=-1)
     correct = torch.sum((pred == labels) & valid)
-    return correct / torch.clamp(torch.sum(valid), min=1)
+    return correct / torch.clamp(torch.sum(valid) if count is None else count, min=1)
 
 
 class PretrainModel(nn.Module):
@@ -94,9 +95,14 @@ class PretrainModel(nn.Module):
 
 
 def pretrain_loss(outputs: dict, labels, next_action=None, token_labels=None,
-                  cfg: BertConfig | None = None) -> dict:
+                  cfg: BertConfig | None = None, counts: dict | None = None) -> dict:
     """Loss/metric bundle parity (encoder.py:379-441): loss, mask/next/token
-    losses and word/action/token accuracies, as 0-d tensors."""
+    losses and word/action/token accuracies, as 0-d tensors.  ``counts``
+    ({"mlm", "next", "token"}: label counts of the global batch) makes each
+    value this rank's share of the global batch's, to be summed over the
+    ranks (visitron_tpu/models/pretrain.py:147 divides by the global
+    count); None divides by this batch's counts."""
+    counts = counts or {}
     mlm_logits = outputs["mlm_logits"]
     seq_len = mlm_logits.shape[1]
     vocab = mlm_logits.shape[-1]
@@ -104,22 +110,29 @@ def pretrain_loss(outputs: dict, labels, next_action=None, token_labels=None,
     if cfg is not None and cfg.use_fused_mlm_ce:
         flat = mlm_labels.reshape(-1)
         ce = fused_masked_softmax_ce(mlm_logits.reshape(-1, vocab), flat)
-        mask_loss = ce.sum() / torch.clamp(torch.sum(flat != -1), min=1)
+        n = counts.get("mlm")
+        mask_loss = ce.sum() / torch.clamp(torch.sum(flat != -1) if n is None else n,
+                                           min=1)
     else:
-        mask_loss, _ = masked_cross_entropy(mlm_logits, mlm_labels)
+        mask_loss, _ = masked_cross_entropy(mlm_logits, mlm_labels, count=counts.get("mlm"))
     loss = mask_loss
     out = {"mask_loss": mask_loss,
-           "words_accuracy": masked_accuracy(mlm_logits, mlm_labels)}
+           "words_accuracy": masked_accuracy(mlm_logits, mlm_labels,
+                                             count=counts.get("mlm"))}
     if next_action is not None:
-        next_loss, _ = masked_cross_entropy(outputs["action_logits"], next_action)
+        next_loss, _ = masked_cross_entropy(outputs["action_logits"], next_action,
+                                            count=counts.get("next"))
         loss = loss + next_loss
         out["next_loss"] = next_loss
-        out["action_accuracy"] = masked_accuracy(outputs["action_logits"], next_action)
+        out["action_accuracy"] = masked_accuracy(outputs["action_logits"], next_action,
+                                                 count=counts.get("next"))
     if token_labels is not None:
         tok = token_labels[:, :seq_len]
-        token_loss, _ = masked_cross_entropy(outputs["token_logits"], tok)
+        token_loss, _ = masked_cross_entropy(outputs["token_logits"], tok,
+                                             count=counts.get("token"))
         loss = loss + token_loss
         out["token_loss"] = token_loss
-        out["token_accuracy"] = masked_accuracy(outputs["token_logits"], tok)
+        out["token_accuracy"] = masked_accuracy(outputs["token_logits"], tok,
+                                                count=counts.get("token"))
     out["loss"] = loss
     return out

@@ -22,7 +22,15 @@ after it override its values (only those present on the command line, so
 a flag set to its default still wins).  ``--debug`` runs in a synthetic
 world.
 
-Device meshes, ZeRO-1 and FSDP (ROADMAP item 10) are not ported and raise.
+Data parallelism: launched as ``python -m torch.distributed.run
+--nproc_per_node N -m visitron_torch.run <task> ...`` the training tasks
+(viewpoint, turn_based, classifier, pretrain) run one rank a process over
+NCCL, each on ``cuda:LOCAL_RANK`` (gloo on the CPU when ``device="cpu"``);
+``--mesh_dp`` 0 or the world size, ``--zero1`` (pretrain, viewpoint) and
+``--fsdp`` (pretrain) shard the optimizer state or the whole training
+state; rank 0 writes the files and runs validation.  The other tasks run in
+one process.  Tensor, pipeline, sequence and context parallelism
+(``--mesh_tp|pp|sp|cp``, ROADMAP item 10b) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -31,9 +39,14 @@ import dataclasses
 import sys
 
 import torch
+import torch.distributed as dist
 
+from visitron_torch import parallel
 from visitron_torch.config import RunConfig, refuse_unported_hardware
 from visitron_torch.train.workspace import Workspace
+
+# The tasks that train data-parallel over a process group.
+DP_TASKS = ("viewpoint", "turn_based", "classifier", "pretrain")
 
 
 def _train_and_val(trainer, cfg: RunConfig, do_val: bool, **train_kw):
@@ -41,7 +54,7 @@ def _train_and_val(trainer, cfg: RunConfig, do_val: bool, **train_kw):
     ``do_val`` is off or the run was preempted, ``trainer.val`` over the
     checkpoints of ``--eval_iters`` ([-1]: all; reference train.py:182-189)."""
     state = trainer.train(resume=cfg.resume, **train_kw)
-    if do_val and not trainer.preempted:
+    if do_val and not trainer.preempted and parallel.is_primary(trainer.mesh):
         trainer.val(steps=None if cfg.eval_iters == [-1] else cfg.eval_iters)
     return state
 
@@ -52,8 +65,9 @@ def run_viewpoint(cfg: RunConfig, do_val: bool = True, device=None):
     trainer = ViewpointTrainer(cfg, _workspace_for_nav(cfg, device), device=device)
     if cfg.test_only:
         # Roll out the test split from the latest checkpoint and write the
-        # EvalAI submission (train.py:575-579).
-        trainer.test_submission()
+        # EvalAI submission (train.py:575-579), on rank 0.
+        if parallel.is_primary(trainer.mesh):
+            trainer.test_submission()
         return None
     return _train_and_val(trainer, cfg, do_val, profile_steps=cfg.profile_steps)
 
@@ -368,7 +382,20 @@ def main(argv=None, device=None):
               file=sys.stderr)
         cfg = dataclasses.replace(cfg, zero1=False)
     refuse_unported_hardware(cfg)
-    globals()[f"run_{task}"](cfg, device=device)
+    joined = not dist.is_initialized() and parallel.launched_by_torchrun()
+    if joined:
+        # Under torchrun: this rank's process group, NCCL on cuda:LOCAL_RANK
+        # (gloo when the caller asks for the CPU).  A group that does not
+        # form raises.
+        device = parallel.init_process_group(device)
+    if dist.is_initialized() and dist.get_world_size() > 1 and task not in DP_TASKS:
+        raise SystemExit(f"task {task!r} runs in one process; data parallelism is for "
+                         f"{', '.join(DP_TASKS)}")
+    try:
+        globals()[f"run_{task}"](cfg, device=device)
+    finally:
+        if joined:
+            parallel.destroy_process_group()
 
 
 if __name__ == "__main__":

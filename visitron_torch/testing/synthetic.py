@@ -331,30 +331,25 @@ class SyntheticWorld:
 
     def write_task_data(self, root: str, counts: dict[str, int] | None = None) -> str:
         """Write NDH/CVDN/R2R JSON files under ``root`` in the reference layout
-        (srv/task_data/<DS>/data/...; utils_data.py:63-105)."""
+        (srv/task_data/<DS>/data/...; utils_data.py:63-105).  Each file is
+        written whole under a temporary name and then renamed, so the ranks
+        of a data-parallel ``--debug`` run, which write the same files into
+        one output directory, never read a half-written one."""
         counts = counts or {"train": 12, "val_seen": 4, "val_unseen": 4}
         idx = 0
         for split, n in counts.items():
-            p = os.path.join(root, "NDH", "data")
-            os.makedirs(p, exist_ok=True)
-            with open(os.path.join(p, f"{split}.json"), "w") as f:
-                json.dump(self.ndh_items(split, n, start_idx=idx), f)
-            p = os.path.join(root, "CVDN", "data")
-            os.makedirs(p, exist_ok=True)
-            with open(os.path.join(p, f"{split}.json"), "w") as f:
-                json.dump(self.cvdn_items(split, n, start_idx=idx), f)
-            p = os.path.join(root, "R2R", "data")
-            os.makedirs(p, exist_ok=True)
-            with open(os.path.join(p, f"R2R_{split}.json"), "w") as f:
-                json.dump(self.r2r_items(split, n, start_idx=idx), f)
+            _write_atomic(os.path.join(root, "NDH", "data", f"{split}.json"),
+                          json.dumps(self.ndh_items(split, n, start_idx=idx)))
+            _write_atomic(os.path.join(root, "CVDN", "data", f"{split}.json"),
+                          json.dumps(self.cvdn_items(split, n, start_idx=idx)))
+            _write_atomic(os.path.join(root, "R2R", "data", f"R2R_{split}.json"),
+                          json.dumps(self.r2r_items(split, n, start_idx=idx)))
             idx += 1000
         # RxR ships train-guide annotations only (utils_data.py:92-99); the
         # records come off a derived rng so existing seeded streams hold.
-        p = os.path.join(root, "RxR", "data")
-        os.makedirs(p, exist_ok=True)
-        with open(os.path.join(p, "rxr_train_guide.jsonl"), "w") as f:
-            for item in self.rxr_items(counts.get("train", 12)):
-                f.write(json.dumps(item) + "\n")
+        _write_atomic(os.path.join(root, "RxR", "data", "rxr_train_guide.jsonl"),
+                      "".join(json.dumps(item) + "\n"
+                              for item in self.rxr_items(counts.get("train", 12))))
         return root
 
     # -- features ---------------------------------------------------------------
@@ -384,3 +379,13 @@ class SyntheticWorld:
                         self.rng.choice(_TARGETS, size=self.regions_per_view)
                     )
         return feats, tokens
+
+
+def _write_atomic(path: str, text: str) -> None:
+    """``text`` into ``path`` through a temporary file of this process and a
+    rename."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)

@@ -13,7 +13,13 @@ guard; ``val`` logs the classification metrics (accuracy, F1, balanced
 accuracy, MCC) of every checkpoint on the val splits
 (train_classifier.py:179-184,352-370).
 
-Everything runs on the trainer's device (``device=None``: the card).
+Everything runs on the trainer's device (``device=None``: the card).  In a
+process group the training is data-parallel over its ranks: each rank takes
+its strided shard of the instances and its per-host batch of the global
+``train_batch_size(world)`` (visitron_tpu/train/classifier.py:123-125), and
+runs every other rank's shuffle as a shadow, so its rows carry the encode
+events of the global batch; rank 0 writes the checkpoints and logs and runs
+the validation.
 """
 
 from __future__ import annotations
@@ -23,12 +29,13 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from visitron_torch._device import resolve_device
 from visitron_torch.agents.classifier import ClassifierAgent
 from visitron_torch.config import RunConfig, refuse_unported_hardware
 from visitron_torch.data.classifier_dataset import build_classifier_instances
+from visitron_torch.parallel.mesh import host_shard_info, replicate_state
 from visitron_torch.train.checkpoint import CheckpointManager, place_like
-from visitron_torch.train.logging import MetricsLogger, setup_logger
+from visitron_torch.train.finetune import per_host_batch_size, setup_trainer_mesh
+from visitron_torch.train.logging import MetricsLogger
 from visitron_torch.train.loop import restore_latest, run_loop
 from visitron_torch.train.workspace import Workspace
 
@@ -41,8 +48,7 @@ class ClassifierTrainer:
 
     def __post_init__(self):
         refuse_unported_hardware(self.cfg)
-        self.device = resolve_device(self.device)
-        self.logger = setup_logger(output_dir=self.cfg.output_dir)
+        setup_trainer_mesh(self)
         self.agent = ClassifierAgent(
             self.ws.bert_config, self.ws.runtime,
             feature_dim=self.cfg.lstm_img_feature_dim,
@@ -53,7 +59,8 @@ class ClassifierTrainer:
             pos_weight=self.cfg.question_asking_class_weight,
             only_finetune_classifier=self.cfg.only_finetune_classifier,
             bf16_adam_moments=self.cfg.bf16_adam_moments,
-            seed=self.cfg.seed, device=self.device)
+            seed=self.cfg.seed, device=self.device, mesh=self.mesh)
+        self.dp = self.agent.dp
         self.ckpt = CheckpointManager(self.cfg.output_dir,
                                       async_save=self.cfg.async_checkpoints)
         self.preempted = False
@@ -86,6 +93,8 @@ class ClassifierTrainer:
         params = dict(state["params"])
         params["encoder"] = place_like(nav_params["encoder"], params["encoder"], "encoder")
         params = self.agent.load_nav_decoder(params, nav_params["decoder"])
+        if self.mesh is not None:  # every rank starts from rank 0's weights
+            params = replicate_state(self.mesh, params)
         self.logger.info("initialized from nav checkpoint-%d at %s", latest, nav_dir)
         return {**state, "params": params, "opt_state": self.agent.optimizer.init(params)}
 
@@ -99,35 +108,45 @@ class ClassifierTrainer:
             state = self.init_state()
         start_it = 0
         if resume:
-            state, start_it = restore_latest(self.ckpt, state, self.logger)
-        bs = max(cfg.train_batch_size(1), 1)
+            state, start_it = restore_latest(self.ckpt, state, self.logger, self.dp)
+        bs = max(per_host_batch_size(cfg, self.mesh), 1)
+        host_id, num_hosts = host_shard_info(self.mesh)
         instances = self._instances(["train"])
-        self.logger.info("classifier: %d instances, batch %d, %d iterations",
-                         len(instances), bs, cfg.num_iterations)
-        if len(instances) < bs:
+        shards = [instances[h::num_hosts] for h in range(num_hosts)]
+        self.logger.info("classifier: %d instances, per-host batch %d, %d iterations",
+                         len(shards[host_id]), bs, cfg.num_iterations)
+        if min(len(sh) for sh in shards) < bs:
             # The epoch loop takes full batches only: fewer instances than a
             # batch would make no progress.
-            raise ValueError(f"classifier: {len(instances)} instances < batch size {bs}; "
-                             "lower --per_gpu_train_batch_size or add data")
-        state, self.preempted = run_loop(self, self.agent.train_step_fn(),
-                                         self._train_batches(instances, bs, start_it),
-                                         state, start_it)
+            raise ValueError(f"classifier: {min(len(sh) for sh in shards)} instances in a "
+                             f"host's shard < batch size {bs}; lower "
+                             "--per_gpu_train_batch_size or add data")
+        # Every host's shuffle stream (the others' as shadows): a rank's rows
+        # carry the encode events of the global batch.
+        takes = zip(*(self._takes(len(sh), bs, start_it) for sh in shards))
+        batches = (self.agent.prepare_batch(
+            [shards[host_id][j] for j in take[host_id]],
+            event_items=None if num_hosts == 1 else
+            [shards[h][j] for h in range(num_hosts) for j in take[h]]) for take in takes)
+        state, self.preempted = run_loop(self, self.agent.train_step_fn(), batches, state,
+                                         start_it)
         return state
 
-    def _train_batches(self, instances, bs: int, start_it: int):
-        """Prepared full batches, epoch after epoch, each epoch a shuffle of
-        a numpy generator seeded with ``cfg.seed``; the first ``start_it``
-        batches are skipped (their shuffles replayed, none prepared)."""
-        order = np.arange(len(instances))
+    def _takes(self, n: int, bs: int, start_it: int):
+        """Index lists of full batches into a shard of ``n`` instances, epoch
+        after epoch, each epoch a shuffle of a numpy generator seeded with
+        ``cfg.seed``; the first ``start_it`` batches are skipped (their
+        shuffles replayed)."""
+        order = np.arange(n)
         rng = np.random.default_rng(self.cfg.seed)
-        starts = range(0, len(order) - bs + 1, bs)
+        starts = range(0, n - bs + 1, bs)
         for _ in range(start_it // len(starts)):
             rng.shuffle(order)
         skip = start_it % len(starts)
         while True:
             rng.shuffle(order)
             for start in starts[skip:]:
-                yield self.agent.prepare_batch([instances[j] for j in order[start:start + bs]])
+                yield order[start:start + bs].copy()
             skip = 0
 
     def _eval_batches(self, instances):

@@ -18,8 +18,15 @@ submission of a split from the latest checkpoint.
 
 ``--aug_data`` appends the speaker-generated instances of that file
 (``run augment``) to the train split.  Everything runs on the trainer's
-device (``device=None``: the card), the workspace's.  Device meshes and
-ZeRO-1 are not ported (ROADMAP item 10) and raise.
+device (``device=None``: the card), the workspace's.
+
+In a process group (``python -m torch.distributed.run``) the trainer is
+data-parallel over its ranks (``parallel.maybe_mesh(--mesh_dp)``): each rank
+draws its per-host batch of the global ``train_batch_size(world)`` from its
+strided shard of the instances (``NavEpisodeBatcher(host_id, num_hosts)``),
+``--zero1`` shards the optimizer state, rank 0 writes the checkpoints, the
+logs and the CSV, and validation and submission run on rank 0 alone, the
+mesh-free evaluation path.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from visitron_torch.models.layers import DropoutRng
 from visitron_torch.models.oscar_import import (graft_bert_into_encoder,
                                                 graft_pretrain_checkpoint_into_encoder,
                                                 is_pretrain_checkpoint)
+from visitron_torch.parallel.mesh import (host_shard_info, is_primary, maybe_mesh,
+                                          replicate_state)
 from visitron_torch.train.checkpoint import CheckpointManager
 from visitron_torch.train.logging import MetricsLogger, setup_logger
 from visitron_torch.train.loop import restore_latest, run_loop
@@ -71,10 +80,33 @@ def viewpoint_instances(cfg: RunConfig, ws: Workspace, splits, logger) -> list:
     return instances
 
 
-def nav_batcher(cfg: RunConfig, ws: Workspace, instances, batch_size: int):
+def nav_batcher(cfg: RunConfig, ws: Workspace, instances, batch_size: int, mesh=None):
+    """The run's batcher of ``instances``; under a ``mesh`` this rank's
+    stream of its strided shard, ``batch_size`` being the per-host batch."""
+    host_id, num_hosts = host_shard_info(mesh)
     return NavEpisodeBatcher(instances, ws.runtime, batch_size=batch_size,
                              path_type=cfg.path_type, seed=cfg.seed,
+                             host_id=host_id, num_hosts=num_hosts,
                              length_sort_window=cfg.length_sort_window)
+
+
+def setup_trainer_mesh(trainer) -> None:
+    """``trainer.mesh`` from ``--mesh_dp`` (None without a process group),
+    its device (the mesh's rank device unless one was given) and its
+    logger (rank 0's writes the log file)."""
+    trainer.mesh = maybe_mesh(trainer.cfg.mesh_dp, trainer.cfg.mesh_tp, trainer.device)
+    if trainer.mesh is not None and trainer.device is None:
+        trainer.device = trainer.mesh.device
+    trainer.device = resolve_device(trainer.device)
+    trainer.logger = setup_logger(output_dir=trainer.cfg.output_dir,
+                                  is_main_process=is_primary(trainer.mesh))
+
+
+def per_host_batch_size(cfg: RunConfig, mesh) -> int:
+    """This rank's share of the global batch ``train_batch_size(world)``
+    (visitron_tpu/train/finetune.py:98-106)."""
+    world = 1 if mesh is None else mesh.dp
+    return cfg.train_batch_size(world) // world
 
 
 def params_to(tree, device):
@@ -92,8 +124,7 @@ class ViewpointTrainer:
 
     def __post_init__(self):
         refuse_unported_hardware(self.cfg)
-        self.device = resolve_device(self.device)
-        self.logger = setup_logger(output_dir=self.cfg.output_dir)
+        setup_trainer_mesh(self)
         self.agent = ViewpointAgent(
             self.ws.bert_config,
             self.ws.runtime,
@@ -109,7 +140,10 @@ class ViewpointTrainer:
             seed=self.cfg.seed,
             temperature=self.cfg.temperature,
             device=self.device,
+            zero1=self.cfg.zero1 and self.mesh is not None,
+            mesh=self.mesh,
         )
+        self.dp = self.agent.dp
         self.ckpt = CheckpointManager(self.cfg.output_dir,
                                       async_save=self.cfg.async_checkpoints)
         self.preempted = False
@@ -117,8 +151,8 @@ class ViewpointTrainer:
     def _instances(self, splits):
         return viewpoint_instances(self.cfg, self.ws, splits, self.logger)
 
-    def _batcher(self, instances, batch_size):
-        return nav_batcher(self.cfg, self.ws, instances, batch_size)
+    def _batcher(self, instances, batch_size, mesh=None):
+        return nav_batcher(self.cfg, self.ws, instances, batch_size, mesh)
 
     def train(self, state=None, resume: bool = False, profile_steps: int = 0) -> dict:
         """Train loop.  ``state`` (default: the agent's ``init_state``, then
@@ -128,18 +162,18 @@ class ViewpointTrainer:
         torch.profiler trace of that many steps, from the second on, into
         <output_dir>/profile."""
         cfg = self.cfg
-        batch_size = cfg.train_batch_size(1)
+        batch_size = per_host_batch_size(cfg, self.mesh)
         instances = self._instances(["train"])
         self.logger.info("training on %d instances, batch %d, %d iterations",
                          len(instances), batch_size, cfg.num_iterations)
-        batcher = self._batcher(instances, batch_size)
+        batcher = self._batcher(instances, batch_size, self.mesh)
         rl = cfg.feedback_method == "rl"
         if state is None:
             state = self.agent.init_state(with_critic=rl)
             state = self._maybe_load_pretrained(state)
         start_it = 0
         if resume:
-            state, start_it = restore_latest(self.ckpt, state, self.logger)
+            state, start_it = restore_latest(self.ckpt, state, self.logger, self.dp)
             batcher.skip_batches(start_it)
         student = cfg.feedback_method != "teacher"
         if rl:
@@ -178,6 +212,8 @@ class ViewpointTrainer:
             params["encoder"] = graft_bert_into_encoder(
                 params["encoder"], cfg.model_name_or_path, self.ws.bert_config)
             self.logger.info("loaded Oscar/BERT weights from %s", cfg.model_name_or_path)
+        if self.mesh is not None:  # every rank starts from rank 0's weights
+            params = replicate_state(self.mesh, params)
         return {**state, "params": params}
 
     def _checkpoint_params(self, step: int) -> dict:

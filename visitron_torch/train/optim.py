@@ -77,13 +77,19 @@ def global_norm(leaves: list) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, norm: Callable | None = None
+                        ) -> GradientTransformation:
+    """``norm``: the global norm of the gradient leaves (default
+    :func:`global_norm`; a data-parallel step whose leaves are shards
+    passes ``DataParallel.global_norm``, the norm over every rank's)."""
+    norm = global_norm if norm is None else norm
+
     def init(params):
         return {}
 
     def update(grads, state, params=None):
         leaves = tree_leaves(grads)
-        g_norm = global_norm(leaves)
+        g_norm = norm(leaves)
         # g when ||g|| < max_norm (times exactly 1), else g * (max / ||g||).
         factor = torch.where(g_norm < max_norm, 1.0, max_norm / g_norm)
         return tree_unflatten(grads, torch._foreach_mul(leaves, factor)), state
@@ -371,30 +377,35 @@ def apply_updates(params, updates):
 
 
 def agent_optimizer(lr: float, kind: str = "adam", max_grad_norm: float = 40.0,
-                    bf16_moments: bool = False) -> GradientTransformation:
+                    bf16_moments: bool = False,
+                    norm: Callable | None = None) -> GradientTransformation:
     """Fine-tuning optimizer: clip by global norm (40), then Adam at ``lr``
     (agent.py:129,514-515), or optax's rmsprop, sgd or adamax at ``lr``
     (utils.py:430-446).  ``bf16_moments`` applies to Adam only, as in the
-    JAX package."""
+    JAX package; ``norm``: the clip's (:func:`clip_by_global_norm`)."""
     cores = {"adam": scale_by_adam_lowp() if bf16_moments else scale_by_adam(),
              "rms": scale_by_rms(), "adamax": scale_by_adamax()}
     if kind == "sgd":
-        return chain(clip_by_global_norm(max_grad_norm), scale_by_learning_rate(lr))
+        return chain(clip_by_global_norm(max_grad_norm, norm), scale_by_learning_rate(lr))
     if kind not in cores:
         raise ValueError(f"unknown optimizer {kind}")
-    return chain(clip_by_global_norm(max_grad_norm), cores[kind], scale_by_learning_rate(lr))
+    return chain(clip_by_global_norm(max_grad_norm, norm), cores[kind],
+                 scale_by_learning_rate(lr))
 
 
 def adamw_with_warmup(lr: float, warmup_steps: int, total_steps: int,
                       schedule: str = "linear", weight_decay: float = 0.0,
                       eps: float = 1e-8, max_grad_norm: float = 1.0,
-                      bf16_moments: bool = False) -> GradientTransformation:
+                      bf16_moments: bool = False,
+                      norm: Callable | None = None) -> GradientTransformation:
     """The pretraining optimizer (pretrain.py:128-139 + clip 1.0 parity):
-    clip by global norm, Adam (moments in bf16 with ``bf16_moments``),
-    decoupled weight decay, and the warmup schedule of :func:`make_schedule`.
-    A zero weight decay adds nothing (optax adds 0 * p)."""
+    clip by global norm (``norm``: the clip's), Adam (moments in bf16 with
+    ``bf16_moments``), decoupled weight decay, and the warmup schedule of
+    :func:`make_schedule`.  A zero weight decay adds nothing (optax adds
+    0 * p)."""
     sched = make_schedule(lr, warmup_steps, total_steps, schedule)
     core = [scale_by_adam_lowp(eps=eps) if bf16_moments else scale_by_adam(eps=eps)]
     if weight_decay:
         core.append(add_decayed_weights(weight_decay))
-    return chain(clip_by_global_norm(max_grad_norm), *core, scale_by_learning_rate(sched))
+    return chain(clip_by_global_norm(max_grad_norm, norm), *core,
+                 scale_by_learning_rate(sched))

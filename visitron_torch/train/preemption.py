@@ -10,11 +10,11 @@ current iteration, and returns cleanly.  ``--resume`` then continues from
 that step, data schedule included (``NavEpisodeBatcher.skip_batches``,
 ``PretrainDataset.set_epoch``).
 
-The JAX package makes the stop decision a consensus across hosts in
-multi-host runs (an all-gather of the hosts' flags every 25 steps).  Runs
-over many processes are not ported (ROADMAP item 10): ``should_stop``
-raises when ``torch.distributed`` is initialised with more than one
-process.
+In a data-parallel run of several processes the stop decision is a
+consensus (visitron_tpu/train/preemption.py:85-104): every ``sync_every``
+steps each rank gathers every rank's flag, and all stop when any flag is
+set, at the same step, so a lone latched rank never leaves the others
+waiting in the next collective.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from __future__ import annotations
 import signal
 import threading
 
-import torch
+import torch.distributed as dist
 
 
 class PreemptionGuard:
@@ -51,11 +51,16 @@ class PreemptionGuard:
       (skip-val, ``preempted``).
     """
 
-    def __init__(self, signals=(signal.SIGTERM,)):
+    #: The consensus cadence (steps) of a run over several processes: it
+    #: bounds the latch-to-checkpoint delay; one process decides every step.
+    SYNC_EVERY = 25
+
+    def __init__(self, signals=(signal.SIGTERM,), sync_every: int | None = None):
         self._signals = tuple(signals)
         self._prev: dict = {}
         self._fired = False
         self._stop = False
+        self._sync_every = int(sync_every or self.SYNC_EVERY)
 
     @property
     def fired(self) -> bool:
@@ -69,16 +74,18 @@ class PreemptionGuard:
 
     def should_stop(self, it: int) -> bool:
         """Stop decision at step boundary ``it`` (1-based iteration count):
-        the latched flag.  Raises under a ``torch.distributed`` group of more
-        than one process, whose consensus is not ported."""
+        the latched flag in one process; in a process group of several,
+        every ``sync_every`` steps, whether any rank's flag is set (every
+        rank evaluates it at the same step and gets the same answer)."""
         if self._stop:
             return True
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "the multi-process stop consensus of PreemptionGuard is not ported "
-                "yet (ROADMAP item 10)")
-        self._stop = self._fired
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            self._stop = self._fired
+        elif it % self._sync_every == 0:
+            from visitron_torch.parallel import make_mesh
+            from visitron_torch.parallel.mesh import all_gather_object
+
+            self._stop = any(all_gather_object(self._fired, make_mesh()))
         return self._stop
 
     def _handle(self, signum, frame):

@@ -11,23 +11,32 @@ global-norm clip of 1.0 updates the parameters.
 ``params`` is a flat ``{state-dict name: tensor}`` dict, applied to the model
 with ``torch.func.functional_call``; :meth:`PretrainTrainer.init_state`
 draws it from a seed, or ``visitron_torch.convert.convert_pretrain_params``
-carries the JAX package's across.  The JAX trainer's device mesh, ZeRO-1
-and FSDP are not ported: a mesh, ``zero1`` or ``fsdp`` raises.
+carries the JAX package's across.
+
+Under a dp ``mesh`` (``parallel.make_mesh``) each rank feeds its rows of
+the global batch: the loss divides by the counts of the global batch (one
+all-reduce of the three label counts), the gradients and the logged bundle
+are summed over the ranks in flat buckets, the attention kernels' dropout
+seed is folded by the rank and the hidden-dropout generator seeded per
+rank.  ``zero1`` shards the optimizer state, ``fsdp`` the parameters,
+gradients and optimizer state over the ranks (``parallel.DataParallel``).
 
 :func:`pretrain_loop` is ``run pretrain``'s epoch loop
-(visitron_tpu/run.py:97-323) on one device: the examples of
+(visitron_tpu/run.py:97-323) through ``train/loop.py``: the examples of
 ``generate_pretrain_examples``, AdamW with warmup over ``num_epochs x
 steps_per_epoch``, resume (params, optimizer state, the epoch-keyed shuffle
 and the completed batches of the epoch in progress; the dynamic-masking
 stream restarts from the seed, as in the JAX package), a checkpoint each
 epoch and on SIGTERM, and the per-dataset ``val_seen`` / ``val_unseen``
-sweeps.
+sweeps (rank 0's, on the gathered parameters); each rank takes its strided
+share of every epoch (``epoch_batches(host_id, num_hosts)``).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
@@ -41,12 +50,14 @@ from visitron_torch.data.pretrain_dataset import PretrainDataset
 from visitron_torch.models.bert import BertConfig
 from visitron_torch.models.layers import DropoutRng, init_module_params
 from visitron_torch.models.pretrain import PretrainModel, pretrain_loss
+from visitron_torch.parallel.mesh import (DataParallel, host_shard_info, is_primary,
+                                          jax_axis_orders, maybe_mesh)
 from visitron_torch.pipelines.pretrain_datagen import generate_pretrain_examples
 from visitron_torch.train.checkpoint import CheckpointManager
 from visitron_torch.train.logging import MetricsLogger, check_finite, setup_logger
+from visitron_torch.train.loop import EpochEnd, restore_latest, run_loop
 from visitron_torch.train.optim import (adamw_with_warmup, apply_updates, tree_leaves,
                                         tree_unflatten)
-from visitron_torch.train.preemption import PreemptionGuard
 
 BATCH_KEYS = ("input_ids", "token_type_ids", "attention_mask", "labels", "token_labels",
               "img_feats", "img_location_embeddings", "next_action")
@@ -71,14 +82,19 @@ class PretrainTrainer:
     model: PretrainModel = field(init=False)
 
     def __post_init__(self):
-        if self.mesh is not None or self.zero1 or self.fsdp:
-            raise NotImplementedError("device meshes, ZeRO-1 and FSDP are not ported yet")
+        if self.mesh is not None and self.device is None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
+        # zero1 / fsdp shard over a mesh's ranks; without one they change
+        # nothing (the JAX trainer's one-device mesh shards nothing either).
+        self.dp = (None if self.mesh is None else
+                   DataParallel(self.mesh, zero1=self.zero1, fsdp=self.fsdp))
         self.model = PretrainModel(self.cfg).to(self.device)
         self.optimizer = adamw_with_warmup(
             self.learning_rate, self.warmup_steps, self.total_steps, self.schedule,
             self.weight_decay, self.adam_epsilon, self.max_grad_norm,
-            bf16_moments=self.bf16_adam_moments)
+            bf16_moments=self.bf16_adam_moments,
+            norm=None if self.dp is None else self.dp.global_norm)
 
     # -- initialization ------------------------------------------------------
     def init_params(self, seed: int | None = None) -> dict:
@@ -88,17 +104,25 @@ class PretrainTrainer:
         g = torch.Generator().manual_seed(self.seed if seed is None else seed)
         return init_module_params(self.model, g, self.device)
 
-    def init_state(self) -> dict:
-        """Training state: ``params`` (:meth:`init_params` at the trainer's
-        seed), ``opt_state`` and ``rng``, the dropout generators (masks on
-        the device, kernel seeds on the CPU, seeded with seed + 1).  The
-        shapes come from the config (the JAX trainer traces its model on a
-        sample batch instead)."""
-        params = self.init_params()
+    def init_state(self, params: dict | None = None) -> dict:
+        """Training state: ``params`` (default :meth:`init_params` at the
+        trainer's seed; full tensors, the same on every rank), ``opt_state``
+        and ``rng``, the dropout generators (masks on the device, kernel
+        seeds on the CPU, seeded with seed + 1; under a mesh the masks'
+        seed and the kernel seeds are folded by the rank).  The shapes come from the config (the
+        JAX trainer traces its model on a sample batch instead).  Under
+        ``zero1`` / ``fsdp`` the state holds this rank's shards."""
+        if params is None:
+            params = self.init_params()
+        fold = 0 if self.mesh is None else self.mesh.fold_seed(0)
         rng = DropoutRng(
-            masks=torch.Generator(device=self.device).manual_seed(self.seed + 1),
-            seeds=torch.Generator().manual_seed(self.seed + 1))
-        return {"params": params, "opt_state": self.optimizer.init(params), "rng": rng}
+            masks=torch.Generator(device=self.device).manual_seed(self.seed + 1 + fold),
+            seeds=torch.Generator().manual_seed(self.seed + 1), seed_offset=fold)
+        if self.dp is None:
+            return {"params": params, "opt_state": self.optimizer.init(params), "rng": rng}
+        self.dp.plan(params, jax_axis_orders(self.model))
+        params, opt_state = self.dp.place(params, self.optimizer)
+        return {"params": params, "opt_state": opt_state, "rng": rng}
 
     # -- the step ---------------------------------------------------------------
     def to_device(self, host_batch: dict) -> dict:
@@ -111,8 +135,20 @@ class PretrainTrainer:
             out[key] = torch.as_tensor(a).to(device=self.device, dtype=dtype)
         return out
 
-    def loss_bundle(self, params, batch: dict, rng: DropoutRng | None) -> dict:
-        """``pretrain_loss`` of a device batch; ``rng`` None is deterministic."""
+    def global_counts(self, batch: dict) -> dict:
+        """The label counts of the global batch that the losses divide by:
+        this rank's, summed over the ranks in one all-reduce."""
+        s = batch["input_ids"].shape[1] + batch["img_feats"].shape[1]
+        local = torch.stack([torch.sum(batch["labels"][:, :s] != -1),
+                             torch.sum(batch["next_action"] != -1),
+                             torch.sum(batch["token_labels"][:, :s] != -1)])
+        return dict(zip(("mlm", "next", "token"), self.dp.global_count(local)))
+
+    def loss_bundle(self, params, batch: dict, rng: DropoutRng | None,
+                    counts: dict | None = None) -> dict:
+        """``pretrain_loss`` of a device batch; ``rng`` None is
+        deterministic; ``counts``: the global label counts (None: the
+        batch's own)."""
         out = functional_call(
             self.model, params, (batch["input_ids"],),
             {"token_type_ids": batch["token_type_ids"],
@@ -121,14 +157,15 @@ class PretrainTrainer:
              "img_location_embeddings": batch["img_location_embeddings"],
              "rng": rng}, strict=True)
         return pretrain_loss(out, batch["labels"], batch["next_action"],
-                             batch["token_labels"], cfg=self.cfg)
+                             batch["token_labels"], cfg=self.cfg, counts=counts)
 
-    def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None):
+    def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None,
+                       counts: dict | None = None):
         """(bundle, grads) for a device batch; grads mirror ``params`` (zeros
         where a parameter takes no part, as in JAX)."""
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_() for p in leaves]
-        bundle = self.loss_bundle(tree_unflatten(params, live), batch, rng)
+        bundle = self.loss_bundle(tree_unflatten(params, live), batch, rng, counts)
         grads = torch.autograd.grad(bundle["loss"], live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         return {k: v.detach() for k, v in bundle.items()}, tree_unflatten(params, grads)
@@ -138,10 +175,19 @@ class PretrainTrainer:
         with the dropouts active, the clip and AdamW."""
 
         def step(state, batch):
-            bundle, grads = self.loss_and_grads(state["params"], batch, state["rng"])
-            updates, opt_state = self.optimizer.update(grads, state["opt_state"],
-                                                       state["params"])
-            params = apply_updates(state["params"], updates)
+            if self.dp is None:
+                bundle, grads = self.loss_and_grads(state["params"], batch, state["rng"])
+                updates, opt_state = self.optimizer.update(grads, state["opt_state"],
+                                                           state["params"])
+                params = apply_updates(state["params"], updates)
+                return {"params": params, "opt_state": opt_state,
+                        "rng": state["rng"]}, bundle
+            dp = self.dp
+            bundle, grads = self.loss_and_grads(dp.full_params(state["params"]), batch,
+                                                state["rng"], self.global_counts(batch))
+            grads, bundle = dp.reduce(grads, bundle)
+            params, opt_state = dp.update(self.optimizer, grads, state["opt_state"],
+                                          state["params"], apply_updates)
             return {"params": params, "opt_state": opt_state, "rng": state["rng"]}, bundle
 
         return step
@@ -156,7 +202,8 @@ class PretrainTrainer:
         return run
 
     def eval_fn(self):
-        """``run(params, host batch) -> bundle``, deterministic, no gradient."""
+        """``run(params, host batch) -> bundle``, deterministic, no gradient
+        (full parameters; the batch's own counts)."""
 
         def run(params, host_batch):
             with torch.no_grad():
@@ -167,9 +214,13 @@ class PretrainTrainer:
     # -- loops -------------------------------------------------------------------
     def train_epoch(self, state, dataset, batch_size: int, log_every: int = 50,
                     logger=None) -> tuple[dict, list[dict]]:
+        """One epoch of ``batch_size`` batches (per rank under a mesh: its
+        strided share)."""
         step = self.step_fn()
         history = []
-        for i, batch in enumerate(dataset.epoch_batches(batch_size)):
+        host_id, num_hosts = host_shard_info(self.mesh)
+        for i, batch in enumerate(dataset.epoch_batches(batch_size, host_id=host_id,
+                                                        num_hosts=num_hosts)):
             state, bundle = step(state, batch)
             if (i + 1) % log_every == 0:
                 metrics = {k: float(v) for k, v in bundle.items()}
@@ -215,11 +266,15 @@ def _fetch(bundle: dict) -> dict:
 
 
 def pretrain_loop(cfg, ws, device=None) -> dict:
-    """``run pretrain`` on one device (``device=None``: the card) over the
-    workspace ``ws``; returns the final training state."""
+    """``run pretrain`` over the workspace ``ws`` on ``device`` (None: the
+    card), data-parallel over the ranks of the process group if there is
+    one (``--mesh_dp``, ``--zero1``, ``--fsdp``); returns the final
+    training state (this rank's shards under ``--zero1`` / ``--fsdp``)."""
     refuse_unported_hardware(cfg)
-    device = resolve_device(device)
-    logger = setup_logger(output_dir=cfg.output_dir)
+    mesh = maybe_mesh(cfg.mesh_dp, cfg.mesh_tp, device)
+    device = resolve_device(mesh.device if mesh is not None and device is None else device)
+    primary = is_primary(mesh)
+    logger = setup_logger(output_dir=cfg.output_dir, is_main_process=primary)
     tables = {s: ws.runtime.tables[s] for s in ws.graphs}
     root, store, detector_classes = _region_store(cfg, ws)
 
@@ -258,7 +313,8 @@ def pretrain_loop(cfg, ws, device=None) -> dict:
             debug=cfg.debug, seed=cfg.seed, cache_path=cache)
 
     dataset = make_dataset(["train"])
-    batch_size = cfg.train_batch_size(1)
+    world = 1 if mesh is None else mesh.dp
+    batch_size = cfg.train_batch_size(world)
     steps_per_epoch = max(len(dataset) // batch_size, 1)
     trainer = PretrainTrainer(
         ws.bert_config.replace(detector_classes=len(detector_classes)),
@@ -266,66 +322,72 @@ def pretrain_loop(cfg, ws, device=None) -> dict:
         total_steps=cfg.num_epochs * steps_per_epoch, schedule=cfg.scheduler,
         weight_decay=cfg.weight_decay, adam_epsilon=cfg.adam_epsilon,
         max_grad_norm=cfg.max_grad_norm, bf16_adam_moments=cfg.bf16_adam_moments,
-        seed=cfg.seed, device=device)
+        zero1=cfg.zero1, fsdp=cfg.fsdp, mesh=mesh, seed=cfg.seed, device=device)
     # The JAX trainer traces its model on a sample batch, which draws from
     # the dataset's masking stream; drawing it here keeps the batches the
     # same.
     dataset.batch(range(min(batch_size, len(dataset))))
     state = trainer.init_state()
-    ckpt = CheckpointManager(cfg.output_dir, async_save=cfg.async_checkpoints)
-    metrics = MetricsLogger(cfg.output_dir, "train")
-    step = trainer.step_fn()
+    loop = SimpleNamespace(cfg=cfg, logger=logger, device=trainer.device, dp=trainer.dp,
+                           ckpt=CheckpointManager(cfg.output_dir,
+                                                  async_save=cfg.async_checkpoints))
+    metrics = MetricsLogger(cfg.output_dir, "train", is_main_process=primary)
     it, start_epoch, skip = 0, 0, 0
-    if cfg.resume and ckpt.latest() is not None:
+    if cfg.resume:
         # Checkpoints land per epoch (and on preemption, mid-epoch); resume
         # restores the params and the optimizer state (the schedule's
         # position is its count), re-aligns the epoch-keyed shuffle and skips
         # the completed part of the epoch in progress.
-        it = ckpt.latest()
-        state = {**state, **ckpt.restore(
-            it, {"params": state["params"], "opt_state": state["opt_state"]})}
+        state, it = restore_latest(loop.ckpt, state, logger, trainer.dp)
         start_epoch = min(it // steps_per_epoch, cfg.num_epochs)
         skip = it - start_epoch * steps_per_epoch
-        logger.info("resumed from checkpoint-%d (epoch %d, skipping %d completed "
-                    "batches)", it, start_epoch, skip)
+        if it:
+            logger.info("resumed from checkpoint-%d (epoch %d, skipping %d completed "
+                        "batches)", it, start_epoch, skip)
     dataset.set_epoch(start_epoch)
-    with PreemptionGuard() as guard:
+    host_id, num_hosts = host_shard_info(mesh)
+    epoch_now = [start_epoch]
+
+    def batches():
+        left = skip
         for epoch in range(start_epoch, cfg.num_epochs):
-            saved_it = None
-            for batch in dataset.epoch_batches(batch_size):
-                if skip:
-                    skip -= 1
+            epoch_now[0] = epoch
+            # Each rank takes its strided share of the epoch (the per-host
+            # batch of the global one).
+            for batch in dataset.epoch_batches(batch_size // num_hosts, host_id=host_id,
+                                               num_hosts=num_hosts):
+                if left:
+                    left -= 1
                     continue
-                state, bundle = step(state, batch)
-                it += 1
-                if it % cfg.logging_steps == 0:
-                    vals = _fetch(bundle)
-                    check_finite(vals["loss"], it, logger)
-                    logger.info("epoch %d iter %d %s", epoch, it, vals)
-                    metrics.log(vals, step=it)
-                if guard.should_stop(it):
-                    ckpt.save(it, state["params"], state["opt_state"], wait=True)
-                    saved_it = it
-                    logger.info("termination signal: saved checkpoint-%d, stopping "
-                                "(restart with --resume)", it)
-                    break
-            if guard.stop:
-                break
-            if saved_it != it:
-                ckpt.save(it, state["params"], state["opt_state"])
-            # Per-epoch, per-dataset validation, logged as {ds}_{split}/...
-            # (pretrain.py:301-579); RxR has no val split.
-            for ds_name, flag in (("ndh", cfg.add_ndh_data), ("r2r", cfg.add_r2r_data),
-                                  ("r4r", cfg.add_r4r_data)):
-                if not flag:
+                yield batch
+            yield EpochEnd(epoch)
+
+    def log(it, bundles):
+        vals = _fetch(bundles[-1])
+        check_finite(vals["loss"], it, logger)
+        logger.info("epoch %d iter %d %s", epoch_now[0], it, vals)
+        metrics.log(vals, step=it)
+
+    def validate(epoch, it, state):
+        # Per-epoch, per-dataset validation on rank 0, the mesh-free eval
+        # path over the whole split, logged as {ds}_{split}/...
+        # (pretrain.py:301-579); RxR has no val split.
+        params = trainer.dp.full_params(state["params"]) if trainer.dp else state["params"]
+        if not primary:
+            return
+        for ds_name, flag in (("ndh", cfg.add_ndh_data), ("r2r", cfg.add_r2r_data),
+                              ("r4r", cfg.add_r4r_data)):
+            if not flag:
+                continue
+            for split in ("val_seen", "val_unseen"):
+                val_ds = make_dataset([split], only=ds_name)
+                if val_ds is None or len(val_ds) < batch_size:
                     continue
-                for split in ("val_seen", "val_unseen"):
-                    val_ds = make_dataset([split], only=ds_name)
-                    if val_ds is None or len(val_ds) < batch_size:
-                        continue
-                    vals = trainer.evaluate(state["params"], val_ds, batch_size)
-                    logger.info("epoch %d %s_%s %s", epoch, ds_name, split, vals)
-                    metrics.log(vals, step=it, prefix=f"{ds_name}_{split}/")
-    ckpt.wait_until_finished()
-    metrics.close()
+                vals = trainer.evaluate(params, val_ds, batch_size)
+                logger.info("epoch %d %s_%s %s", epoch, ds_name, split, vals)
+                metrics.log(vals, step=it, prefix=f"{ds_name}_{split}/")
+
+    state, _ = run_loop(loop, trainer.raw_step_fn(), (
+        b if isinstance(b, EpochEnd) else trainer.to_device(b) for b in batches()),
+        state, it, log=log, on_epoch_end=validate, limit=None, metrics=metrics)
     return state

@@ -11,7 +11,9 @@ rollout, written to preds_turn_{split}_{step}.json and scored with the NDH
 metrics (turn_based/train.py val(); eval.py parity).  The JAX trainer loads
 no pretrained BERT; neither does this one.
 
-Everything runs on the trainer's device (``device=None``: the card).
+Everything runs on the trainer's device (``device=None``: the card); in a
+process group the training is data-parallel over its ranks, as the
+viewpoint trainer's (train/finetune.py), without ``--zero1``.
 """
 
 from __future__ import annotations
@@ -21,14 +23,14 @@ from dataclasses import dataclass
 
 import torch
 
-from visitron_torch._device import resolve_device
 from visitron_torch.agents.turn_based import TurnBasedAgent
 from visitron_torch.config import RunConfig, refuse_unported_hardware
 from visitron_torch.evaluation import Evaluator
 from visitron_torch.models.layers import DropoutRng
 from visitron_torch.train.checkpoint import CheckpointManager
-from visitron_torch.train.finetune import nav_batcher, nav_instances
-from visitron_torch.train.logging import MetricsLogger, setup_logger
+from visitron_torch.train.finetune import (nav_batcher, nav_instances, per_host_batch_size,
+                                           setup_trainer_mesh)
+from visitron_torch.train.logging import MetricsLogger
 from visitron_torch.train.loop import restore_latest, run_loop
 from visitron_torch.train.workspace import Workspace
 
@@ -41,8 +43,7 @@ class TurnBasedTrainer:
 
     def __post_init__(self):
         refuse_unported_hardware(self.cfg)
-        self.device = resolve_device(self.device)
-        self.logger = setup_logger(output_dir=self.cfg.output_dir)
+        setup_trainer_mesh(self)
         self.agent = TurnBasedAgent(
             self.ws.bert_config, self.ws.runtime,
             feature_dim=self.cfg.lstm_img_feature_dim,
@@ -51,7 +52,8 @@ class TurnBasedTrainer:
             encoder_hidden_size=self.cfg.encoder_hidden_size,
             dropout=self.cfg.dropout, learning_rate=self.cfg.learning_rate,
             bf16_adam_moments=self.cfg.bf16_adam_moments,
-            seed=self.cfg.seed, device=self.device)
+            seed=self.cfg.seed, device=self.device, mesh=self.mesh)
+        self.dp = self.agent.dp
         self.ckpt = CheckpointManager(self.cfg.output_dir,
                                       async_save=self.cfg.async_checkpoints)
         self.preempted = False
@@ -59,24 +61,24 @@ class TurnBasedTrainer:
     def _instances(self, splits):
         return nav_instances(self.cfg, self.ws, splits)
 
-    def _batcher(self, instances, batch_size):
-        return nav_batcher(self.cfg, self.ws, instances, batch_size)
+    def _batcher(self, instances, batch_size, mesh=None):
+        return nav_batcher(self.cfg, self.ws, instances, batch_size, mesh)
 
     def train(self, state=None, resume: bool = False) -> dict:
         """Train loop from ``state`` (default: the agent's ``init_state``);
         ``resume`` restores the latest checkpoint's params and optimizer
         state and replays the batch schedule to it."""
         cfg = self.cfg
-        batch_size = cfg.train_batch_size(1)
+        batch_size = per_host_batch_size(cfg, self.mesh)
         instances = self._instances(["train"])
         self.logger.info("turn-based: %d instances, batch %d, %d iterations",
                          len(instances), batch_size, cfg.num_iterations)
-        batcher = self._batcher(instances, batch_size)
+        batcher = self._batcher(instances, batch_size, self.mesh)
         if state is None:
             state = self.agent.init_state()
         start_it = 0
         if resume:
-            state, start_it = restore_latest(self.ckpt, state, self.logger)
+            state, start_it = restore_latest(self.ckpt, state, self.logger, self.dp)
             batcher.skip_batches(start_it)
         batches = (batcher.with_turn_teacher(b, cfg.episode_len)
                    for b in batcher.train_batches(cfg.num_iterations - start_it))
