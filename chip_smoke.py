@@ -262,7 +262,35 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               one-process step on the whole batch (fp32, dropouts 0, as
               phase 33); a line names the arms that ran and those that
               could not, which count as not passed (the NDH dp arm must
-              run).
+              run);
+ 36. mesh kernels (in the main process, after phase 9): K1f/K1b (B 64, S
+              256), K4f/K4b (B 16, S 768) and K5f/K5b (B 16, S 1024)
+              on 6 of 12 heads, as a tp or sp rank's model calls them, the
+              rank (dp 1, tp 1) of a (2, 2) mesh (the seed folded by 1000003 +
+              7919, past int32): forward and backward (bf16, rate 0.1)
+              against the twins with the folded seed, one launch of each
+              kernel, the keep mask read from the outputs (fp32: q = k =
+              0, v the identity on one block of keys) equal to the twins'
+              bit for bit, and the device times of the 6-head calls
+              beside the 12-head calls';
+ 37. mesh two ranks: ``--mp-phase two`` with 2 processes, NCCL on two
+              cards, else gloo with CUDA tensors on cuda:0: a probe of the
+              collectives, then the arms: the tp 2 NDH teacher-forced step
+              (batch 64), tp 2
+              and sp 2 pretraining at S 768 (batch 16), cp 2 (the ring) at
+              S 1024 (batch 8), fp32 with the dropouts at 0, against rank
+              0's one-process step on the whole batch with phase 35's
+              bounds, the kernels' launches a step checked.  NCCL (and
+              gloo on the CPU, in a rehearsal) must carry every
+              collective and run every arm.  Only gloo with CUDA tensors
+              on a shared card may lack one (its send/recv is not tried
+              there: it aborts a rank); a line then names the arms that
+              could not run, and the two tp arms must run;
+ 38. mesh CLI: ``torch.distributed.run --nproc_per_node 1 -m
+              visitron_torch.run pretrain --debug --mesh_sp 1`` (one
+              epoch at batch 8) and ``viewpoint --debug --mesh_tp 1`` (2
+              iterations): checkpoints, finite losses, seconds with
+              start-up.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
@@ -272,7 +300,8 @@ phases 11, 16 and 17 (``path_launches``), and for every kernel its launches
 per iteration of phase 22's viewpoint and pretrain runs and of phases
 23-25's, 28's, 29's and 32's runs (``cli_launches``), in phases 29-31's
 paths (``option_and_feature_launches``), its launches a step in phase 33's
-data-parallel runs (``dp_launches``), and the count of device times that no
+data-parallel runs (``dp_launches``) and in phase 37's arms
+(``mp_launches``), and the count of device times that no
 torch.profiler session gave (``device_times_unmeasured``; such a time is
 null, and the run fails where K1f, K2f, K1b or K2b has none); the last line
 is ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
@@ -2432,16 +2461,16 @@ def phase_oscar(device, tmp: str) -> dict:
     say(f"  wrote {len(state)} tensors, {size / 2 ** 30:.3f} GiB in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
     seen = {}
-    orig = finetune.ViewpointTrainer._maybe_load_pretrained
+    orig = finetune.ViewpointTrainer._pretrained_params
 
-    def capture(trainer, st):
-        st = orig(trainer, st)
+    def capture(trainer, params):
+        params = orig(trainer, params)
         seen["cfg"] = trainer.ws.bert_config
-        seen["enc"] = {k: v.detach().cpu().clone() for k, v in st["params"]["encoder"].items()
+        seen["enc"] = {k: v.detach().cpu().clone() for k, v in params["encoder"].items()
                        if k.startswith("bert.bert.")}
-        return st
+        return params
 
-    finetune.ViewpointTrainer._maybe_load_pretrained = capture
+    finetune.ViewpointTrainer._pretrained_params = capture
     try:
         with BoundaryHooks() as hooks:
             rows = hooks.run(["viewpoint", "--config",
@@ -2451,7 +2480,7 @@ def phase_oscar(device, tmp: str) -> dict:
                               "--model_name_or_path", hf_dir, "--output_dir", out_dir]
                              + (REHEARSAL_SEQ if REHEARSAL else []), device)
     finally:
-        finetune.ViewpointTrainer._maybe_load_pretrained = orig
+        finetune.ViewpointTrainer._pretrained_params = orig
     counts = check_iteration_launches("viewpoint from the HF file", rows, CLI_FINETUNE)
     want = convert_bert_state_dict({k[len("bert."):]: v for k, v in state.items()},
                                    seen["cfg"])
@@ -3630,11 +3659,12 @@ DEVICE_KEYS = ("device_ms", "library_device_ms", "step_device_ms")
 DP_TIMEOUT_S = 420
 
 
-def run_dp_child(phase: str, nproc: int, tmp: str) -> dict:
-    """Run ``phase`` in ``nproc`` ranks; relay their output; rank 0's result."""
-    out = os.path.join(tmp, f"dp_{phase}.json")
+def run_dp_child(phase: str, nproc: int, tmp: str, flag: str = "--dp-phase") -> dict:
+    """Run ``phase`` (of ``flag``: ``--dp-phase`` or ``--mp-phase``) in
+    ``nproc`` ranks; relay their output; rank 0's result."""
+    out = os.path.join(tmp, f"{flag[2:4]}_{phase}.json")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nproc), os.path.abspath(__file__), "--dp-phase", phase,
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__), flag, phase,
            "--dp-result", out] + (["--cpu-rehearsal"] if REHEARSAL else [])
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_TIMEOUT_S,
@@ -3988,13 +4018,17 @@ def dp_two(sz: dict) -> dict:
 
 
 def dp_child_main(args) -> int:
-    """A rank of a dp phase (``--dp-phase``); rank 0 writes the result."""
+    """A rank of a dp phase (``--dp-phase``) or of the mesh phase
+    (``--mp-phase``); rank 0 writes the result."""
     global REHEARSAL
     REHEARSAL = args.cpu_rehearsal
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        out = {"world1": dp_world1, "two": dp_two}[args.dp_phase](phase_sizes())
+        if args.mp_phase:
+            out = {"two": mp_two}[args.mp_phase](phase_sizes())
+        else:
+            out = {"world1": dp_world1, "two": dp_two}[args.dp_phase](phase_sizes())
         if dist.get_rank() == 0:
             with open(args.dp_result, "w") as f:
                 json.dump(out, f)
@@ -4079,7 +4113,355 @@ def phase_dp(tmp: str) -> dict:
     return {"world1": world1, "cli": cli, "two": two}
 
 
-def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp) -> dict:
+# -- phases 36-38: tensor, sequence and context parallelism ---------------------------------
+
+MP_SEED = 2 ** 31 - 5  # the fold below wraps past int32, as the kernels read it
+
+
+def mp_inputs(b, h, s, d, dtype, device, g):
+    """(q, k, v, dout) (B, H, S, D) and a (B, S) key bias (a padded tail)."""
+    q, k, v, dout = (torch.randn(b, h, s, d, generator=g, device=device).to(dtype)
+                     for _ in range(4))
+    lengths = torch.randint(s // 2, s + 1, (b,), generator=g, device=device)
+    bias = torch.where(torch.arange(s, device=device)[None] < lengths[:, None],
+                       0.0, -1e9).float().contiguous()
+    return q, k, v, dout, bias
+
+
+def pack(t):
+    """(B, H, S, D) -> packed (B, S, H*D)."""
+    return t.transpose(1, 2).flatten(2).contiguous()
+
+
+def mp_call(kind: str, mesh):
+    """``fn(q, k, v, bias, seed, rate)`` on (B, h, S, D) operands: ``kind``'s
+    wrapper (K1 packs them) with the seed folded as on ``mesh``'s rank
+    (``Mesh.kernel_seed``, as a rank's model calls it), returning (B, h, S,
+    D)."""
+    if kind == "K1":
+        def fn(q, k, v, bias, seed, rate):
+            out = fused_attention_packed(pack(q), pack(k), pack(v), bias, q.shape[1],
+                                         mesh.kernel_seed(seed), rate)
+            return out.unflatten(-1, (q.shape[1], q.shape[3])).transpose(1, 2)
+        return fn
+    wrap = fused_attention if kind == "K4" else flash_attention
+    return lambda q, k, v, bias, seed, rate: wrap(q, k, v, bias, mesh.kernel_seed(seed),
+                                                  rate)
+
+
+def mp_twin(kind: str, q, k, v, bias, dout, seed, rate):
+    """The plain twins' (out, dq, dk, dv) of ``kind`` with ``seed`` (the
+    folded one), on (B, h, S, D) operands."""
+    h = q.shape[1]
+    if kind == "K1":
+        out, lse = fused_attention_packed_reference(pack(q), pack(k), pack(v), bias, h, seed,
+                                                    rate, need_lse=True)
+        grads = fused_attention_packed_bwd_reference(pack(q), pack(k), pack(v), bias,
+                                                     pack(dout), lse, h, seed, rate)
+        unpack = lambda t: t.unflatten(-1, (h, q.shape[3])).transpose(1, 2)  # noqa: E731
+        return (unpack(out), *map(unpack, grads))
+    if kind == "K4":
+        out, lse = fused_attention_reference(q, k, v, bias, seed, rate, need_lse=True)
+        return (out, *fused_attention_bwd_reference(q, k, v, bias, dout, lse, seed, rate))
+    out, lse = flash_attention_reference(q, k, v, bias, seed, rate, need_lse=True)
+    return (out, *flash_attention_bwd_reference(q, k, v, bias, out, dout, lse, seed, rate))
+
+
+def mp_keep_mask(fn, b, h, s, d, rate, device) -> torch.Tensor:
+    """The keep mask ``fn`` (a forward at ``rate``) applies, read from its
+    outputs: with q = k = 0 and no bias every probability is 1/S, and with v
+    the identity on one block of D keys (zero elsewhere) the output at
+    (query, j) is nonzero exactly where key block*D + j is kept.  (B, H, S,
+    S) bool."""
+    zero = torch.zeros(b, h, s, d, device=device)
+    bias = torch.zeros(b, s, device=device)
+    eye = torch.eye(d, device=device)
+    blocks = []
+    for c in range(s // d):
+        v = torch.zeros(b, h, s, d, device=device)
+        v[:, :, c * d:(c + 1) * d] = eye
+        blocks.append(fn(zero, zero, v, bias, MP_SEED, rate) != 0)
+    return torch.cat(blocks, dim=-1)
+
+
+def phase_mp_kernels(device, mp) -> dict:
+    """36. The tp and sp rank-local attention calls at full width, in one
+    process: K1, K4 and K5 on a rank's 6 of 12 heads, the rank being (dp 1,
+    tp 1) of a (2, 2) mesh, so that the seed takes both folds (seed +
+    1000003 + 7919, past int32).  Each forward and
+    backward (bf16, rate 0.1) against its twin with the folded seed, each
+    keep mask (fp32) against the twins' bit for bit, and the device times of
+    the 6-head calls beside the 12-head calls'."""
+    mesh = parallel.Mesh(dp=2, rank=3, device=torch.device(device), axis="tp", size=2)
+    folded = mesh.kernel_seed(MP_SEED)
+    heads, d, rate = mp["heads"], mp["head_dim"], 0.1
+    hl = heads // 2
+    say(f"mesh kernels (phase 36): K1/K4/K5 on a tp/sp rank's {hl} of "
+        f"{heads} heads, rank (dp 1, tp 1), seed {MP_SEED} folded to {folded} "
+        f"({folded & 0xFFFFFFFF} as the kernels read it)")
+    g = torch.Generator(device=device).manual_seed(SEED + 36)
+    out = {}
+    for kind in ("K1", "K4", "K5"):
+        b, s = mp[kind]
+        tag = f"{kind} B{b} S{s} {hl} heads"
+        fn = mp_call(kind, mesh)
+        q, k, v, dout, bias = mp_inputs(b, hl, s, d, torch.bfloat16, device, g)
+        live = [t.detach().requires_grad_() for t in (q, k, v)]
+        zero_counts()
+        got = fn(*live, bias, MP_SEED, rate)
+        got.backward(dout)
+        launched = read_counts()
+        want = mp_twin(kind, q, k, v, bias, dout, folded, rate)
+        sync()
+        err = check_close(f"out {tag} bf16 rate {rate}", got.detach(), want[0],
+                          TOL[torch.bfloat16])
+        for name, x, y in zip(("dq", "dk", "dv"), live, want[1:]):
+            err = max(err, check_close(f"{name} {tag} bf16 rate {rate}", x.grad, y,
+                                       GRAD_TOL[torch.bfloat16]))
+        fwd, bwd = f"{kind}f", f"{kind}b"
+        if not REHEARSAL and (launched[fwd] != 1 or launched[bwd] != 1):
+            fail(f"{tag}: the wrapper launched {launched}, not one {fwd} and one {bwd}")
+        mask = mp_keep_mask(fn, b, hl, s, d, rate, device)
+        twin = attn_ops._head_keep_mask(folded, b, hl, s, rate, device, cols=s)
+        same = bool(torch.equal(mask, twin))
+        say(f"  keep mask {tag} (fp32, read from the outputs): equal to the twins' bit for "
+            f"bit: {same} (kept share {float(mask.float().mean()):.4f})")
+        if not same:
+            fail(f"{tag}: the kernel's keep mask is not the twins' with the folded seed")
+        res = {"max_abs_err": err, "mask_equal": same}
+        if not REHEARSAL:
+            # Device times: the 6-head shard beside the whole 12-head call.
+            full = mp_inputs(b, heads, s, d, torch.bfloat16, device, g)
+            whole = mp_call(kind, parallel.Mesh(dp=1, rank=0, device=torch.device(device)))
+            times = {}
+            for label, call, ops in (("6 heads", fn, (q, k, v, bias)),
+                                     ("12 heads", whole, full[:3] + (full[4],))):
+                fwd_ms = device_ms(lambda: call(*ops, MP_SEED, rate))
+                leaves = [t.detach().requires_grad_() for t in ops[:3]]
+                o = call(*leaves, ops[3], MP_SEED, rate)
+                grad_out = dout if label == "6 heads" else full[3]
+                bwd_ms = device_ms(lambda: torch.autograd.grad(o, leaves, grad_out,
+                                                               retain_graph=True))
+                # The attention kernels' own time (K1's packing copies and
+                # the autograd bookkeeping around them left out).
+                own = lambda ms: None if ms is None else sum(  # noqa: E731
+                    t for name, t in ms.items() if "attention_" in name)
+                times[label] = {"fwd_device_ms": own(fwd_ms), "bwd_device_ms": own(bwd_ms)}
+                if fwd_ms is None or bwd_ms is None:
+                    not_measured(f"{tag} {label}")
+            say(f"  device time {tag} bf16 rate {rate} (torch.profiler, the attention "
+                "kernels, mean of 5 calls): "
+                + "; ".join(f"{k}: forward {v['fwd_device_ms']} ms, backward "
+                            f"{v['bwd_device_ms']} ms" for k, v in times.items()))
+            res["device_ms"] = times
+        out[kind] = res
+        del q, k, v, dout, live, got, want, mask, twin
+        release()
+    return out
+
+
+# Each arm's collectives, as parallel.mesh issues them: tp all-reduces and
+# gathers its blocks into the single-device layout, sp exchanges heads and
+# tokens, cp sends and receives the K/V blocks.
+MP_ARMS = {"tp ndh": ("all_reduce", "all_gather"), "tp pretrain": ("all_reduce", "all_gather"),
+           "sp pretrain": ("all_reduce", "all_to_all"),
+           "cp pretrain": ("all_reduce", "send_recv")}
+
+
+def mp_probe(tp_mesh, tolerate: bool) -> dict:
+    """Which collectives the group carries on this rank's tensors, each tried
+    once on a few elements over the row of ``tp_mesh`` (every rank tries the
+    same in the same order).  A collective that raises is recorded only
+    where ``tolerate`` (gloo with CUDA tensors on a shared card); elsewhere
+    the error is the port's, and it propagates."""
+    x = torch.ones(4, device=tp_mesh.device)
+    tries = {"all_reduce": lambda: parallel.all_reduce_sum([x], tp_mesh, "axis"),
+             "all_gather": lambda: parallel.all_gather([x], [0], tp_mesh, "axis"),
+             "reduce_scatter": lambda: parallel.reduce_scatter([x], [0], tp_mesh, "axis"),
+             "all_to_all": lambda: parallel.all_to_all(x.view(2, 2), tp_mesh),
+             "send_recv": lambda: parallel.ring_shift([x], tp_mesh).finish()}
+    out = {}
+    if tolerate:
+        # Tried once on an H100 with torch 2.11: gloo's send/recv read a
+        # CUDA tensor as host memory; one rank raised, the other aborted
+        # (gloo::IoException "writev: Bad address").  So it is not tried.
+        out["send_recv"] = "gloo's send/recv take host memory: a CUDA tensor aborts a rank"
+        del tries["send_recv"]
+    for name, fn in tries.items():
+        try:
+            fn()
+            sync()
+            out[name] = None
+        except (RuntimeError, ValueError, NotImplementedError) as err:
+            if not tolerate:
+                raise
+            out[name] = f"{type(err).__name__}: {str(err).splitlines()[0][:160]}"
+    return {k: out[k] for k in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+                                "send_recv")}
+
+
+def mp_ndh_step(agent, batch, mesh=None):
+    """(loss, flat params after one teacher-forced step, in the single-device
+    layout) of ``agent`` on its rows of ``batch``."""
+    state = agent.init_state()
+    new, loss = agent.train_step_fn()(state, parallel.shard_batch(mesh, batch))
+    params = new["params"] if agent.dp is None else agent.dp.gather(
+        new["params"], new["opt_state"])[0]
+    return loss.detach().cpu(), flat_params(params)
+
+
+def mp_two(sz: dict) -> dict:
+    """37. Two ranks on the card(s): NCCL on two cards, else gloo with CUDA
+    tensors on cuda:0.  After a probe of the collectives, each arm whose
+    collectives the group carries: the tp NDH teacher-forced step (batch
+    64), tp, sp and cp pretraining (S 768 batch 16; cp at S 1024 batch 8),
+    fp32 with the dropouts at 0, against rank 0's one-process step on the
+    whole batch (phase 35's bounds), with the kernels' launches a step."""
+    two_cards = not REHEARSAL and torch.cuda.device_count() >= 2
+    shared = not REHEARSAL and not two_cards
+    device = parallel.init_process_group(
+        "cpu" if REHEARSAL else ("cuda:0" if shared else None),
+        backend=None if two_cards else "gloo")
+    meshes = {"tp": parallel.make_mesh(tp=2, device=device),
+              "sp": parallel.make_sp_mesh(None, 2, device=device),
+              "cp": parallel.make_cp_mesh(None, 2, device=device)}
+    rank, backend = dist.get_rank(), dist.get_backend()
+    say(f"mesh two ranks: rank {rank}, backend {backend}, device {device}"
+        + (" (both ranks on one card)" if shared else ""))
+    probe = mp_probe(meshes["tp"], tolerate=shared)
+    say(f"  collectives on {device.type} tensors: "
+        + ", ".join(f"{k} {'yes' if v is None else 'no'}" for k, v in probe.items()))
+    sizes, pre, long = sz["sizes"], sz["pre"], sz["long"]
+    ran, not_run, wants = [], {}, {}
+    out = {"backend": backend, "shared_card": shared, "probe": probe, "launches": {}}
+    for arm, needs in MP_ARMS.items():
+        missing = [c for c in needs if probe[c] is not None]
+        if missing:
+            not_run[arm] = (f"{backend} does not carry {', '.join(missing)} on "
+                            f"{device.type} tensors ({probe[missing[0]]})")
+            continue
+        axis = arm.split()[0]
+        mesh = meshes[axis]
+        if arm == "tp ndh":
+            agent, instances, runtime = dp_nav(sizes, device, torch.float32, dropouts=False)
+            batcher = NavEpisodeBatcher(instances, runtime, batch_size=sizes["batch"],
+                                        path_type="planner_path")
+            plain = agent()
+            batch = plain.trim_batch(next(batcher.train_batches(
+                1, episode_len=sizes["episode_len"])))
+            want = mp_ndh_step(plain, batch) if rank == 0 else None
+            del plain
+            release()
+            parallel.reset_collective_counts()
+            zero_counts()
+            got = mp_ndh_step(agent(mesh), batch, mesh)
+            steps, what = 1, f"batch {sizes['batch']}, S {batch['ids'].shape[1]}"
+        else:
+            shape = {**long, "batch": max(long["batch"] // 2, 1)} if axis == "cp" else pre
+            rng = np.random.default_rng(SEED + 37)
+            batches = [pretrain_batch(rng, shape, shape["vocab"], 2054, 1601)
+                       for _ in range(2)]
+            # The tp and sp arms share their S 768 batches: one reference.
+            key = "pretrain cp" if axis == "cp" else "pretrain"
+            if rank == 0 and key not in wants:
+                wants[key] = dp_pretrain_run(shape, device, None, "dp", batches)
+            want = wants.get(key)
+            parallel.reset_collective_counts()
+            zero_counts()
+            got = dp_pretrain_run(shape, device, mesh, "dp", batches)
+            steps = 2
+            what = f"batch {shape['batch']}, S {shape['text'] + shape['img']}, 2 steps"
+        launches = {k: v // steps for k, v in read_counts().items()}
+        coll = {k: v / steps for k, v in parallel.collective_counts().items()}
+        if rank == 0:
+            out[arm] = dp_update_check(f"two ranks, {arm} (fp32, {what})", want, got, 5e-5)
+            out[arm]["collectives"] = coll
+            say(f"    launches a step {', '.join(f'{k} {v}' for k, v in launches.items() if v)}"
+                f"; collectives a step {', '.join(f'{k} {v:g}' for k, v in coll.items() if v)}")
+        out["launches"][arm] = launches
+        ran.append(arm)
+        del want, got
+        release()
+    del wants
+    out["ran"], out["not_run"] = ran, not_run
+    return out
+
+
+def phase_mp_cli(tmp: str) -> dict:
+    """38. A world of one under torchrun: ``run pretrain --debug --mesh_sp 1``
+    (batch 8) and ``run viewpoint --debug --mesh_tp 1`` (the flags accepted, a dp mesh
+    of one rank over NCCL): checkpoints, finite losses, seconds with
+    start-up."""
+    if REHEARSAL:
+        say("mesh CLI: skipped in a rehearsal (the CLI under torchrun runs on the card)")
+        return {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    runs = {"pretrain --mesh_sp 1": ["pretrain", "--config",
+                                     "run_configs/pretrain/pretrain_ndh_r2r.json", "--debug",
+                                     "--mesh_sp", "1", "--num_epochs", "1",
+                                     "--per_gpu_train_batch_size", "8",
+                                     "--logging_steps", "5"],
+            "viewpoint --mesh_tp 1": ["viewpoint", "--config",
+                                      "run_configs/viewpoint_train/ndh_oscar_setting.json",
+                                      "--debug", "--mesh_tp", "1", "--num_iterations", "2",
+                                      "--saving_steps", "2", "--logging_steps", "1",
+                                      "--eval_iters", "2"]}
+    out = {}
+    for name, argv in runs.items():
+        d = os.path.join(tmp, "mp_cli_" + name.split()[0])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "1", "-m", "visitron_torch.run", *argv,
+                               "--output_dir", d], capture_output=True, text=True,
+                              timeout=DP_TIMEOUT_S, cwd=repo)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-6000:], flush=True)
+            fail(f"torchrun {name} exited {proc.returncode}")
+        from visitron_torch.train.checkpoint import CheckpointManager
+
+        steps = CheckpointManager(d).steps()
+        with open(os.path.join(d, "train.csv")) as f:
+            losses = [float(r["loss"]) for r in csv.DictReader(f) if r.get("loss")]
+        if not steps or not losses or not all(np.isfinite(losses)):
+            fail(f"torchrun {name}: checkpoints {steps}, losses {losses[:5]}")
+        say(f"mesh CLI: torchrun --nproc_per_node 1 {name}: {seconds:.1f} s with start-up, "
+            f"checkpoints {steps}, {len(losses)} logged losses (last {losses[-1]:.4f})")
+        out[name] = {"seconds": seconds, "steps": steps}
+    return out
+
+
+MP_WANT = {"tp ndh": "ndh", "tp pretrain": "pretrain", "sp pretrain": "pretrain",
+           "cp pretrain": "ring"}
+
+
+def phase_mp(tmp: str) -> dict:
+    """Phases 37-38 (phase 36 runs in the main process)."""
+    release()
+    two = run_dp_child("two", 2, tmp, flag="--mp-phase")
+    cli = phase_mp_cli(tmp)
+    say(f"mesh two ranks ({two['backend']}{', one card' if two['shared_card'] else ''}): "
+        f"arms that ran: {', '.join(two['ran']) or 'none'}; arms that could not run: "
+        + ("; ".join(f"{k} ({v})" for k, v in two["not_run"].items()) or "none"))
+    # Only gloo with CUDA tensors on a shared card may leave an arm out.
+    for arm in ("tp ndh", "tp pretrain") if two["shared_card"] else MP_ARMS:
+        if arm not in two["ran"]:
+            fail(f"the two-rank {arm} arm could not run")
+    layers = BertConfig(**phase_sizes()["sizes"]["bert"]).num_hidden_layers
+    want = {"ndh": {"K1f": layers, "K1b": layers, "K2f": 2 * layers + 1,
+                    "K2b": 2 * layers + 1},
+            "pretrain": {"K4f": layers, "K4b": layers, "K3f": 1, "K3b": 1,
+                         "K2f": 2 * layers + 2, "K2b": 2 * layers + 2},
+            "ring": {"K3f": 1, "K3b": 1, "K2f": 2 * layers + 2, "K2b": 2 * layers + 2}}
+    for arm in two["ran"]:
+        expect = {k: want[MP_WANT[arm]].get(k, 0) for k in COUNTED}
+        if not REHEARSAL and two["launches"][arm] != expect:
+            fail(f"two ranks, {arm}: launches a step {two['launches'][arm]}, expected "
+                 f"{expect}")
+    return {"two": two, "cli": cli}
+
+
+def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp, mp) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
     run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
@@ -4097,7 +4479,9 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp) ->
     forward, a phase 30 scene forward and a phase 31 detector dispatch; and
     ``dp_launches``: its launches a step of phase 33's data-parallel runs
     (NCCL, a world of one): the NDH dp and dp + ZeRO-1 steps, the S 768
-    pretraining step under dp, ZeRO-1 and FSDP, the S 1024 FSDP step."""
+    pretraining step under dp, ZeRO-1 and FSDP, the S 1024 FSDP step; and
+    ``mp_launches``: its launches a step in phase 37's two-rank arms (rank
+    0's; null for an arm the group could not carry)."""
     code = {fn.__name__: k for k, fn in COUNTED.items()}
     ndh = {"fused_attention_packed": "K1f", "fused_add_layernorm": "K2f",
            "fused_attention_packed_bwd": "K1b", "fused_add_layernorm_bwd": "K2b"}
@@ -4159,7 +4543,10 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp) ->
              "ndh_zero1_step": dp["world1"]["ndh_time"]["dp zero1"]["launches"][code[name]],
              **{f"pretrain_{k}": dp["world1"]["pretrain_time"][k]["launches"][code[name]]
                 for k in ("dp", "zero1", "fsdp")},
-             "long_fsdp_s1024": dp["world1"]["long_fsdp_launches"][code[name]]}}
+             "long_fsdp_s1024": dp["world1"]["long_fsdp_launches"][code[name]]},
+         "mp_launches": {arm.replace(" ", "_"): (mp["two"]["launches"][arm][code[name]]
+                                                 if arm in mp["two"]["launches"] else None)
+                         for arm in MP_ARMS}}
         for name, (src, replaces), t, launches in entries]}
 
 
@@ -4190,6 +4577,7 @@ def phase_sizes() -> dict:
         regions = {"depth": 50, "classes": 12, "attrs": 7, "rois": 8, "pre_nms": 256,
                    "side": 256, "vfov": 80, "per_dispatch": 6, "face": 64, "dispatches": 1}
         extract = {"face": 32}
+        mp = {"heads": 4, "head_dim": 64, "K1": (2, 128), "K4": (2, 256), "K5": (2, 256)}
     else:
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
         # R 12288: the S 768 pretraining step's; 16384 and 32768: NDH at S 256
@@ -4223,9 +4611,12 @@ def phase_sizes() -> dict:
                    "pre_nms": 6000, "side": 600, "vfov": 80, "per_dispatch": 6,
                    "face": 1024, "dispatches": 6}
         extract = {"face": 1024, "depth": 152}
+        # Phase 36: the tp/sp shards (6 of 12 heads) at the paths' shapes.
+        mp = {"heads": 12, "head_dim": 64, "K1": (64, 256), "K4": (16, 768),
+              "K5": (16, 1024)}
     return {"attn": attn, "ln": ln, "sizes": sizes, "ce": ce, "attn4": attn4, "pre": pre,
             "long": long, "flash": flash, "spk": spk, "opt": opt, "scene": scene,
-            "regions": regions, "extract": extract}
+            "regions": regions, "extract": extract, "mp": mp}
 
 
 def main(argv=None) -> int:
@@ -4237,9 +4628,13 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-phase", choices=("world1", "two"),
                     help="run one rank of a data-parallel phase (started by the "
                          "script itself through torch.distributed.run)")
-    ap.add_argument("--dp-result", help="where rank 0 of a --dp-phase writes its result")
+    ap.add_argument("--mp-phase", choices=("two",),
+                    help="run one rank of the tensor / sequence / context-parallel phase "
+                         "(started by the script itself through torch.distributed.run)")
+    ap.add_argument("--dp-result", help="where rank 0 of a --dp-phase or --mp-phase "
+                    "writes its result")
     args = ap.parse_args(argv)
-    if args.dp_phase:
+    if args.dp_phase or args.mp_phase:
         return dp_child_main(args)
     REHEARSAL = args.cpu_rehearsal
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4256,6 +4651,7 @@ def main(argv=None) -> int:
     times = {"k1": phase_k1(device, attn), "k2": phase_k2(device, ln),
              "k1b": phase_k1b(device, attn), "k2b": phase_k2b(device, ln),
              **phase_k3(device, ce), **phase_k4(device, attn4), **phase_k5(device, flash)}
+    mp_kernels = phase_mp_kernels(device, sz["mp"])
     sl = phase_serving(device, sizes)
     sl["ln_rows"] = sizes["batch"] * sl["bucket"]
     phase_agreement(device, sizes, sl)
@@ -4296,6 +4692,9 @@ def main(argv=None) -> int:
         cli["extract"] = phase_extract_cli(device, tmp, extract)
     with tempfile.TemporaryDirectory() as tmp:
         dp = phase_dp(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp = phase_mp(tmp)
+    mp["kernels"] = mp_kernels
     say(f"speaker: step {speaker['ms']:.2f} ms (full width), CLI iteration "
         f"{cli['speaker']['ms']:.1f} ms, --aug_data fine-tune iteration "
         f"{cli['speaker']['vp_ms']:.1f} ms, phase 22's viewpoint iteration {cli['vp_ms']:.1f} ms")
@@ -4314,7 +4713,7 @@ def main(argv=None) -> int:
         return 0
     say(f"nvidia-smi: {smi}")
     print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl, cli, options, scene_out,
-                                  regions_out, dp)), flush=True)
+                                  regions_out, dp, mp)), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

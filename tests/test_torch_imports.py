@@ -43,11 +43,17 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 print(len(names))
+print(' '.join(names))
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 30
+    count, names = res.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 30
+    # The mesh modules: the ring attention, the (dp, tp|sp|cp) mesh and its
+    # collectives, the multi-rank dry run.
+    assert {"visitron_torch.ops.ring_attention", "visitron_torch.parallel.mesh",
+            "visitron_torch.parallel.dryrun"} <= set(names.split())
 
 
 def test_sources_import_nothing_of_jax():

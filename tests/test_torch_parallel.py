@@ -131,8 +131,21 @@ def test_fold_seed_and_mesh_checks():
     assert parallel.maybe_mesh(0) is None and parallel.maybe_mesh(1) is None
     with pytest.raises(ValueError, match="needs 2 ranks"):
         parallel.maybe_mesh(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         parallel.maybe_mesh(0, tp=2)
+    # Rank r of a (dp, X) grid sits at (r // X, r % X).  A tp row's ranks
+    # hold the same activations: their generators fold the dp index alone;
+    # the kernels' seed also folds the tp index (the JAX wrappers' 7919).
+    tp = Mesh(dp=2, rank=3, device=CPU, axis="tp", size=2)
+    assert (tp.dp_index, tp.axis_index, tp.world, tp.tp) == (1, 1, 4, 2)
+    assert tp.fold_seed(7) == 7 + 1000003
+    assert tp.kernel_seed(7) == 7 + 1000003 + 7919
+    # An sp row's ranks hold different tokens: their generators differ.
+    sp = Mesh(dp=2, rank=3, device=CPU, axis="sp", size=2)
+    assert sp.fold_seed(7) == 7 + 1000003 + 7919 and sp.tokens_sharded
+    assert sp.kernel_seed(7) == 7 + 1000003 + 7919
+    # The ring hashes absolute coordinates: a cp rank's seed is unfolded.
+    assert Mesh(dp=2, rank=3, device=CPU, axis="cp", size=2).kernel_seed(7) == 7
     # A rank's kernel seeds are the single-device draws plus its fold.
     draws = [DropoutRng(torch.Generator(), torch.Generator().manual_seed(3),
                         seed_offset=Mesh(dp=2, rank=r, device=CPU).fold_seed(0))
@@ -141,10 +154,10 @@ def test_fold_seed_and_mesh_checks():
         assert draws[1].seed() == draws[0].seed() + 1000003
     trainer = TTrainer(TConfig(**SMALL), device="cpu", mesh=Mesh(dp=2, rank=1, device=CPU))
     assert trainer.init_state()["rng"].seed_offset == 1000003
-    for axis in ("tp", "pp", "sp", "cp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-            refuse_unported_hardware(TRunConfig(**{f"mesh_{axis}": 2}))
-    for flags in ({"mesh_dp": 4}, {"zero1": True}, {"fsdp": True}):
+    with pytest.raises(NotImplementedError, match="--mesh_pp: pipeline parallelism"):
+        refuse_unported_hardware(TRunConfig(mesh_pp=2))
+    for flags in ({"mesh_dp": 4}, {"zero1": True}, {"fsdp": True}, {"mesh_tp": 2},
+                  {"mesh_sp": 2}, {"mesh_cp": 2}):
         refuse_unported_hardware(TRunConfig(**flags))
 
 

@@ -339,16 +339,33 @@ def test_train_epoch_lowers_the_loss_on_a_repeated_batch(worlds):
 
 
 def test_trainer_refuses_unported_options():
-    """A tensor-parallel mesh is refused by name (ROADMAP item 10b); ZeRO-1
-    and FSDP without a mesh shard nothing (the JAX trainer's one-device
-    mesh shards nothing either)."""
+    """A mesh that is not a ``parallel.Mesh`` (e.g. the JAX package's) is
+    refused; on rank 0 of a (dp 1, tp 2) mesh the trainer's model holds its
+    halves of the four split kernels and its state starts from its blocks
+    of the single-device parameters; pipeline parallelism is refused by name
+    (ROADMAP item 10c); ZeRO-1 and FSDP without a mesh shard nothing (the
+    JAX trainer's one-device mesh shards nothing either)."""
+    from visitron_torch.config import RunConfig, refuse_unported_hardware
+    from visitron_torch.parallel import Mesh
+
     cfg = TConfig(**{**SMALL, "max_position_embeddings": 64})
 
     class TPMesh:
         shape, size, device = {"dp": 1, "tp": 2}, 2, torch.device("cpu")
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+    with pytest.raises(TypeError, match="needs a parallel.Mesh"):
         TTrainer(cfg, device="cpu", mesh=TPMesh())
+    tp = TTrainer(cfg, device="cpu",
+                  mesh=Mesh(dp=1, rank=0, device=torch.device("cpu"), axis="tp", size=2))
+    full = tp.init_params()
+    state = tp.init_state(params=full)
+    name = "bert.encoder.layer_0.attention.qkv.weight"
+    h = cfg.hidden_size
+    assert state["params"][name].shape == (3 * h // 2, h)
+    assert torch.equal(state["params"][name], full[name].unflatten(0, (3, h))[:, :h // 2]
+                       .flatten(0, 1))
+    with pytest.raises(NotImplementedError, match="--mesh_pp: pipeline parallelism"):
+        refuse_unported_hardware(RunConfig(mesh_pp=2))
     for kw in ({"zero1": True}, {"fsdp": True}):
         assert TTrainer(cfg, device="cpu", **kw).dp is None
     if not torch.cuda.is_available():

@@ -263,8 +263,16 @@ def test_debug_world_has_a_test_split_where_the_jax_one_has_none(tmp_path):
 
 
 def test_unported_options_and_unknown_tasks_refuse(tmp_path):
-    for axis in ("tp", "pp", "sp", "cp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+    # Pipeline parallelism is refused by name; tp, sp and cp need their
+    # ranks (a process group), and sp and cp are the pretrain task's.
+    with pytest.raises(NotImplementedError, match="--mesh_pp: pipeline parallelism"):
+        trun.main(["viewpoint", "--debug", "--output_dir", str(tmp_path),
+                   "--mesh_pp", "2"], device="cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        trun.main(["viewpoint", "--debug", "--output_dir", str(tmp_path),
+                   "--mesh_tp", "2"], device="cpu")
+    for axis in ("sp", "cp"):
+        with pytest.raises(SystemExit, match=f"--mesh_{axis} applies to the pretrain task"):
             trun.main(["viewpoint", "--debug", "--output_dir", str(tmp_path),
                        f"--mesh_{axis}", "2"], device="cpu")
     with pytest.raises(ValueError, match="needs 2 ranks"):

@@ -515,13 +515,15 @@ def test_graft_matches_the_jax_graft(tmp_path, jax_agent):
 
 
 def test_trainer_refuses_unported_options(tmp_path):
-    """Tensor parallelism (ROADMAP item 10b) raises by name, a dp mesh of
-    more ranks than the process group has is refused, ZeRO-1 in one process
-    shards nothing; a model path that is not a port pretraining checkpoint goes to the
-    Oscar / HuggingFace import (an empty ``pytorch_model.bin`` fails to
-    load); a missing model path trains from scratch, as in the JAX
-    package."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
+    """Pipeline parallelism (ROADMAP item 10c) raises by name, a dp or tp
+    mesh of more ranks than the process group has is refused, ZeRO-1 in one
+    process shards nothing; a model path that is not a port pretraining
+    checkpoint goes to the Oscar / HuggingFace import (an empty
+    ``pytorch_model.bin`` fails to load); a missing model path trains from
+    scratch, as in the JAX package."""
+    with pytest.raises(NotImplementedError, match="--mesh_pp: pipeline parallelism"):
+        _torch_trainer(tmp_path, mesh_pp=2)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         _torch_trainer(tmp_path, mesh_tp=2)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         _torch_trainer(tmp_path, mesh_dp=2)
@@ -531,7 +533,7 @@ def test_trainer_refuses_unported_options(tmp_path):
     (oscar / "pytorch_model.bin").write_bytes(b"")
     ttr = _torch_trainer(tmp_path, model_name_or_path=str(oscar))
     with pytest.raises((EOFError, RuntimeError)):  # torch.load of an empty file
-        ttr._maybe_load_pretrained(ttr.agent.init_state())
+        ttr._pretrained_params(ttr.agent.init_params())
     ttr = _torch_trainer(tmp_path, model_name_or_path=str(tmp_path / "absent"))
-    state = ttr.agent.init_state()
-    assert ttr._maybe_load_pretrained(state) is state
+    params = ttr.agent.init_params()
+    assert ttr._pretrained_params(params) is params

@@ -3,8 +3,9 @@
 Run as ``python tests/torch_dist_worker.py <work dir> <rank> <world>``: joins
 a gloo process group through ``file://<work dir>/pg`` (no port, so parallel
 test workers cannot collide), runs every case of ``<work dir>/inputs.pt`` in
-order, and writes ``<work dir>/<case>_<rank>.pt`` for each.  Imports torch
-and the port only.
+order, each on the dp mesh of the whole world or on the (dp, tp|sp|cp) mesh
+its ``mesh`` entry names (("tp", 2): ``make_mesh(tp=2)``), and writes
+``<work dir>/<case>_<rank>.pt`` for each.  Imports torch and the port only.
 """
 
 import os
@@ -46,14 +47,17 @@ def case_pretrain(mesh, inp):
     state = trainer.init_state(params=inp["params"])
     local = sum(t.numel() for t in parallel.mesh._leaves(state["opt_state"])
                 if isinstance(t, torch.Tensor))
+    at_rest = {k: v.shape for k, v in state["params"].items()}
     step = trainer.step_fn()
     bundles = []
     for batch in inp["batches"]:
         state, bundle = step(state, parallel.shard_batch(mesh, batch))
         bundles.append({k: float(v) for k, v in bundle.items()})
-    params, _ = trainer.dp.gather(state["params"], state["opt_state"])
+    params, opt = trainer.dp.gather(state["params"], state["opt_state"])
     return {"params": params, "bundles": bundles, "opt_numel": local,
-            "param_numel": sum(t.numel() for t in state["params"].values())}
+            "param_numel": sum(t.numel() for t in state["params"].values()),
+            "shapes": at_rest, "local": dict(state["params"]),
+            "mu": opt[1]["mu"] if inp.get("moments") else None}
 
 
 def _agent_step(mesh, inp, agent, state, batch):
@@ -61,7 +65,8 @@ def _agent_step(mesh, inp, agent, state, batch):
             "sample": lambda: agent.sample_train_step_fn("argmax")}[inp.get("feedback",
                                                                          "teacher")]()
     state, loss = step(state, parallel.shard_batch(mesh, batch, inp.get("axes")))
-    return {"params": _flat(state["params"]), "loss": float(loss),
+    params, _ = agent.dp.gather(state["params"], state["opt_state"])
+    return {"params": _flat(params), "loss": float(loss), "local": _flat(state["params"]),
             "opt_numel": sum(t.numel() for t in parallel.mesh._leaves(state["opt_state"])
                              if isinstance(t, torch.Tensor))}
 
@@ -89,10 +94,47 @@ def case_classifier(mesh, inp):
                             **inp["agent"], device="cpu", mesh=mesh)
     items = inp["items"]
     n = len(items) // mesh.dp
-    batch = agent.prepare_batch(items[mesh.rank * n:(mesh.rank + 1) * n], event_items=items)
+    batch = agent.prepare_batch(items[mesh.dp_index * n:(mesh.dp_index + 1) * n],
+                                event_items=items)
     state = agent.init_state(params=inp["params"])
     state, loss = agent.train_step_fn()(state, batch)
-    return {"params": _flat(state["params"]), "loss": float(loss)}
+    params, _ = agent.dp.gather(state["params"], state["opt_state"])
+    return {"params": _flat(params), "loss": float(loss)}
+
+
+def case_ring(mesh, inp):
+    """The ring attention of this rank's blocks of global (B, H, S, D) q/k/v
+    (tokens over cp, rows over dp) and of a (B, S) key bias: its output and
+    the gradients of sum(out * g) for its blocks."""
+    from visitron_torch.ops.ring_attention import ring_attention
+
+    rows = slice(mesh.dp_index * inp["q"].shape[0] // mesh.dp,
+                 (mesh.dp_index + 1) * inp["q"].shape[0] // mesh.dp)
+    lo, hi = parallel.token_range(mesh, inp["q"].shape[2])
+    q, k, v = (inp[n][rows, :, lo:hi].clone().requires_grad_() for n in ("q", "k", "v"))
+    out = ring_attention(q, k, v, inp["bias"][rows, lo:hi].contiguous(), inp["seed"],
+                         inp["rate"], mesh=mesh)
+    (out * inp["g"][rows, :, lo:hi]).sum().backward()
+    return {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+
+
+def case_history(mesh, inp):
+    """The text model's forward with history K/V states on this rank's
+    blocks of the full parameters (the plain attention on its heads), and
+    the gradients of sum(seq * g), gathered into the single-device layout."""
+    from visitron_torch.models import VisitronBert, config_for_mesh
+
+    model = VisitronBert(config_for_mesh(BertConfig(**inp["bert"]), mesh), image=False)
+    dp = parallel.DataParallel(mesh)
+    dp.plan(inp["params"], tp_kinds=parallel.shard_params_rules(model))
+    local = {k: v.clone().requires_grad_() for k, v in dp.tp_local(inp["params"]).items()}
+    seq, _ = torch.func.functional_call(model, local, (inp["ids"],),
+                                        {"history_states": inp["history"]})
+    (seq * inp["g"]).sum().backward()
+    grads = {k: v.grad for k, v in local.items()}
+    split = {k: g for k, g in grads.items() if g is not None}
+    grads.update(dp.tp_full(split))
+    return {"seq": seq.detach(), "grads": grads}
 
 
 def case_consensus(mesh, inp):
@@ -135,9 +177,14 @@ def main():
     inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
     parallel.init_process_group("cpu", init_method=f"file://{os.path.join(work, 'pg')}",
                                 rank=rank, world_size=world, timeout_s=100)
+    makers = {"tp": lambda n: parallel.make_mesh(tp=n),
+              "sp": lambda n: parallel.make_sp_mesh(None, n),
+              "cp": lambda n: parallel.make_cp_mesh(None, n)}
     try:
-        mesh = parallel.make_mesh()
+        dp_mesh = parallel.make_mesh()
         for name, inp in inputs:
+            axis = inp.get("mesh")
+            mesh = dp_mesh if axis is None else makers[axis[0]](axis[1])
             parallel.reset_collective_counts()
             torch.manual_seed(0)
             np.random.seed(0)

@@ -45,7 +45,7 @@ from visitron_torch.agents.runtime import NavRuntime
 from visitron_torch.agents.viewpoint import DialogAgent, gather_step_inputs
 from visitron_torch.data.classifier_dataset import ClassifierInstance
 from visitron_torch.evaluation.classifier_metrics import binary_classification_metrics
-from visitron_torch.models import AttnDecoderLSTMwithClassifier, BertConfig, OscarEncoder
+from visitron_torch.models import AttnDecoderLSTMwithClassifier, BertConfig
 from visitron_torch.models.layers import DropoutRng
 from visitron_torch.train.optim import agent_optimizer, multi_transform, set_to_zero
 
@@ -82,14 +82,12 @@ class ClassifierAgent(DialogAgent):
     bf16_adam_moments: bool = False
     seed: int = 88
     device: object = None  # None: the mesh's device, else the card
-    mesh: object = None  # a dp parallel.Mesh: data-parallel training
+    mesh: object = None  # a (dp, tp) parallel.Mesh: data / tensor-parallel training
 
     def __post_init__(self):
         self._resolve_device()
-        self.encoder = OscarEncoder(
-            self.cfg, hidden_size=self.encoder_hidden_size,
-            decoder_hidden_size=self.rnn_dim,
-            dropout_ratio=self.dropout).to(self.device).eval()
+        self._make_encoder(hidden_size=self.encoder_hidden_size,
+                           decoder_hidden_size=self.rnn_dim, dropout_ratio=self.dropout)
         self.decoder = AttnDecoderLSTMwithClassifier(
             angle_feat_size=self.angle_feat_size, embedding_size=self.aemb,
             hidden_size=self.rnn_dim,
@@ -97,7 +95,8 @@ class ClassifierAgent(DialogAgent):
             ctx_size=self.encoder_hidden_size,
             dropout_ratio=self.dropout).to(self.device).eval()
         base = agent_optimizer(self.learning_rate, "adam", 40.0,
-                               bf16_moments=self.bf16_adam_moments)
+                               bf16_moments=self.bf16_adam_moments,
+                               norm=self._clip_norm())
         self.optimizer = (multi_transform({"train": base, "freeze": set_to_zero()},
                                           question_head_labels)
                           if self.only_finetune_classifier else base)
@@ -190,16 +189,17 @@ class ClassifierAgent(DialogAgent):
         }
 
     # -- the loss ----------------------------------------------------------------------
-    def episode_outputs(self, params, batch: dict, rng: DropoutRng | None = None):
+    def episode_outputs(self, params, batch: dict, rng: DropoutRng | None = None,
+                        encoder=None):
         """(B, T) question-asking logits of a prepared batch: every snapshot
         through the frozen encoder in one (E*B)-row call without gradients,
         then T teacher-forced decoder steps (``rng``: the decoder's
-        dropouts)."""
+        dropouts; ``encoder``: the module, default the training encoder)."""
         e, b, s = batch["lang_ids"].shape
         lens = self._index(batch["lang_lens"]).reshape(e * b)
         with torch.no_grad():  # frozen encoder in eval mode (no_grad parity)
             ctx, h, c = functional_call(
-                self.encoder, params["encoder"],
+                self.encoder if encoder is None else encoder, params["encoder"],
                 (self._index(batch["lang_ids"]).reshape(e * b, s), lens),
                 {"token_type_ids": self._index(batch["lang_segs"]).reshape(e * b, s),
                  "rng": None}, strict=True)
@@ -226,12 +226,13 @@ class ClassifierAgent(DialogAgent):
         return torch.stack(qa, dim=1)
 
     def loss_fn(self, params, batch: dict, rng: DropoutRng | None = None,
-                count_sum=None):
+                count_sum=None, encoder=None):
         """(loss, qa_logits): the per-step masked mean of the pos-weighted
         BCE, summed over T and divided by T (classifier/agent.py:493-507,585).
         ``count_sum`` (:meth:`_count_sum`) takes the kept counts to the
-        global batch's; None: this batch's."""
-        qa_logits = self.episode_outputs(params, batch, rng)
+        global batch's; None: this batch's.  ``encoder``: as
+        :meth:`episode_outputs`'."""
+        qa_logits = self.episode_outputs(params, batch, rng, encoder)
         t = torch.as_tensor(np.stack([~np.asarray(batch["qa_ignore"]),
                                       np.asarray(batch["qa_target"]) > 0])).to(self.device)
         keep, target = t[0].float(), t[1].float()
@@ -269,7 +270,7 @@ class ClassifierAgent(DialogAgent):
         total_loss, n = 0.0, 0
         with torch.no_grad():
             for batch in batches:
-                loss, qa_logits = self.loss_fn(params, batch)
+                loss, qa_logits = self.loss_fn(params, batch, **self._eval_kw())
                 total_loss += float(loss)
                 n += 1
                 keep = ~np.asarray(batch["qa_ignore"])

@@ -38,7 +38,7 @@ from visitron_torch import geometry as geo
 from visitron_torch.agents import decoding
 from visitron_torch.agents.runtime import NavRuntime
 from visitron_torch.agents.viewpoint import DialogAgent
-from visitron_torch.models import BertConfig, OscarEncoder, TurnBasedDecoderLSTM
+from visitron_torch.models import BertConfig, TurnBasedDecoderLSTM
 from visitron_torch.models.layers import DropoutRng
 from visitron_torch.ops.masking import NEG_INF
 from visitron_torch.train.optim import agent_optimizer
@@ -64,14 +64,12 @@ class TurnBasedAgent(DialogAgent):
     bf16_adam_moments: bool = False
     seed: int = 88
     device: object = None  # None: the mesh's device, else the card
-    mesh: object = None  # a dp parallel.Mesh: data-parallel training
+    mesh: object = None  # a (dp, tp) parallel.Mesh: data / tensor-parallel training
 
     def __post_init__(self):
         self._resolve_device()
-        self.encoder = OscarEncoder(
-            self.cfg, hidden_size=self.encoder_hidden_size,
-            decoder_hidden_size=self.rnn_dim,
-            dropout_ratio=self.dropout).to(self.device).eval()
+        self._make_encoder(hidden_size=self.encoder_hidden_size,
+                           decoder_hidden_size=self.rnn_dim, dropout_ratio=self.dropout)
         self.decoder = TurnBasedDecoderLSTM(
             input_action_size=len(MODEL_ACTIONS), output_action_size=6,
             embedding_size=self.aemb, hidden_size=self.rnn_dim,
@@ -80,7 +78,8 @@ class TurnBasedAgent(DialogAgent):
         # Clip 40 + Adam, as the JAX turn-based trainer builds it
         # (--agent_max_grad_norm reaches the viewpoint agent alone).
         self.optimizer = agent_optimizer(self.learning_rate, "adam", 40.0,
-                                         bf16_moments=self.bf16_adam_moments)
+                                         bf16_moments=self.bf16_adam_moments,
+                                         norm=self._clip_norm())
         self.results: dict = {}
         self.readbacks = 0  # (B,) action vectors the student rollouts read back
 
@@ -108,14 +107,14 @@ class TurnBasedAgent(DialogAgent):
 
     # -- teacher-forced training ------------------------------------------------
     def episode_loss(self, params, batch: dict, rng: DropoutRng | None = None,
-                     count_sum=None):
+                     count_sum=None, encoder=None):
         """Mean teacher-forced loss of a trimmed batch with turn-teacher
         arrays: each step's CE over its active items (n = max(sum(active),
         1)), summed over T and divided by T.  After the end the next input is
         the <ignore> id (turn_based/agent.py:212-232).  ``count_sum``
         (:meth:`_count_sum`) takes the active counts to the global batch's;
-        None: this batch's."""
-        ctx, h, c, ctx_mask = self.encode(params, batch, rng)
+        None: this batch's.  ``encoder``: as :meth:`encode`'s."""
+        ctx, h, c, ctx_mask = self.encode(params, batch, rng, encoder)
         cur_row, view = self._index(batch["cur_row"]), self._index(batch["view"])
         teacher = self._index(batch["teacher"])
         flags = torch.as_tensor(np.stack([batch["fwd_ok"], batch["active"]])).to(self.device)
@@ -161,7 +160,8 @@ class TurnBasedAgent(DialogAgent):
                 raise ValueError("eval_loss_fn(use_dropout=True) needs an rng")
             with torch.no_grad():
                 return self.episode_loss(params, self.trim_batch(batch),
-                                         rng if use_dropout else None)
+                                         rng if use_dropout else None,
+                                         **self._eval_kw())
 
         return run
 
@@ -173,7 +173,7 @@ class TurnBasedAgent(DialogAgent):
         draw from ``generator`` (any other ``feedback``)."""
         rt = self.runtime
         batch = self.trim_batch(batch)
-        ctx, h, c, ctx_mask = self.encode(params, batch)
+        ctx, h, c, ctx_mask = self.encode(params, batch, **self._eval_kw())
         b = len(batch["scans"])
         rows = np.asarray(batch["start_rows"], np.int64).copy()
         views = np.asarray(batch["start_views"], np.int64).copy()

@@ -44,15 +44,19 @@ them and applies Adam:
 The T-step decode loops of the sampled and RL losses read nothing back to
 the host.
 
-Under a dp ``mesh`` (``parallel.make_mesh``; the JAX agent's ``mesh``) each
-rank steps on its rows of the global batch (``NavEpisodeBatcher(host_id,
-num_hosts)`` trims them to the global length bucket): every loss divides by
-the counts of the global batch (the per-step active counts, one all-reduce
-a step), the gradients and the logged loss and aux values are summed over
-the ranks in flat buckets, the attention kernels' dropout seed is folded by
-the rank and the hidden-dropout and sampling generators are seeded per
-rank.  ``zero1`` shards the Adam moments over the ranks
-(``parallel.DataParallel``).
+Under a ``mesh`` (``parallel.make_mesh(dp, tp)``; the JAX agent's
+``mesh``) each rank steps on the rows of its dp index of the global batch
+(``NavEpisodeBatcher(host_id, num_hosts)`` trims them to the global length
+bucket): every loss divides by the counts of the global batch (the per-step
+active counts, one all-reduce a step), the gradients and the logged loss
+and aux values are summed over dp in flat buckets, the attention kernels'
+dropout seed is folded by the mesh coordinates and the hidden-dropout and
+sampling generators are seeded per dp index.  Under tp (``config_for_mesh``)
+the encoder's BERT holds this rank's blocks of the four split kernels of
+every layer and the rest of the agent is replicated over the tp ranks,
+which draw the same masks and samples; evaluation and serving run the
+mesh-free twin ``eval_encoder`` on the single-device layout.  ``zero1``
+shards the Adam moments over dp (``parallel.DataParallel``).
 """
 
 from __future__ import annotations
@@ -72,9 +76,11 @@ from visitron_torch.agents import decoding
 from visitron_torch.agents.decoding import select_action
 from visitron_torch.agents.runtime import NavRuntime
 from visitron_torch.models import AttnDecoderLSTM, BertConfig, Critic, OscarEncoder
+from visitron_torch.models.bert import config_for_mesh
 from visitron_torch.models.layers import DropoutRng, init_module_params
 from visitron_torch.ops.masking import NEG_INF
-from visitron_torch.parallel.mesh import DataParallel, jax_axis_orders
+from visitron_torch.parallel.mesh import (DataParallel, jax_axis_orders,
+                                          shard_params_rules)
 from visitron_torch.train.optim import (agent_optimizer, apply_updates, tree_leaves,
                                         tree_unflatten)
 
@@ -121,8 +127,13 @@ class DialogAgent:
         """``device`` resolved (None: the mesh's device, else the card); the
         runtime's tables must live on the same kind of device.  Under a
         ``mesh``, ``dp`` carries the step's collectives (``zero1`` where the
-        agent has it)."""
+        agent has it), and ``cfg`` goes through ``config_for_mesh``."""
         mesh = getattr(self, "mesh", None)
+        if getattr(mesh, "tokens_sharded", False):
+            raise ValueError(f"{type(self).__name__} runs on a (dp, tp) mesh; sequence "
+                             "and context parallelism are for pretraining")
+        if hasattr(self, "cfg"):
+            self.cfg = config_for_mesh(self.cfg, mesh)
         if mesh is not None and self.device is None:
             self.device = mesh.device
         self.device = resolve_device(self.device)
@@ -138,9 +149,34 @@ class DialogAgent:
         shards under ZeRO-1), None (the plain norm) without a mesh."""
         return None if self.dp is None else self.dp.global_norm
 
+    def _make_encoder(self, **kw) -> None:
+        """``encoder`` (OscarEncoder over ``cfg``) and ``eval_encoder``, its
+        mesh-free twin over the single-device layout (the encoder itself
+        without tp; under tp it holds no parameters of its own)."""
+        self.encoder = OscarEncoder(self.cfg, **kw).to(self.device).eval()
+        if self.cfg.tp_mesh is None:
+            self.eval_encoder = self.encoder
+        else:
+            with torch.device("meta"):
+                self.eval_encoder = OscarEncoder(self.cfg.without_mesh(), **kw).eval()
+
+    def _eval_kw(self) -> dict:
+        """The keyword an evaluation path passes to :meth:`encode` (or a
+        loss that calls it): ``encoder=eval_encoder`` under tp, nothing where
+        the two encoders are one."""
+        return {} if self.eval_encoder is self.encoder else {"encoder": self.eval_encoder}
+
+    def _plain(self, part: str):
+        """The single-device module of a parameter part."""
+        if part == "encoder":
+            return getattr(self, "eval_encoder", self.encoder)
+        return getattr(self, part)
+
     def _rank_seed(self, seed: int) -> int:
-        """``seed`` folded by the rank under a mesh (each rank's rows draw
-        their own dropout masks and samples), ``seed`` itself otherwise."""
+        """``seed`` folded by the dp index under a mesh (each dp row draws
+        its own dropout masks and samples; the ranks of a tp row, whose
+        activations are replicated, draw the same), ``seed`` itself
+        otherwise."""
         return seed if self.dp is None else self.dp.mesh.fold_seed(seed)
 
     def _count_sum(self):
@@ -154,7 +190,8 @@ class DialogAgent:
         the optimizer state holds this rank's shards."""
         if self.dp is None:
             return {"params": params, "opt_state": self.optimizer.init(params), **extra}
-        self.dp.plan(params, {part: jax_axis_orders(getattr(self, part)) for part in params})
+        self.dp.plan(params, {part: jax_axis_orders(self._plain(part)) for part in params},
+                     {part: shard_params_rules(getattr(self, part)) for part in params})
         params, opt_state = self.dp.place(params, self.optimizer)
         return {"params": params, "opt_state": opt_state, **extra}
 
@@ -164,18 +201,19 @@ class DialogAgent:
         initialisers' distributions: normal(0.02) for BERT, U(+-1/sqrt(H))
         for LSTMs, lecun_normal for the other Dense kernels, zero biases."""
         g = torch.Generator().manual_seed(self.seed if seed is None else seed)
-        return {part: init_module_params(getattr(self, part), g, self.device)
+        return {part: init_module_params(self._plain(part), g, self.device)
                 for part in parts}
 
     def dropout_rng(self) -> DropoutRng:
         """A training pass's dropout generators: masks on the agent's
         device, kernel seeds on the CPU, both seeded with seed + 1; under a
-        mesh the masks' seed and the kernel seeds are folded by the rank."""
+        mesh the masks' seed is folded by the dp index and the kernel seeds
+        by the mesh coordinates (``Mesh.kernel_seed``)."""
         return DropoutRng(
             masks=torch.Generator(device=self.device).manual_seed(
                 self._rank_seed(self.seed + 1)),
             seeds=torch.Generator().manual_seed(self.seed + 1),
-            seed_offset=self._rank_seed(0))
+            seed_offset=0 if self.dp is None else self.dp.mesh.kernel_seed(0))
 
     @staticmethod
     def trim_batch(batch: dict, bucket: int = 128) -> dict:
@@ -195,12 +233,14 @@ class DialogAgent:
     def _index(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.int64).to(self.device)
 
-    def encode(self, params, batch: dict, rng: DropoutRng | None = None):
+    def encode(self, params, batch: dict, rng: DropoutRng | None = None, encoder=None):
         """(ctx, h0, c0, ctx_mask) for a trimmed batch; ``rng`` turns the
-        encoder's dropouts on."""
+        encoder's dropouts on; ``encoder``: the module (default the training
+        encoder; the evaluation paths pass ``eval_encoder``)."""
         ids, segs = self._index(batch["ids"]), self._index(batch["segs"])
         lengths = self._index(batch["lengths"])
-        ctx, h, c = functional_call(self.encoder, params["encoder"], (ids, lengths),
+        encoder = self.encoder if encoder is None else encoder
+        ctx, h, c = functional_call(encoder, params["encoder"], (ids, lengths),
                                     {"token_type_ids": segs, "rng": rng}, strict=True)
         ctx_mask = torch.arange(ids.shape[1], device=self.device)[None, :] >= lengths[:, None]
         return ctx, h, c, ctx_mask
@@ -273,10 +313,8 @@ class ViewpointAgent(DialogAgent):
 
     def __post_init__(self):
         self._resolve_device()
-        self.encoder = OscarEncoder(
-            self.cfg, hidden_size=self.encoder_hidden_size,
-            decoder_hidden_size=self.rnn_dim,
-            dropout_ratio=self.dropout).to(self.device).eval()
+        self._make_encoder(hidden_size=self.encoder_hidden_size,
+                           decoder_hidden_size=self.rnn_dim, dropout_ratio=self.dropout)
         self.decoder = AttnDecoderLSTM(
             angle_feat_size=self.angle_feat_size, embedding_size=self.aemb,
             hidden_size=self.rnn_dim,
@@ -328,15 +366,15 @@ class ViewpointAgent(DialogAgent):
 
     # -- teacher-forced training ------------------------------------------------
     def episode_loss(self, params, batch: dict, rng: DropoutRng | None = None,
-                     count_sum=None):
+                     count_sum=None, encoder=None):
         """Mean teacher-forced loss of a trimmed batch with teacher arrays
         (agent.py:406-412, 469-472): the encoder, then T decoder steps fed
         the teacher's states; each step's masked CE is averaged over its
         active items (n = max(sum(active), 1)), and the loss is the sum of
         the step losses over T.  ``rng`` None: no dropout.  ``count_sum``
         (:meth:`_count_sum`) takes the active counts to the global batch's;
-        None: this batch's."""
-        ctx, h1, c, ctx_mask = self.encode(params, batch, rng)
+        None: this batch's.  ``encoder``: as :meth:`encode`'s."""
+        ctx, h1, c, ctx_mask = self.encode(params, batch, rng, encoder)
         return self.teacher_forced_loss(params, batch, ctx, h1, c, ctx_mask, rng,
                                         count_sum)
 
@@ -592,7 +630,8 @@ class ViewpointAgent(DialogAgent):
                 raise ValueError("eval_loss_fn(use_dropout=True) needs an rng")
             with torch.no_grad():
                 return self.episode_loss(params, self.trim_batch(batch),
-                                         rng if use_dropout else None)
+                                         rng if use_dropout else None,
+                                         **self._eval_kw())
 
         return run
 
@@ -604,7 +643,7 @@ class ViewpointAgent(DialogAgent):
         (rows, views, moved, logits) tensors of shape (B, T) (logits
         (B, T, K+1)) for a trimmed batch."""
         rt = self.runtime
-        ctx, h1, c, ctx_mask = self.encode(params, batch)
+        ctx, h1, c, ctx_mask = self.encode(params, batch, **self._eval_kw())
         b = ctx.shape[0]
         cur_row = self._index(batch["start_rows"])
         view = self._index(batch["start_views"])
@@ -654,7 +693,7 @@ class ViewpointAgent(DialogAgent):
         to visited viewpoints (agent.py:397-402)."""
         rt = self.runtime
         batch = self.trim_batch(batch)
-        ctx, h1, c, ctx_mask = self.encode(params, batch)
+        ctx, h1, c, ctx_mask = self.encode(params, batch, **self._eval_kw())
         b = len(batch["scans"])
         rows = np.asarray(batch["start_rows"], np.int32).copy()
         views = np.asarray(batch["start_views"], np.int32).copy()

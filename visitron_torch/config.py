@@ -105,9 +105,11 @@ class RunConfig:
     # write is durable.  Preemption + final saves are always synchronous.
     async_checkpoints: bool = False
 
-    # hardware.  The device meshes are not ported (ROADMAP item 10): on one
-    # device mesh_dp is 0 or 1, and a task refuses mesh_dp, mesh_tp, mesh_pp,
-    # mesh_sp or mesh_cp above 1.
+    # hardware.  Across the ranks of a process group (torchrun): mesh_dp x
+    # mesh_tp for every training task, mesh_dp x mesh_sp or mesh_dp x
+    # mesh_cp for pretrain (visitron_torch/parallel); pipeline parallelism
+    # (mesh_pp > 1) is not ported (ROADMAP item 10c).  In one process
+    # mesh_dp is 0 or 1 and the other axes 1.
     mesh_dp: int = 0                   # 0 => all devices
     mesh_tp: int = 1
     mesh_pp: int = 1                   # >1: pipeline-parallel pretraining
@@ -267,12 +269,13 @@ class RunConfig:
 
 
 def refuse_unported_hardware(cfg: RunConfig) -> None:
-    """Tensor, pipeline, sequence and context parallelism are not ported
-    (ROADMAP item 10b); data parallelism (``--mesh_dp``, ``--zero1``,
-    ``--fsdp``) is (visitron_torch/parallel)."""
-    flags = [k for k in ("mesh_tp", "mesh_pp", "mesh_sp", "mesh_cp") if getattr(cfg, k) > 1]
-    if flags:
+    """Pipeline parallelism (``--mesh_pp`` > 1) is not ported (ROADMAP item
+    10c, the last bring-up slice); data, tensor, sequence and context
+    parallelism (``--mesh_dp``, ``--mesh_tp``, ``--mesh_sp``, ``--mesh_cp``,
+    ``--zero1``, ``--fsdp``) are (visitron_torch/parallel)."""
+    if cfg.mesh_pp > 1:
         raise NotImplementedError(
-            f"{', '.join('--' + f for f in flags)}: tensor, pipeline, sequence and context "
-            "parallelism are not ported yet (ROADMAP item 10b); the port runs data "
-            "parallelism across processes (--mesh_dp, --zero1, --fsdp)")
+            "--mesh_pp: pipeline parallelism is not ported yet (ROADMAP item 10c, the "
+            "GPipe trainer); the port runs data, tensor, sequence and context "
+            "parallelism across processes (--mesh_dp, --mesh_tp, --mesh_sp, --mesh_cp, "
+            "--zero1, --fsdp)")

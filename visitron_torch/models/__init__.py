@@ -1,5 +1,5 @@
 from visitron_torch.models.bert import (BertConfig, BertTextModel,
-                                        VisitronBert)
+                                        VisitronBert, config_for_mesh)
 from visitron_torch.models.classification import ImageBertForActionPrediction
 from visitron_torch.models.decoder import (AttnDecoderLSTM, AttnDecoderLSTMwithClassifier,
                                            SoftDotAttention, TurnBasedDecoderLSTM)
@@ -11,6 +11,7 @@ from visitron_torch.models.speaker import Critic, SpeakerDecoder, SpeakerEncoder
 
 __all__ = [
     "BertConfig",
+    "config_for_mesh",
     "VisitronBert",
     "BertTextModel",
     "OscarEncoder",

@@ -113,9 +113,10 @@ class DropoutRng:
     hidden-dropout masks on the activations' device; ``seeds`` (a CPU
     generator, so drawing needs no device sync) draws the int32 seeds of the
     attention kernels' hash dropout, plus ``seed_offset``: a rank's fold
-    under a dp mesh (rank x 1000003, as the JAX mesh wrappers fold
-    dp_index), 0 on one device.  Modules take ``rng=None`` for the
-    deterministic (serving) pass."""
+    under a mesh (``parallel.Mesh.kernel_seed`` of 0: dp_index x 1000003 +
+    axis_index x 7919, as the JAX mesh wrappers fold their coordinates; 0
+    under cp, whose ring hashes absolute coordinates), 0 on one device.
+    Modules take ``rng=None`` for the deterministic (serving) pass."""
 
     masks: torch.Generator
     seeds: torch.Generator

@@ -76,9 +76,11 @@ class PretrainModel(nn.Module):
         return self.heads(seq, pooled)
 
     def heads(self, seq, pooled=None) -> dict:
-        """The three pretraining heads over an encoded sequence."""
-        if pooled is None:
-            pooled = self.bert.pooler(seq)
+        """The three pretraining heads over an encoded sequence (this rank's
+        tokens under an sp or cp mesh: the MLM and token logits stay
+        token-sharded, as the JAX package's constraints keep them).
+        ``pooled`` None: the next-action logits are None (a rank of an sp or
+        cp mesh without the [CLS] token)."""
         x = F.gelu(self.mlm_transform(seq), approximate="none")
         x = self.mlm_layer_norm(x)
         logits = self.bert.attend_vocab(x).float() + self.mlm_bias
@@ -89,7 +91,7 @@ class PretrainModel(nn.Module):
             "sequence_output": seq,
             "pooled_output": pooled,
             "mlm_logits": logits,
-            "action_logits": self.next_action(pooled).float(),
+            "action_logits": None if pooled is None else self.next_action(pooled).float(),
             "token_logits": self.token_head(seq).float(),
         }
 
@@ -101,7 +103,9 @@ def pretrain_loss(outputs: dict, labels, next_action=None, token_labels=None,
     ({"mlm", "next", "token"}: label counts of the global batch) makes each
     value this rank's share of the global batch's, to be summed over the
     ranks (visitron_tpu/models/pretrain.py:147 divides by the global
-    count); None divides by this batch's counts."""
+    count); None divides by this batch's counts.  Under an sp or cp mesh
+    ``labels`` and ``token_labels`` are this rank's columns of the joint
+    sequence (the logits' tokens)."""
     counts = counts or {}
     mlm_logits = outputs["mlm_logits"]
     seq_len = mlm_logits.shape[1]
@@ -119,7 +123,12 @@ def pretrain_loss(outputs: dict, labels, next_action=None, token_labels=None,
     out = {"mask_loss": mask_loss,
            "words_accuracy": masked_accuracy(mlm_logits, mlm_labels,
                                              count=counts.get("mlm"))}
-    if next_action is not None:
+    if next_action is not None and outputs["action_logits"] is None:
+        # A rank without the [CLS] token: its share of the next-action terms
+        # is nothing (the rank that holds it counts the rows once).
+        zero = torch.zeros((), device=mask_loss.device)
+        out["next_loss"], out["action_accuracy"] = zero, zero
+    elif next_action is not None:
         next_loss, _ = masked_cross_entropy(outputs["action_logits"], next_action,
                                             count=counts.get("next"))
         loss = loss + next_loss

@@ -52,12 +52,16 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def multi_head_attention(q, k, v, bias=None, dropout_rate: float = 0.0,
-                         generator: torch.Generator | None = None):
+                         generator: torch.Generator | None = None,
+                         head_block: tuple[int, int] | None = None):
     """q: (B, H, Q, D); k/v: (B, H, K, D); bias: broadcastable to (B, H, Q, K).
 
     Softmax in fp32; probabilities cast to v's dtype.  ``dropout_rate`` > 0
     drops probabilities with a Bernoulli draw from ``generator`` (torch
     semantics, scaled by 1/(1 - rate)); it cannot reproduce jax.random's bits.
+    ``head_block`` (h0, heads): q's H heads are heads h0.. of a model's
+    ``heads``; the draw covers all of them and keeps q's, so a rank of a
+    tensor-parallel row drops what one device would.
     """
     depth = q.shape[-1]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -66,8 +70,12 @@ def multi_head_attention(q, k, v, bias=None, dropout_rate: float = 0.0,
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     if dropout_rate > 0.0:
-        keep = torch.rand(probs.shape, generator=generator,
+        shape = probs.shape if head_block is None else (
+            probs.shape[0], head_block[1], *probs.shape[2:])
+        keep = torch.rand(shape, generator=generator,
                           device=probs.device) >= dropout_rate
+        if head_block is not None:
+            keep = keep[:, head_block[0]:head_block[0] + probs.shape[1]]
         probs = probs * keep.to(v.dtype) / (1.0 - dropout_rate)
     return torch.matmul(probs.float(), v.float()).to(v.dtype)
 

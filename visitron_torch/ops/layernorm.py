@@ -10,6 +10,12 @@ y = (h - mu) * rsqrt(var + eps) * gamma + beta, output in x's dtype.  The
 backward saves x, the residual and gamma, not h: it recomputes h and the row
 statistics in fp32, and returns dh for both x and the residual.
 
+Under a mesh (visitron_tpu/ops/layernorm.py:fused_add_layernorm_mesh) a
+rank's K2f and K2b run on its local rows: its dp rows, and its tokens under
+sp or cp.  The dgamma / dbeta partials are then summed with the other
+gradients over every axis that shards the rows (``parallel.DataParallel``:
+dp, and sp or cp), never over tp, whose ranks hold the same rows.
+
 ``fused_add_layernorm`` takes the plain twins only for tensors on the CPU.
 For a CUDA tensor it launches the kernels or raises; there is no fallback.
 The twins compute in fp32, or in fp64 for fp64 inputs (gradcheck).

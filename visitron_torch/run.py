@@ -22,15 +22,18 @@ after it override its values (only those present on the command line, so
 a flag set to its default still wins).  ``--debug`` runs in a synthetic
 world.
 
-Data parallelism: launched as ``python -m torch.distributed.run
+Parallelism: launched as ``python -m torch.distributed.run
 --nproc_per_node N -m visitron_torch.run <task> ...`` the training tasks
 (viewpoint, turn_based, classifier, pretrain) run one rank a process over
-NCCL, each on ``cuda:LOCAL_RANK`` (gloo on the CPU when ``device="cpu"``);
-``--mesh_dp`` 0 or the world size, ``--zero1`` (pretrain, viewpoint) and
-``--fsdp`` (pretrain) shard the optimizer state or the whole training
-state; rank 0 writes the files and runs validation.  The other tasks run in
-one process.  Tensor, pipeline, sequence and context parallelism
-(``--mesh_tp|pp|sp|cp``, ROADMAP item 10b) are not ported and raise.
+NCCL, each on ``cuda:LOCAL_RANK`` (gloo on the CPU when ``device="cpu"``),
+on a (dp, X) mesh of N ranks: ``--mesh_tp X`` (tensor parallelism, every
+training task), ``--mesh_sp X`` (Ulysses sequence parallelism) or
+``--mesh_cp X`` (ring-attention context parallelism), pretrain only, with
+``--mesh_dp`` 0 or N / X; ``--zero1`` (pretrain, viewpoint) and ``--fsdp``
+(pretrain) shard the optimizer state or the whole training state over dp;
+rank 0 writes the files and runs validation, on the single-device layout.
+The other tasks run in one process.  Pipeline parallelism (``--mesh_pp``,
+ROADMAP item 10c) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -381,6 +384,14 @@ def main(argv=None, device=None):
         print(f"warning: config-file zero1=true is ignored by task {task!r}",
               file=sys.stderr)
         cfg = dataclasses.replace(cfg, zero1=False)
+    for axis in ("mesh_sp", "mesh_cp"):
+        if getattr(cfg, axis) > 1 and task != "pretrain":
+            if axis in explicit:
+                raise SystemExit(f"--{axis} applies to the pretrain task; use --mesh_tp "
+                                 "for the fine-tune loops")
+            print(f"warning: config-file {axis}={getattr(cfg, axis)} is ignored by task "
+                  f"{task!r}", file=sys.stderr)
+            cfg = dataclasses.replace(cfg, **{axis: 1})
     refuse_unported_hardware(cfg)
     joined = not dist.is_initialized() and parallel.launched_by_torchrun()
     if joined:

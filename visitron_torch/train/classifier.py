@@ -76,27 +76,27 @@ class ClassifierTrainer:
         weights from the latest checkpoint of the navigation run at
         ``--model_name_or_path`` (train_classifier.py:129), and the
         optimizer state rebuilt over them."""
-        state = self.agent.init_state()
+        params = self.agent.init_params()
         nav_dir = self.cfg.model_name_or_path
-        if not nav_dir:
-            return state
-        if not os.path.isdir(nav_dir):
+        latest = None
+        if nav_dir and not os.path.isdir(nav_dir):
             self.logger.warning("nav checkpoint dir %s not found; classifier starts from "
                                 "scratch", nav_dir)
-            return state
-        nav_ckpt = CheckpointManager(nav_dir)
-        latest = nav_ckpt.latest()
-        if latest is None:
-            self.logger.warning("no checkpoint-* under %s; starting from scratch", nav_dir)
-            return state
-        nav_params = nav_ckpt.restore_raw(latest)
-        params = dict(state["params"])
-        params["encoder"] = place_like(nav_params["encoder"], params["encoder"], "encoder")
-        params = self.agent.load_nav_decoder(params, nav_params["decoder"])
-        if self.mesh is not None:  # every rank starts from rank 0's weights
-            params = replicate_state(self.mesh, params)
-        self.logger.info("initialized from nav checkpoint-%d at %s", latest, nav_dir)
-        return {**state, "params": params, "opt_state": self.agent.optimizer.init(params)}
+        elif nav_dir:
+            latest = CheckpointManager(nav_dir).latest()
+            if latest is None:
+                self.logger.warning("no checkpoint-* under %s; starting from scratch",
+                                    nav_dir)
+        if latest is not None:
+            nav_params = CheckpointManager(nav_dir).restore_raw(latest)
+            params = dict(params)
+            params["encoder"] = place_like(nav_params["encoder"], params["encoder"],
+                                           "encoder")
+            params = self.agent.load_nav_decoder(params, nav_params["decoder"])
+            if self.mesh is not None:  # every rank starts from rank 0's weights
+                params = replicate_state(self.mesh, params)
+            self.logger.info("initialized from nav checkpoint-%d at %s", latest, nav_dir)
+        return self.agent.init_state(params=params)
 
     def train(self, state=None, resume: bool = False) -> dict:
         """Epochs of shuffled full batches until ``num_iterations``, from

@@ -20,13 +20,15 @@ submission of a split from the latest checkpoint.
 (``run augment``) to the train split.  Everything runs on the trainer's
 device (``device=None``: the card), the workspace's.
 
-In a process group (``python -m torch.distributed.run``) the trainer is
-data-parallel over its ranks (``parallel.maybe_mesh(--mesh_dp)``): each rank
-draws its per-host batch of the global ``train_batch_size(world)`` from its
-strided shard of the instances (``NavEpisodeBatcher(host_id, num_hosts)``),
-``--zero1`` shards the optimizer state, rank 0 writes the checkpoints, the
-logs and the CSV, and validation and submission run on rank 0 alone, the
-mesh-free evaluation path.
+In a process group (``python -m torch.distributed.run``) the trainer runs
+over a (dp, tp) mesh of its ranks (``parallel.maybe_mesh(--mesh_dp,
+--mesh_tp)``): each dp row draws its per-host batch of the global
+``train_batch_size(dp)`` from its strided shard of the instances
+(``NavEpisodeBatcher(host_id, num_hosts)``), ``--mesh_tp`` splits the
+encoder's BERT layers over the ranks of a row, ``--zero1`` shards the
+optimizer state over dp, rank 0 writes the checkpoints (the single-device
+layout), the logs and the CSV, and validation and submission run on rank 0
+alone, the mesh-free evaluation path.
 """
 
 from __future__ import annotations
@@ -156,7 +158,7 @@ class ViewpointTrainer:
 
     def train(self, state=None, resume: bool = False, profile_steps: int = 0) -> dict:
         """Train loop.  ``state`` (default: the agent's ``init_state``, then
-        ``_maybe_load_pretrained``) is where training starts; ``resume``
+        ``_pretrained_params``) is where training starts; ``resume``
         restores the latest checkpoint's params and optimizer state and
         replays the batch schedule to it; ``profile_steps`` writes a
         torch.profiler trace of that many steps, from the second on, into
@@ -169,8 +171,10 @@ class ViewpointTrainer:
         batcher = self._batcher(instances, batch_size, self.mesh)
         rl = cfg.feedback_method == "rl"
         if state is None:
-            state = self.agent.init_state(with_critic=rl)
-            state = self._maybe_load_pretrained(state)
+            # Pretrained weights go into the full parameters, which the
+            # state then places (a tp rank keeps its blocks).
+            params = self._pretrained_params(self.agent.init_params(with_critic=rl))
+            state = self.agent.init_state(with_critic=rl, params=params)
         start_it = 0
         if resume:
             state, start_it = restore_latest(self.ckpt, state, self.logger, self.dp)
@@ -190,18 +194,20 @@ class ViewpointTrainer:
                                          profile_steps=profile_steps)
         return state
 
-    def _maybe_load_pretrained(self, state: dict) -> dict:
-        """Initialise the dialog encoder's BERT from a pretraining checkpoint
-        of the port or from Oscar / HuggingFace ``pytorch_model.bin`` weights
-        (train.py:40 + --no_pretrained_model parity, params.py:61-66)."""
+    def _pretrained_params(self, params: dict) -> dict:
+        """Full (single-device layout) ``params`` with the dialog encoder's
+        BERT from a pretraining checkpoint of the port or from Oscar /
+        HuggingFace ``pytorch_model.bin`` weights (train.py:40 +
+        --no_pretrained_model parity, params.py:61-66); ``params`` itself
+        where there are none."""
         cfg = self.cfg
         if cfg.no_pretrained_model or not cfg.model_name_or_path:
-            return state
+            return params
         if not os.path.exists(cfg.model_name_or_path):
             self.logger.warning("model_name_or_path %s not found; training from scratch",
                                 cfg.model_name_or_path)
-            return state
-        params = dict(state["params"])
+            return params
+        params = dict(params)
         if is_pretrain_checkpoint(cfg.model_name_or_path):
             # The ablation chain: pretraining (run.py pretrain) -> nav
             # fine-tune, the reference's checkpoint-30000 hand-off.
@@ -214,7 +220,7 @@ class ViewpointTrainer:
             self.logger.info("loaded Oscar/BERT weights from %s", cfg.model_name_or_path)
         if self.mesh is not None:  # every rank starts from rank 0's weights
             params = replicate_state(self.mesh, params)
-        return {**state, "params": params}
+        return params
 
     def _checkpoint_params(self, step: int) -> dict:
         """A checkpoint's params as saved (an RL checkpoint's critic

@@ -79,17 +79,16 @@ def global_norm(leaves: list) -> torch.Tensor:
 
 def clip_by_global_norm(max_norm: float, norm: Callable | None = None
                         ) -> GradientTransformation:
-    """``norm``: the global norm of the gradient leaves (default
-    :func:`global_norm`; a data-parallel step whose leaves are shards
-    passes ``DataParallel.global_norm``, the norm over every rank's)."""
-    norm = global_norm if norm is None else norm
+    """``norm``: the global norm of a gradient tree (default
+    :func:`global_norm` of its leaves; a step under a mesh whose leaves are
+    blocks passes ``DataParallel.global_norm``, the norm over every rank's)."""
 
     def init(params):
         return {}
 
     def update(grads, state, params=None):
         leaves = tree_leaves(grads)
-        g_norm = norm(leaves)
+        g_norm = global_norm(leaves) if norm is None else norm(grads)
         # g when ||g|| < max_norm (times exactly 1), else g * (max / ||g||).
         factor = torch.where(g_norm < max_norm, 1.0, max_norm / g_norm)
         return tree_unflatten(grads, torch._foreach_mul(leaves, factor)), state

@@ -13,13 +13,21 @@ with ``torch.func.functional_call``; :meth:`PretrainTrainer.init_state`
 draws it from a seed, or ``visitron_torch.convert.convert_pretrain_params``
 carries the JAX package's across.
 
-Under a dp ``mesh`` (``parallel.make_mesh``) each rank feeds its rows of
-the global batch: the loss divides by the counts of the global batch (one
-all-reduce of the three label counts), the gradients and the logged bundle
-are summed over the ranks in flat buckets, the attention kernels' dropout
-seed is folded by the rank and the hidden-dropout generator seeded per
-rank.  ``zero1`` shards the optimizer state, ``fsdp`` the parameters,
-gradients and optimizer state over the ranks (``parallel.DataParallel``).
+Under a ``mesh`` (``parallel.make_mesh``, ``make_sp_mesh``,
+``make_cp_mesh``) each rank feeds the rows of its dp index of the global
+batch: the loss divides by the counts of the global batch (one all-reduce
+of the three label counts), the gradients and the logged bundle are summed
+over the ranks that shard the data in flat buckets, the attention kernels'
+dropout seed is folded by the mesh coordinates and the hidden-dropout
+generator seeded per dp index (and per token block under sp and cp).  The
+config goes through ``config_for_mesh``: under tp each rank holds its
+blocks of the four split kernels of every layer (the model's
+``ParallelDense``), under sp and cp its block of the joint sequence, whose
+labels it takes (the MLM and token losses on its tokens; the next-action
+loss on the rank that holds [CLS]).  ``zero1`` shards the optimizer state,
+``fsdp`` the parameters, gradients and optimizer state over dp
+(``parallel.DataParallel``).  Initial parameters, checkpoints and
+evaluation use the single-device layout and model (``eval_model``).
 
 :func:`pretrain_loop` is ``run pretrain``'s epoch loop
 (visitron_tpu/run.py:97-323) through ``train/loop.py``: the examples of
@@ -47,11 +55,12 @@ from visitron_torch._device import resolve_device
 from visitron_torch.config import refuse_unported_hardware
 from visitron_torch.data.features import RegionFeatureStore
 from visitron_torch.data.pretrain_dataset import PretrainDataset
-from visitron_torch.models.bert import BertConfig
+from visitron_torch.models.bert import BertConfig, config_for_mesh
 from visitron_torch.models.layers import DropoutRng, init_module_params
 from visitron_torch.models.pretrain import PretrainModel, pretrain_loss
 from visitron_torch.parallel.mesh import (DataParallel, host_shard_info, is_primary,
-                                          jax_axis_orders, maybe_mesh)
+                                          jax_axis_orders, make_cp_mesh, make_sp_mesh,
+                                          maybe_mesh, shard_params_rules, token_range)
 from visitron_torch.pipelines.pretrain_datagen import generate_pretrain_examples
 from visitron_torch.train.checkpoint import CheckpointManager
 from visitron_torch.train.logging import MetricsLogger, check_finite, setup_logger
@@ -89,7 +98,16 @@ class PretrainTrainer:
         # nothing (the JAX trainer's one-device mesh shards nothing either).
         self.dp = (None if self.mesh is None else
                    DataParallel(self.mesh, zero1=self.zero1, fsdp=self.fsdp))
+        self.cfg = config_for_mesh(self.cfg, self.mesh)
         self.model = PretrainModel(self.cfg).to(self.device)
+        # The single-device model: initial parameters and evaluation.  Its
+        # own parameters are never read (functional_call), so it holds none.
+        plain = self.cfg.without_mesh()
+        if plain == self.cfg:
+            self.eval_model = self.model
+        else:
+            with torch.device("meta"):
+                self.eval_model = PretrainModel(plain)
         self.optimizer = adamw_with_warmup(
             self.learning_rate, self.warmup_steps, self.total_steps, self.schedule,
             self.weight_decay, self.adam_epsilon, self.max_grad_norm,
@@ -102,25 +120,30 @@ class PretrainTrainer:
         device for a seed): normal(0.02) for BERT's Denses and embeddings,
         ones / zeros for the LayerNorms, zero biases."""
         g = torch.Generator().manual_seed(self.seed if seed is None else seed)
-        return init_module_params(self.model, g, self.device)
+        return init_module_params(self.eval_model, g, self.device)
 
     def init_state(self, params: dict | None = None) -> dict:
         """Training state: ``params`` (default :meth:`init_params` at the
         trainer's seed; full tensors, the same on every rank), ``opt_state``
         and ``rng``, the dropout generators (masks on the device, kernel
         seeds on the CPU, seeded with seed + 1; under a mesh the masks'
-        seed and the kernel seeds are folded by the rank).  The shapes come from the config (the
-        JAX trainer traces its model on a sample batch instead).  Under
-        ``zero1`` / ``fsdp`` the state holds this rank's shards."""
+        seed is folded by the dp index, and by the token block under sp
+        and cp, the kernel seeds by the mesh coordinates,
+        ``Mesh.kernel_seed``).  The shapes come from the config (the JAX
+        trainer traces its model on a sample batch instead).  Under tp the state
+        holds this rank's blocks of the split kernels, under ``zero1`` /
+        ``fsdp`` its dp shards."""
         if params is None:
             params = self.init_params()
         fold = 0 if self.mesh is None else self.mesh.fold_seed(0)
         rng = DropoutRng(
             masks=torch.Generator(device=self.device).manual_seed(self.seed + 1 + fold),
-            seeds=torch.Generator().manual_seed(self.seed + 1), seed_offset=fold)
+            seeds=torch.Generator().manual_seed(self.seed + 1),
+            seed_offset=0 if self.mesh is None else self.mesh.kernel_seed(0))
         if self.dp is None:
             return {"params": params, "opt_state": self.optimizer.init(params), "rng": rng}
-        self.dp.plan(params, jax_axis_orders(self.model))
+        self.dp.plan(params, jax_axis_orders(self.eval_model),
+                     shard_params_rules(self.model))
         params, opt_state = self.dp.place(params, self.optimizer)
         return {"params": params, "opt_state": opt_state, "rng": rng}
 
@@ -135,29 +158,47 @@ class PretrainTrainer:
             out[key] = torch.as_tensor(a).to(device=self.device, dtype=dtype)
         return out
 
+    def rank_labels(self, batch: dict) -> tuple:
+        """(labels, token_labels, whether this rank counts the next-action
+        labels) of a device batch: the columns of this rank's tokens of the
+        joint sequence under an sp or cp mesh (the next-action rows are
+        counted by the rank that holds [CLS]), the first S columns
+        otherwise."""
+        s = batch["input_ids"].shape[1] + batch["img_feats"].shape[1]
+        mesh = self.cfg.token_mesh
+        lo, hi = token_range(mesh, s)
+        first = mesh is None or mesh.axis_index == 0
+        return batch["labels"][:, :s][:, lo:hi], batch["token_labels"][:, :s][:, lo:hi], first
+
     def global_counts(self, batch: dict) -> dict:
         """The label counts of the global batch that the losses divide by:
-        this rank's, summed over the ranks in one all-reduce."""
-        s = batch["input_ids"].shape[1] + batch["img_feats"].shape[1]
-        local = torch.stack([torch.sum(batch["labels"][:, :s] != -1),
-                             torch.sum(batch["next_action"] != -1),
-                             torch.sum(batch["token_labels"][:, :s] != -1)])
+        this rank's, summed over the ranks that shard the data in one
+        all-reduce."""
+        labels, token_labels, first = self.rank_labels(batch)
+        nxt = torch.sum(batch["next_action"] != -1)
+        local = torch.stack([torch.sum(labels != -1), nxt if first else torch.zeros_like(nxt),
+                             torch.sum(token_labels != -1)])
         return dict(zip(("mlm", "next", "token"), self.dp.global_count(local)))
 
     def loss_bundle(self, params, batch: dict, rng: DropoutRng | None,
-                    counts: dict | None = None) -> dict:
+                    counts: dict | None = None, model=None) -> dict:
         """``pretrain_loss`` of a device batch; ``rng`` None is
         deterministic; ``counts``: the global label counts (None: the
-        batch's own)."""
+        batch's own); ``model``: the module to apply (default the
+        training model)."""
+        model = self.model if model is None else model
         out = functional_call(
-            self.model, params, (batch["input_ids"],),
+            model, params, (batch["input_ids"],),
             {"token_type_ids": batch["token_type_ids"],
              "attention_mask": batch["attention_mask"],
              "img_feats": batch["img_feats"],
              "img_location_embeddings": batch["img_location_embeddings"],
              "rng": rng}, strict=True)
-        return pretrain_loss(out, batch["labels"], batch["next_action"],
-                             batch["token_labels"], cfg=self.cfg, counts=counts)
+        labels, token_labels = batch["labels"], batch["token_labels"]
+        if model is self.model:
+            labels, token_labels, _ = self.rank_labels(batch)
+        return pretrain_loss(out, labels, batch["next_action"], token_labels,
+                             cfg=self.cfg, counts=counts)
 
     def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None,
                        counts: dict | None = None):
@@ -202,12 +243,14 @@ class PretrainTrainer:
         return run
 
     def eval_fn(self):
-        """``run(params, host batch) -> bundle``, deterministic, no gradient
-        (full parameters; the batch's own counts)."""
+        """``run(params, host batch) -> bundle``, deterministic, no gradient,
+        on the single-device model (full parameters in the single-device
+        layout; the batch's own counts)."""
 
         def run(params, host_batch):
             with torch.no_grad():
-                return self.loss_bundle(params, self.to_device(host_batch), None)
+                return self.loss_bundle(params, self.to_device(host_batch), None,
+                                        model=self.eval_model)
 
         return run
 
@@ -265,13 +308,31 @@ def _fetch(bundle: dict) -> dict:
     return dict(zip(names, torch.stack([bundle[k].float() for k in names]).tolist()))
 
 
+def pretrain_mesh(cfg, device=None):
+    """The pretraining mesh of the run's flags, as visitron_tpu/run.py:
+    172-200 selects it: (dp, sp) with ``--mesh_sp`` > 1, (dp, cp) with
+    ``--mesh_cp`` > 1, else (dp, tp) (``parallel.maybe_mesh``: None without
+    a process group)."""
+    for axis, make in (("sp", make_sp_mesh), ("cp", make_cp_mesh)):
+        size = getattr(cfg, f"mesh_{axis}")
+        if size > 1:
+            if not torch.distributed.is_initialized():
+                n = max(cfg.mesh_dp, 1) * size
+                raise ValueError(f"--mesh_{axis} {size} needs {n} ranks: launch with "
+                                 f"python -m torch.distributed.run --nproc_per_node {n}")
+            return make(cfg.mesh_dp or None, size, device)
+    return maybe_mesh(cfg.mesh_dp, cfg.mesh_tp, device)
+
+
 def pretrain_loop(cfg, ws, device=None) -> dict:
     """``run pretrain`` over the workspace ``ws`` on ``device`` (None: the
-    card), data-parallel over the ranks of the process group if there is
-    one (``--mesh_dp``, ``--zero1``, ``--fsdp``); returns the final
-    training state (this rank's shards under ``--zero1`` / ``--fsdp``)."""
+    card), over the ranks of the process group if there is one
+    (:func:`pretrain_mesh`: ``--mesh_dp``, ``--mesh_tp``, ``--mesh_sp``,
+    ``--mesh_cp``; ``--zero1``, ``--fsdp``); returns the final training
+    state (this rank's blocks and shards under tp, ``--zero1`` /
+    ``--fsdp``)."""
     refuse_unported_hardware(cfg)
-    mesh = maybe_mesh(cfg.mesh_dp, cfg.mesh_tp, device)
+    mesh = pretrain_mesh(cfg, device)
     device = resolve_device(mesh.device if mesh is not None and device is None else device)
     primary = is_primary(mesh)
     logger = setup_logger(output_dir=cfg.output_dir, is_main_process=primary)
@@ -372,7 +433,8 @@ def pretrain_loop(cfg, ws, device=None) -> dict:
         # Per-epoch, per-dataset validation on rank 0, the mesh-free eval
         # path over the whole split, logged as {ds}_{split}/...
         # (pretrain.py:301-579); RxR has no val split.
-        params = trainer.dp.full_params(state["params"]) if trainer.dp else state["params"]
+        params = (trainer.dp.single_device_params(state["params"]) if trainer.dp
+                  else state["params"])
         if not primary:
             return
         for ds_name, flag in (("ndh", cfg.add_ndh_data), ("r2r", cfg.add_r2r_data),
