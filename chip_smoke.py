@@ -290,7 +290,31 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               visitron_torch.run pretrain --debug --mesh_sp 1`` (one
               epoch at batch 8) and ``viewpoint --debug --mesh_tp 1`` (2
               iterations): checkpoints, finite losses, seconds with
-              start-up.
+              start-up;
+ 39. pipeline two ranks: ``--pp-phase two`` with 2 processes, NCCL on two
+              cards, else gloo with CUDA tensors on cuda:0, whose stage
+              transfers go through the host (``parallel.p2p_host_staged``,
+              counted): BERT-base at S 768, batch 16, pp 2 (6 layers a
+              stage), M 8 (microbatches of 2).  Two fp32 steps with the
+              dropouts at 0 against rank 0's one-process ``PretrainTrainer``
+              steps (phase 35's bounds), then bf16 steps with the dropouts
+              on (finite losses), timed (ms a step, each rank's host time in
+              receives, the bytes staged, peak memory, a profiled step),
+              each rank's launches a step checked: K4f/K4b 6 x 8, K2f/K2b
+              2 x 6 x 8 + 1 (rank 0's embedding LayerNorm, the last rank's
+              MLM LayerNorm), K3f/K3b 1 on the last rank only;
+ 40. pipeline CLI: ``run pretrain --debug --mesh_pp 2`` (one epoch, then
+              ``--num_epochs 2 --resume``) on two ranks: with two or more
+              cards ``torch.distributed.run --nproc_per_node 2 -m
+              visitron_torch.run`` (NCCL, a card a rank), else
+              ``--pp-phase cli`` under torchrun, whose ranks join gloo on
+              cuda:0 and call ``run.main`` (stage transfers staged through
+              the host; each rank's launches counted in each run).
+              Checkpoints at epochs 1 and 2, the parameters in the
+              single-device layout (a one-process ``PretrainTrainer``
+              loads them), the optimizer state in the pipeline's
+              ``{"rest", "stages"}`` layout, the resume logged, every
+              rank's validation logged, finite losses.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
@@ -300,8 +324,9 @@ phases 11, 16 and 17 (``path_launches``), and for every kernel its launches
 per iteration of phase 22's viewpoint and pretrain runs and of phases
 23-25's, 28's, 29's and 32's runs (``cli_launches``), in phases 29-31's
 paths (``option_and_feature_launches``), its launches a step in phase 33's
-data-parallel runs (``dp_launches``) and in phase 37's arms
-(``mp_launches``), and the count of device times that no
+data-parallel runs (``dp_launches``), in phase 37's arms
+(``mp_launches``) and on each rank of phase 39's pipeline
+(``pp_launches``), and the count of device times that no
 torch.profiler session gave (``device_times_unmeasured``; such a time is
 null, and the run fails where K1f, K2f, K1b or K2b has none); the last line
 is ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
@@ -362,6 +387,7 @@ from visitron_torch.ops.crossentropy import (fused_masked_softmax_ce,
                                              masked_softmax_ce_reference)
 from visitron_torch.ops.layernorm import (fused_add_layernorm, fused_add_layernorm_bwd,
                                           layernorm_bwd_reference, layernorm_reference)
+from visitron_torch.parallel.pipeline import PipelinePretrainTrainer
 from visitron_torch.train import PretrainTrainer
 from visitron_torch.train.optim import apply_updates, tree_leaves
 from visitron_torch.testing import SyntheticWorld
@@ -3660,7 +3686,7 @@ DP_TIMEOUT_S = 420
 
 
 def run_dp_child(phase: str, nproc: int, tmp: str, flag: str = "--dp-phase") -> dict:
-    """Run ``phase`` (of ``flag``: ``--dp-phase`` or ``--mp-phase``) in
+    """Run ``phase`` (of ``flag``: ``--dp-phase``, ``--mp-phase`` or ``--pp-phase``) in
     ``nproc`` ranks; relay their output; rank 0's result."""
     out = os.path.join(tmp, f"{flag[2:4]}_{phase}.json")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -3823,6 +3849,8 @@ def dp_timed(name: str, make_state, step, batches, n_warm: int) -> dict:
     n = len(ms)
     launches = {k: v // n for k, v in read_counts().items()}
     coll = {k: v / n for k, v in parallel.collective_counts().items()}
+    staged = parallel.p2p_host_staged.nbytes / n
+    recv_ms = (parallel.recv_prev.seconds + parallel.recv_next.seconds) / n * 1e3
     peak = None if REHEARSAL else torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)):
         fail(f"{name}: non-finite losses {losses}")
@@ -3835,7 +3863,8 @@ def dp_timed(name: str, make_state, step, batches, n_warm: int) -> dict:
     del state
     release()
     return {"ms_per_step": med, "range": [min(ms), max(ms)], "peak_bytes": peak,
-            "launches": launches, "collectives": coll, **prof}
+            "launches": launches, "collectives": coll, "staged_bytes": staged,
+            "recv_ms": recv_ms, **prof}
 
 
 def dp_world1(sz: dict) -> dict:
@@ -4018,8 +4047,9 @@ def dp_two(sz: dict) -> dict:
 
 
 def dp_child_main(args) -> int:
-    """A rank of a dp phase (``--dp-phase``) or of the mesh phase
-    (``--mp-phase``); rank 0 writes the result."""
+    """A rank of a dp phase (``--dp-phase``), of the mesh phase
+    (``--mp-phase``) or of the pipeline phase (``--pp-phase``); rank 0
+    writes the result."""
     global REHEARSAL
     REHEARSAL = args.cpu_rehearsal
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4027,6 +4057,10 @@ def dp_child_main(args) -> int:
     try:
         if args.mp_phase:
             out = {"two": mp_two}[args.mp_phase](phase_sizes())
+        elif args.pp_phase == "cli":
+            out = pp_cli(os.path.dirname(args.dp_result))
+        elif args.pp_phase:
+            out = {"two": pp_two}[args.pp_phase](phase_sizes())
         else:
             out = {"world1": dp_world1, "two": dp_two}[args.dp_phase](phase_sizes())
         if dist.get_rank() == 0:
@@ -4461,7 +4495,217 @@ def phase_mp(tmp: str) -> dict:
     return {"two": two, "cli": cli}
 
 
-def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp, mp) -> dict:
+# -- phase 39: pipeline parallelism -----------------------------------------------------------
+
+def pp_pretrain_run(sizes, device, mesh, batches, microbatches: int):
+    """(loss of the last step, flat params in the single-device layout)
+    after ``len(batches)`` fp32 GPipe steps with the dropouts at 0, as
+    ``dp_pretrain_run``'s (every rank takes part in the gather)."""
+    cfg = pretrain_config(sizes, torch.float32, hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    trainer = PipelinePretrainTrainer(cfg, mesh, num_microbatches=microbatches,
+                                      learning_rate=5e-5, total_steps=100, device=device)
+    state = trainer.init_state()
+    step = trainer.step_fn()
+    for batch in batches:
+        state, bundle = step(state, parallel.shard_batch(mesh, batch))
+    out = (bundle["loss"].detach().cpu(), flat_params(trainer.checkpoint_params(state)))
+    del trainer, state
+    release()
+    return out
+
+
+def pp_two(sz: dict) -> dict:
+    """39. Two ranks on the card(s), a (dp 1, pp 2) pipeline: NCCL on two
+    cards, else gloo with CUDA tensors on cuda:0 (the stage transfers
+    staged through the host).  The fp32 steps against rank 0's one-process
+    steps, then the bf16 steps with the dropouts on, timed, with each
+    rank's launches a step."""
+    two_cards = not REHEARSAL and torch.cuda.device_count() >= 2
+    shared = not REHEARSAL and not two_cards
+    device = parallel.init_process_group(
+        "cpu" if REHEARSAL else ("cuda:0" if shared else None),
+        backend=None if two_cards else "gloo")
+    mesh = parallel.make_pp_mesh(None, 2, device=device)
+    rank, backend = dist.get_rank(), dist.get_backend()
+    pre, micro = sz["pre"], sz["pp"]["microbatches"]
+    layers = pretrain_config(pre, torch.float32).num_hidden_layers
+    say(f"pipeline two ranks: rank {rank} (stage {mesh.axis_index}), backend {backend}, "
+        f"device {device}" + (" (both ranks on one card; stage transfers staged through "
+                              "the host)" if shared else ""))
+    rng = np.random.default_rng(SEED + 39)
+    batches = [pretrain_batch(rng, pre, pre["vocab"], 2054, 1601) for _ in range(2)]
+    want = dp_pretrain_run(pre, device, None, "dp", batches) if rank == 0 else None
+    parallel.reset_collective_counts()
+    got = pp_pretrain_run(pre, device, mesh, batches, micro)
+    coll = parallel.collective_counts()
+    what = (f"fp32, batch {pre['batch']}, S {pre['text'] + pre['img']}, {layers // 2} layers "
+            f"a stage, M {micro}, 2 steps")
+    out = {"backend": backend, "shared_card": shared, "microbatches": micro}
+    if rank == 0:
+        out["fp32"] = dp_update_check(f"two ranks, pp 2 ({what})", want, got, 5e-5)
+        out["fp32"]["collectives"] = coll
+        say(f"    collectives in the 2 steps {', '.join(f'{k} {v}' for k, v in coll.items() if v)}")
+    del want, got
+    release()
+    # bf16, the dropouts on (hidden 0.1, attention 0.1: K4b with its masks).
+    cfg = pretrain_config(pre, torch.bfloat16)
+    trainer = PipelinePretrainTrainer(cfg, mesh, num_microbatches=micro, learning_rate=5e-5,
+                                      total_steps=100, device=device)
+    n_warm, n_timed = 2, sz["pp"]["steps"]
+    timed = [pretrain_batch(rng, pre, pre["vocab"], 2054, 1601)
+             for _ in range(n_warm + n_timed)]
+    step = trainer.step_fn()
+    run = dp_timed(f"pp 2 rank {rank} (bf16, dropouts on, M {micro})", trainer.init_state,
+                   step, timed, n_warm)
+    run["recv_share"] = run["recv_ms"] / run["ms_per_step"]
+    say(f"    rank {rank}: host time in receives {run['recv_ms']:.2f} ms a step "
+        f"({run['recv_share']:.1%} of the step; the schedule's bubble is "
+        f"{1 / (micro + 1):.1%}), staged {run['staged_bytes'] / 2**20:.2f} MiB a step")
+    ranks = parallel.all_gather_object(run, mesh)
+    out["launches"] = {"first": ranks[0]["launches"], "last": ranks[-1]["launches"]}
+    out["ranks"] = ranks
+    return out
+
+
+def phase_pp(tmp: str) -> dict:
+    """Phase 39: the two-rank pipeline, each rank's launches a step against
+    the schedule's."""
+    release()
+    two = run_dp_child("two", 2, tmp, flag="--pp-phase")
+    micro = two["microbatches"]
+    stage = pretrain_config(phase_sizes()["pre"], torch.float32).num_hidden_layers // 2
+    body = {"K4f": stage * micro, "K4b": stage * micro, "K2f": 2 * stage * micro + 1,
+            "K2b": 2 * stage * micro + 1}
+    want = {"first": body, "last": {**body, "K3f": 1, "K3b": 1}}
+    for rank, which in enumerate(("first", "last")):
+        expect = {k: want[which].get(k, 0) for k in COUNTED}
+        got = two["launches"][which]
+        say(f"pipeline rank {rank} ({which} stage): launches a step "
+            f"{', '.join(f'{k} {v}' for k, v in got.items() if v)}; expected "
+            f"{', '.join(f'{k} {v}' for k, v in expect.items() if v)}")
+        if not REHEARSAL and got != expect:
+            fail(f"pipeline {which} stage: launches a step {got}, expected {expect}")
+    two["cli"] = phase_pp_cli(tmp)
+    return two
+
+
+def pp_cli_argvs(out_dir: str) -> list:
+    """Phase 40's two command lines: one epoch, then a second resumed."""
+    argv = ["pretrain", "--config", "run_configs/pretrain/pretrain_ndh_r2r.json", "--debug",
+            "--mesh_pp", "2", "--logging_steps", "5", "--output_dir", out_dir,
+            *(REHEARSAL_SEQ if REHEARSAL else [])]
+    return [argv + ["--num_epochs", "1"], argv + ["--num_epochs", "2", "--resume"]]
+
+
+def pp_cli(tmp: str) -> dict:
+    """40 (one card, or a rehearsal on the CPU): a rank of the pipeline CLI.
+    The ranks join gloo on cuda:0 (both on one card; NCCL refuses that) and
+    call ``run.main`` with each command line, which then runs in their
+    group; each rank's launches in each run."""
+    from visitron_torch import run
+
+    device = parallel.init_process_group("cpu" if REHEARSAL else "cuda:0", backend="gloo")
+    launches = []
+    with cli_bert():
+        for argv in pp_cli_argvs(os.path.join(tmp, "pp_cli")):
+            zero_counts()
+            run.main(argv, device=device)
+            sync()
+            launches.append(read_counts())
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, launches)
+    return {"launches": {"first": ranks[0], "last": ranks[-1]}}
+
+
+def phase_pp_cli(tmp: str) -> dict:
+    """40. ``run pretrain --debug --mesh_pp 2`` and its ``--resume`` on two
+    ranks: the torchrun CLI over NCCL with two cards, else ``--pp-phase
+    cli`` (gloo on one card); the checkpoints' layouts, the resume, the
+    validation and the losses checked."""
+    from visitron_torch.train.checkpoint import CheckpointManager
+
+    two_cards = not REHEARSAL and torch.cuda.device_count() >= 2
+    out_dir = os.path.join(tmp, "pp_cli")
+    t0 = time.perf_counter()
+    if two_cards:
+        arm, launches = "torchrun -m visitron_torch.run, NCCL, two cards", None
+        for argv in pp_cli_argvs(out_dir):
+            proc = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                                   "--standalone", "--nproc_per_node", "2", "-m",
+                                   "visitron_torch.run", *argv], capture_output=True,
+                                  text=True, timeout=DP_TIMEOUT_S,
+                                  cwd=os.path.dirname(os.path.abspath(__file__)))
+            if proc.returncode != 0:
+                print(proc.stdout[-3000:], proc.stderr[-6000:], flush=True)
+                fail(f"torchrun pretrain --mesh_pp 2 exited {proc.returncode}")
+    else:
+        arm = "run.main in two torchrun ranks, gloo" + ("" if REHEARSAL else " on one card")
+        launches = run_dp_child("cli", 2, tmp, flag="--pp-phase")["launches"]
+    seconds = time.perf_counter() - t0
+    ckpt = CheckpointManager(out_dir)
+    steps = ckpt.steps()
+    if len(steps) != 2 or steps[1] != 2 * steps[0] or steps[0] <= 0:
+        fail(f"pipeline CLI: checkpoints {steps}, expected [n, 2n]")
+    with open(os.path.join(out_dir, "train.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows if r.get("loss")]
+    val = [float(r["ndh_val_seen/loss"]) for r in rows if r.get("ndh_val_seen/loss")]
+    if not losses or not val or not all(np.isfinite(losses + val)):
+        fail(f"pipeline CLI: losses {losses[:5]}, validation losses {val}")
+    with open(os.path.join(out_dir, "train.log")) as f:
+        if f"resumed from checkpoint-{steps[0]}" not in f.read():
+            fail("pipeline CLI: the second run did not resume from the first's checkpoint")
+    # The parameters in the single-device layout: a one-process trainer of
+    # the same BERT loads them.
+    params = ckpt.restore_raw(steps[-1])
+    shape = {k: tuple(v.shape) for k, v in params.items()}
+    layers = len({k.split(".")[2] for k in shape if k.startswith("bert.encoder.layer_")})
+    hidden = shape["bert.word_embeddings.weight"][1]
+    cfg = BertConfig(
+        vocab_size=shape["mlm_bias"][0], num_hidden_layers=layers, hidden_size=hidden,
+        num_attention_heads=hidden // 64,
+        intermediate_size=shape["bert.encoder.layer_0.intermediate.weight"][0],
+        max_position_embeddings=shape["bert.embeddings.position_embeddings.weight"][0],
+        type_vocab_size=shape["bert.embeddings.token_type_embeddings.weight"][0],
+        img_feature_dim=shape["bert.img_embedding.weight"][1],
+        detector_classes=shape["token_head.weight"][0])
+    one = PretrainTrainer(cfg, device="cpu")
+    loaded = ckpt.restore(steps[-1], {"params": one.init_params()})["params"]
+    if any(not torch.equal(loaded[k], v) for k, v in params.items()):
+        fail("pipeline CLI: a one-process trainer does not load the checkpoint as saved")
+    mu = ckpt.restore_raw(steps[-1], "opt_state")[1]["mu"]
+    qkv = tuple(mu["stages"]["attention.qkv.weight"].shape) if "stages" in mu else None
+    if set(mu) != {"rest", "stages"} or qkv != (layers, 3 * hidden, hidden):
+        fail(f"pipeline CLI: the optimizer state is not in the pipeline's layout "
+             f"({sorted(mu)}, stacked qkv {qkv})")
+    del one, loaded, params
+    if launches is not None:
+        # Both stages launch K2 and the attention kernels the model's
+        # dispatch picks at the run's joint length (S 704 at the --debug
+        # world's: the plain attention, as phase 22's one-process run); the
+        # last stage alone K3.
+        first, last = (launches[which][0] for which in ("first", "last"))
+        ran = {which: {k for k, v in got.items() if v}
+               for which, got in (("first", first), ("last", last))}
+        if not REHEARSAL and (not {"K2f", "K2b"} <= ran["first"]
+                              or ran["last"] != ran["first"] | {"K3f", "K3b"}
+                              or ran["first"] & {"K3f", "K3b"}):
+            fail(f"pipeline CLI: launches in the first run, first stage {first}, last "
+                 f"stage {last}")
+        say(f"pipeline CLI: launches in the first run, first stage "
+            f"{', '.join(f'{k} {v}' for k, v in first.items() if v)}; last stage "
+            f"{', '.join(f'{k} {v}' for k, v in last.items() if v)}")
+        launches = {"first": first, "last": last}
+    say(f"pipeline CLI ({arm}): run pretrain --debug --mesh_pp 2, then --resume: "
+        f"{seconds:.1f} s with start-up and val, checkpoints {steps}, {len(losses)} logged "
+        f"losses (last {losses[-1]:.4f}), validation losses {[round(v, 4) for v in val]}; "
+        f"params in the single-device layout ({layers} layers), moments stacked {qkv}")
+    return {"arm": arm, "seconds": seconds, "steps": steps, "launches": launches}
+
+
+def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp, mp,
+                 pp) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
     run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
@@ -4481,7 +4725,11 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp, mp
     (NCCL, a world of one): the NDH dp and dp + ZeRO-1 steps, the S 768
     pretraining step under dp, ZeRO-1 and FSDP, the S 1024 FSDP step; and
     ``mp_launches``: its launches a step in phase 37's two-rank arms (rank
-    0's; null for an arm the group could not carry)."""
+    0's; null for an arm the group could not carry); ``pp_launches``: its
+    launches a step on each rank of phase 39's pipeline (bf16, dropouts
+    on); ``pp_cli_launches``: its launches on each rank in phase 40's first
+    run (one epoch with validation; null where the CLI ran under NCCL on
+    two cards, in processes the script cannot count in)."""
     code = {fn.__name__: k for k, fn in COUNTED.items()}
     ndh = {"fused_attention_packed": "K1f", "fused_add_layernorm": "K2f",
            "fused_attention_packed_bwd": "K1b", "fused_add_layernorm_bwd": "K2b"}
@@ -4546,7 +4794,12 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp, mp
              "long_fsdp_s1024": dp["world1"]["long_fsdp_launches"][code[name]]},
          "mp_launches": {arm.replace(" ", "_"): (mp["two"]["launches"][arm][code[name]]
                                                  if arm in mp["two"]["launches"] else None)
-                         for arm in MP_ARMS}}
+                         for arm in MP_ARMS},
+         "pp_launches": {stage: pp["launches"][stage][code[name]]
+                         for stage in ("first", "last")},
+         "pp_cli_launches": ({stage: pp["cli"]["launches"][stage][code[name]]
+                              for stage in ("first", "last")}
+                             if pp["cli"]["launches"] else None)}
         for name, (src, replaces), t, launches in entries]}
 
 
@@ -4578,6 +4831,7 @@ def phase_sizes() -> dict:
                    "side": 256, "vfov": 80, "per_dispatch": 6, "face": 64, "dispatches": 1}
         extract = {"face": 32}
         mp = {"heads": 4, "head_dim": 64, "K1": (2, 128), "K4": (2, 256), "K5": (2, 256)}
+        pp = {"microbatches": 2, "steps": 2}
     else:
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
         # R 12288: the S 768 pretraining step's; 16384 and 32768: NDH at S 256
@@ -4614,9 +4868,11 @@ def phase_sizes() -> dict:
         # Phase 36: the tp/sp shards (6 of 12 heads) at the paths' shapes.
         mp = {"heads": 12, "head_dim": 64, "K1": (64, 256), "K4": (16, 768),
               "K5": (16, 1024)}
+        # Phase 39: pp 2 of BERT-base's 12 layers, 8 microbatches of 2 rows.
+        pp = {"microbatches": 8, "steps": 4}
     return {"attn": attn, "ln": ln, "sizes": sizes, "ce": ce, "attn4": attn4, "pre": pre,
             "long": long, "flash": flash, "spk": spk, "opt": opt, "scene": scene,
-            "regions": regions, "extract": extract, "mp": mp}
+            "regions": regions, "extract": extract, "mp": mp, "pp": pp}
 
 
 def main(argv=None) -> int:
@@ -4631,10 +4887,13 @@ def main(argv=None) -> int:
     ap.add_argument("--mp-phase", choices=("two",),
                     help="run one rank of the tensor / sequence / context-parallel phase "
                          "(started by the script itself through torch.distributed.run)")
-    ap.add_argument("--dp-result", help="where rank 0 of a --dp-phase or --mp-phase "
-                    "writes its result")
+    ap.add_argument("--pp-phase", choices=("two", "cli"),
+                    help="run one rank of the pipeline-parallel phase (started by the "
+                         "script itself through torch.distributed.run)")
+    ap.add_argument("--dp-result", help="where rank 0 of a --dp-phase, --mp-phase or "
+                    "--pp-phase writes its result")
     args = ap.parse_args(argv)
-    if args.dp_phase or args.mp_phase:
+    if args.dp_phase or args.mp_phase or args.pp_phase:
         return dp_child_main(args)
     REHEARSAL = args.cpu_rehearsal
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4695,6 +4954,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         mp = phase_mp(tmp)
     mp["kernels"] = mp_kernels
+    with tempfile.TemporaryDirectory() as tmp:
+        pp = phase_pp(tmp)
     say(f"speaker: step {speaker['ms']:.2f} ms (full width), CLI iteration "
         f"{cli['speaker']['ms']:.1f} ms, --aug_data fine-tune iteration "
         f"{cli['speaker']['vp_ms']:.1f} ms, phase 22's viewpoint iteration {cli['vp_ms']:.1f} ms")
@@ -4713,7 +4974,7 @@ def main(argv=None) -> int:
         return 0
     say(f"nvidia-smi: {smi}")
     print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl, cli, options, scene_out,
-                                  regions_out, dp, mp)), flush=True)
+                                  regions_out, dp, mp, pp)), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

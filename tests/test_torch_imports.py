@@ -50,10 +50,12 @@ print(' '.join(names))
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.strip().splitlines()[-2:]
     assert int(count) >= 30
-    # The mesh modules: the ring attention, the (dp, tp|sp|cp) mesh and its
-    # collectives, the multi-rank dry run.
+    # The mesh modules: the ring attention, the (dp, tp|sp|cp|pp) mesh and
+    # its collectives, the pipeline trainer, the multi-rank dry run, and the
+    # timing harness.
     assert {"visitron_torch.ops.ring_attention", "visitron_torch.parallel.mesh",
-            "visitron_torch.parallel.dryrun"} <= set(names.split())
+            "visitron_torch.parallel.pipeline", "visitron_torch.parallel.dryrun",
+            "visitron_torch.utils.benchmark"} <= set(names.split())
 
 
 def test_sources_import_nothing_of_jax():
@@ -89,7 +91,8 @@ def test_package_lists_every_ported_module():
                 "data.legacy_tokenizer", "utils", "utils.timer", "ops.detection",
                 "models.resnet", "models.detector", "pipelines.rendering",
                 "pipelines.scene_features", "pipelines.region_features",
-                "pipelines.orientation", "parallel", "parallel.mesh"):
+                "pipelines.orientation", "parallel", "parallel.mesh",
+                "parallel.pipeline", "utils.benchmark"):
         assert f"visitron_torch.{mod}" in names, mod
 
 
@@ -130,6 +133,20 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SpeakerAgent(rt, **speaker)
     assert SpeakerAgent(rt, **speaker, device="cpu").device.type == "cpu"
+    from visitron_torch.parallel import Mesh
+    from visitron_torch.parallel.pipeline import PipelinePretrainTrainer
+    from visitron_torch.utils.benchmark import time_fn
+
+    for device, error in (("cuda", RuntimeError), ("cpu", None)):
+        mesh = Mesh(dp=1, rank=0, device=torch.device(device), axis="pp", size=2)
+        two = cfg.replace(num_hidden_layers=2)
+        if error is None:
+            assert PipelinePretrainTrainer(two, mesh).device.type == "cpu"
+        else:
+            with pytest.raises(error, match="device='cpu'"):
+                PipelinePretrainTrainer(two, mesh)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        time_fn(lambda: None)
     for task in ("turn_based", "classifier", "datagen", "speaker", "augment",
                  "extract_scene", "extract_regions"):
         with pytest.raises(RuntimeError, match="device='cpu'"):

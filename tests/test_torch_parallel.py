@@ -25,7 +25,7 @@ from visitron_torch import data as td
 from visitron_torch import parallel
 from visitron_torch import run as trun
 from visitron_torch.config import RunConfig as TRunConfig
-from visitron_torch.config import refuse_unported_hardware
+from visitron_torch.config import refuse_pretrain_axes
 from visitron_torch.convert import _RENAMES, _segment
 from visitron_torch.models import BertConfig as TConfig
 from visitron_torch.models.layers import DropoutRng
@@ -154,11 +154,24 @@ def test_fold_seed_and_mesh_checks():
         assert draws[1].seed() == draws[0].seed() + 1000003
     trainer = TTrainer(TConfig(**SMALL), device="cpu", mesh=Mesh(dp=2, rank=1, device=CPU))
     assert trainer.init_state()["rng"].seed_offset == 1000003
-    with pytest.raises(NotImplementedError, match="--mesh_pp: pipeline parallelism"):
-        refuse_unported_hardware(TRunConfig(mesh_pp=2))
-    for flags in ({"mesh_dp": 4}, {"zero1": True}, {"fsdp": True}, {"mesh_tp": 2},
-                  {"mesh_sp": 2}, {"mesh_cp": 2}):
-        refuse_unported_hardware(TRunConfig(**flags))
+    # A pp row's stages hold other layers of the same rows: they fold the
+    # stage into both seeds, so each stage draws its own masks.
+    pp = Mesh(dp=2, rank=3, device=CPU, axis="pp", size=2)
+    assert (pp.dp_index, pp.axis_index, pp.world, pp.tp) == (1, 1, 4, 1)
+    assert pp.fold_seed(7) == 7 + 1000003 + 7919 and not pp.tokens_sharded
+    assert pp.kernel_seed(7) == 7 + 1000003 + 7919
+    # Sequence, context and pipeline parallelism are the pretrain task's:
+    # a fine-tuning trainer refuses them; pp composes with dp alone.
+    for axis in ("mesh_pp", "mesh_sp", "mesh_cp"):
+        with pytest.raises(ValueError, match=f"--{axis} applies to the pretrain task"):
+            refuse_pretrain_axes(TRunConfig(**{axis: 2}))
+    for flags in ({"mesh_dp": 4}, {"zero1": True}, {"fsdp": True}, {"mesh_tp": 2}):
+        refuse_pretrain_axes(TRunConfig(**flags))
+    for flags, msg in (({"zero1": True}, "--zero1 applies to the standard pretrain"),
+                       ({"fsdp": True}, "--fsdp applies to the standard pretrain"),
+                       ({"mesh_tp": 2}, "--mesh_pp composes with dp only")):
+        with pytest.raises(ValueError, match=msg):
+            TRunConfig(mesh_pp=2, **flags)
 
 
 def test_process_groups_default_to_nccl_on_the_card(monkeypatch):

@@ -342,11 +342,12 @@ def test_trainer_refuses_unported_options():
     """A mesh that is not a ``parallel.Mesh`` (e.g. the JAX package's) is
     refused; on rank 0 of a (dp 1, tp 2) mesh the trainer's model holds its
     halves of the four split kernels and its state starts from its blocks
-    of the single-device parameters; pipeline parallelism is refused by name
-    (ROADMAP item 10c); ZeRO-1 and FSDP without a mesh shard nothing (the
+    of the single-device parameters; pipeline parallelism without a
+    process group names the ranks it needs; ZeRO-1 and FSDP without a mesh shard nothing (the
     JAX trainer's one-device mesh shards nothing either)."""
-    from visitron_torch.config import RunConfig, refuse_unported_hardware
+    from visitron_torch.config import RunConfig
     from visitron_torch.parallel import Mesh
+    from visitron_torch.train.pretrain import pretrain_mesh
 
     cfg = TConfig(**{**SMALL, "max_position_embeddings": 64})
 
@@ -364,8 +365,8 @@ def test_trainer_refuses_unported_options():
     assert state["params"][name].shape == (3 * h // 2, h)
     assert torch.equal(state["params"][name], full[name].unflatten(0, (3, h))[:, :h // 2]
                        .flatten(0, 1))
-    with pytest.raises(NotImplementedError, match="--mesh_pp: pipeline parallelism"):
-        refuse_unported_hardware(RunConfig(mesh_pp=2))
+    with pytest.raises(ValueError, match="--mesh_pp 2 needs 2 ranks"):
+        pretrain_mesh(RunConfig(mesh_pp=2))
     for kw in ({"zero1": True}, {"fsdp": True}):
         assert TTrainer(cfg, device="cpu", **kw).dp is None
     if not torch.cuda.is_available():

@@ -215,6 +215,52 @@ def test_run_pretrain_resumes_from_its_checkpoint(tmp_path, tiny_bert):
     assert steps == list(range(n + 1, 2 * n + 1))
 
 
+class _Built(Exception):
+    """Raised by a stand-in trainer: the run's schedule is fixed by then."""
+
+
+@pytest.mark.parametrize("axis", ["tp", "sp", "cp", "pp"])
+def test_run_pretrain_global_batch_matches_jax_on_every_mesh(axis, tmp_path, monkeypatch):
+    """At ``--mesh_dp 1 --mesh_{axis} 2`` both packages' ``run pretrain``
+    take the global batch per_gpu x every device (rank), so an epoch has
+    as many steps: the trainers are stood in for, and the schedule's
+    length (and the pipeline's microbatches) compared. The fine-tuning
+    trainers' rows of that global batch follow the same rule."""
+    import visitron_torch.parallel.pipeline as tpipe
+    import visitron_torch.train.pretrain as tpre
+    import visitron_tpu.parallel as jpar
+    import visitron_tpu.train.pretrain as jpre
+    from visitron_torch.parallel import Mesh
+    from visitron_torch.train.finetune import per_host_batch_size
+    from visitron_tpu import run as jrun
+
+    seen = {}
+
+    def stand_in(name):
+        def build(*args, **kw):
+            seen[name] = (kw["total_steps"], kw.get("num_microbatches"))
+            raise _Built
+        return build
+
+    for mod, attr in ((jpre, "PretrainTrainer"), (jpar, "PipelinePretrainTrainer")):
+        monkeypatch.setattr(mod, attr, stand_in("jax"))
+    for mod, attr in ((tpre, "PretrainTrainer"), (tpipe, "PipelinePretrainTrainer")):
+        monkeypatch.setattr(mod, attr, stand_in("torch"))
+    mesh = Mesh(dp=1, rank=0, device=torch.device("cpu"), axis=axis, size=2)
+    monkeypatch.setattr(tpre, "pretrain_mesh", lambda cfg, device=None: mesh)
+    argv = ["pretrain", "--config",
+            os.path.join(REPO, "run_configs/pretrain/pretrain_ndh_r2r.json"), *SMALL,
+            "--num_epochs", "1", "--per_gpu_train_batch_size", "2", "--mesh_dp", "1",
+            f"--mesh_{axis}", "2"]
+    with pytest.raises(_Built):
+        jrun.main(argv + ["--output_dir", str(tmp_path / "jax")])
+    with pytest.raises(_Built):
+        trun.main(argv + ["--output_dir", str(tmp_path / "torch")], device="cpu")
+    assert seen["torch"] == seen["jax"]
+    cfg = TConfig.from_args(argv[3:])
+    assert per_host_batch_size(cfg, mesh) == cfg.train_batch_size(2) == 4
+
+
 def test_ablation_chain_at_the_configs_lengths_refuses_like_jax(tmp_path):
     """The ablation fine-tunes set max_seq_length 768 (768 positions), the
     pretraining configs keep 512: the graft's shape rule refuses the
@@ -263,15 +309,15 @@ def test_debug_world_has_a_test_split_where_the_jax_one_has_none(tmp_path):
 
 
 def test_unported_options_and_unknown_tasks_refuse(tmp_path):
-    # Pipeline parallelism is refused by name; tp, sp and cp need their
-    # ranks (a process group), and sp and cp are the pretrain task's.
-    with pytest.raises(NotImplementedError, match="--mesh_pp: pipeline parallelism"):
-        trun.main(["viewpoint", "--debug", "--output_dir", str(tmp_path),
+    # tp, sp, cp and pp need their ranks (a process group), and sp, cp and
+    # pp are the pretrain task's.
+    with pytest.raises(ValueError, match="--mesh_pp 2 needs 2 ranks"):
+        trun.main(["pretrain", "--debug", "--output_dir", str(tmp_path),
                    "--mesh_pp", "2"], device="cpu")
     with pytest.raises(ValueError, match="needs 2 ranks"):
         trun.main(["viewpoint", "--debug", "--output_dir", str(tmp_path),
                    "--mesh_tp", "2"], device="cpu")
-    for axis in ("sp", "cp"):
+    for axis in ("sp", "cp", "pp"):
         with pytest.raises(SystemExit, match=f"--mesh_{axis} applies to the pretrain task"):
             trun.main(["viewpoint", "--debug", "--output_dir", str(tmp_path),
                        f"--mesh_{axis}", "2"], device="cpu")

@@ -152,5 +152,6 @@ def test_dryrun_runs_every_mesh_arm_on_four_ranks():
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = proc.stdout.strip().splitlines()[-1]
     assert line.startswith("dryrun ok: 4 gloo ranks, tp(dp=2,tp=2) pretrain loss=")
-    for arm in ("nav loss=", "sp+zero1(dp=2,sp=2)", "fsdp(dp=4)", "ring-cp(dp=2,cp=2)"):
+    for arm in ("nav loss=", "sp+zero1(dp=2,sp=2)", "fsdp(dp=4)", "ring-cp(dp=2,cp=2)",
+                "pipeline(dp=2,pp=2)"):
         assert arm in line

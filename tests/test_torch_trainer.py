@@ -521,7 +521,7 @@ def test_trainer_refuses_unported_options(tmp_path):
     checkpoint goes to the Oscar / HuggingFace import (an empty
     ``pytorch_model.bin`` fails to load); a missing model path trains from
     scratch, as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="--mesh_pp: pipeline parallelism"):
+    with pytest.raises(ValueError, match="--mesh_pp applies to the pretrain task"):
         _torch_trainer(tmp_path, mesh_pp=2)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         _torch_trainer(tmp_path, mesh_tp=2)

@@ -3,8 +3,8 @@
 Run as ``python tests/torch_dist_worker.py <work dir> <rank> <world>``: joins
 a gloo process group through ``file://<work dir>/pg`` (no port, so parallel
 test workers cannot collide), runs every case of ``<work dir>/inputs.pt`` in
-order, each on the dp mesh of the whole world or on the (dp, tp|sp|cp) mesh
-its ``mesh`` entry names (("tp", 2): ``make_mesh(tp=2)``), and writes
+order, each on the dp mesh of the whole world or on the (dp, tp|sp|cp|pp)
+mesh its ``mesh`` entry names (("tp", 2): ``make_mesh(tp=2)``), and writes
 ``<work dir>/<case>_<rank>.pt`` for each.  Imports torch and the port only.
 """
 
@@ -150,6 +150,35 @@ def case_consensus(mesh, inp):
     return {"stopped": stopped, "fired": guard.fired}
 
 
+def case_pipeline(mesh, inp):
+    """The GPipe trainer from this rank's converted JAX state: the
+    deterministic bundle and gradients of the first batch (gathered into
+    the single-device layout), then an AdamW step on each batch (this
+    rank's dp rows); the parameters and the moments after the first step
+    gathered."""
+    from visitron_torch.parallel.pipeline import PipelinePretrainTrainer
+
+    trainer = PipelinePretrainTrainer(BertConfig(**inp["bert"]), mesh,
+                                      num_microbatches=inp["microbatches"],
+                                      total_steps=100, learning_rate=inp["lr"],
+                                      device="cpu")
+    state = {**inp["states"][mesh.rank], "rng": trainer.dropout_rng()}
+    first = trainer.to_device(parallel.shard_batch(mesh, inp["batches"][0]))
+    bundle, grads = trainer.loss_and_grads(state["params"], first, None)
+    out = {"bundle": {k: float(v) for k, v in bundle.items()},
+           "grads": trainer.dp.single_device_params(grads),
+           "block": {k: tuple(v.shape) for k, v in state["params"]["stages"].items()},
+           "bundles": []}
+    step = trainer.step_fn()
+    for i, batch in enumerate(inp["batches"]):
+        state, bundle = step(state, parallel.shard_batch(mesh, batch))
+        out["bundles"].append({k: float(v) for k, v in bundle.items()})
+        if i == 0:
+            out["opt"] = trainer.dp.gather(state["params"], state["opt_state"])[1]
+    out["params"] = trainer.checkpoint_params(state)
+    return out
+
+
 def case_cli(mesh, inp):
     """``run.main`` of each argv in turn, with the tiny BERT of the CLI tests."""
     import visitron_torch.train.workspace as tws
@@ -179,7 +208,8 @@ def main():
                                 rank=rank, world_size=world, timeout_s=100)
     makers = {"tp": lambda n: parallel.make_mesh(tp=n),
               "sp": lambda n: parallel.make_sp_mesh(None, n),
-              "cp": lambda n: parallel.make_cp_mesh(None, n)}
+              "cp": lambda n: parallel.make_cp_mesh(None, n),
+              "pp": lambda n: parallel.make_pp_mesh(None, n)}
     try:
         dp_mesh = parallel.make_mesh()
         for name, inp in inputs:

@@ -4,9 +4,7 @@
 One dataclass holds every flag of the reference's run scripts; the fields,
 their defaults, the checks of ``__post_init__`` and the (de)serialisation
 are the JAX package's, so every ``run_configs/**/*.json`` parses to the
-same values in both packages.  Fields of features the port has not ported
-yet (the device meshes, ZeRO-1 / FSDP) stay, so the files keep parsing; the
-task or option that would read them refuses by name.  ``rng_impl`` selects JAX's PRNG
+same values in both packages.  ``rng_impl`` selects JAX's PRNG
 implementation and has no effect in torch: it is kept so the files stay
 compatible.
 """
@@ -106,14 +104,15 @@ class RunConfig:
     async_checkpoints: bool = False
 
     # hardware.  Across the ranks of a process group (torchrun): mesh_dp x
-    # mesh_tp for every training task, mesh_dp x mesh_sp or mesh_dp x
-    # mesh_cp for pretrain (visitron_torch/parallel); pipeline parallelism
-    # (mesh_pp > 1) is not ported (ROADMAP item 10c).  In one process
-    # mesh_dp is 0 or 1 and the other axes 1.
+    # mesh_tp for every training task, mesh_dp x mesh_sp, mesh_dp x mesh_cp
+    # or mesh_dp x mesh_pp (one host) for pretrain
+    # (visitron_torch/parallel).  In one process mesh_dp is 0 or 1 and the
+    # other axes 1.
     mesh_dp: int = 0                   # 0 => all devices
     mesh_tp: int = 1
     mesh_pp: int = 1                   # >1: pipeline-parallel pretraining
-    pipeline_microbatches: int = 0     # 0 => auto (<= 4*pp)
+    pipeline_microbatches: int = 0     # 0 => auto (<= 4*pp, divides the
+                                       # per-dp-shard batch)
     mesh_sp: int = 1                   # >1: sequence-parallel pretraining
     mesh_cp: int = 1                   # >1: ring-attention context-parallel
                                        # pretraining
@@ -134,7 +133,7 @@ class RunConfig:
     # see train/optim.py:scale_by_adam_lowp.
     bf16_adam_moments: bool = False
     # ZeRO-1 (the optimizer state sharded over dp) and FSDP (the parameters
-    # too): not ported (ROADMAP item 10); the tasks refuse them.
+    # too), visitron_torch/parallel/mesh.py:DataParallel.
     zero1: bool = False
     fsdp: bool = False
     # Conv compute dtype of the offline feature extractors ("default": bf16
@@ -268,14 +267,17 @@ class RunConfig:
         return vars(p.parse_args(argv))
 
 
-def refuse_unported_hardware(cfg: RunConfig) -> None:
-    """Pipeline parallelism (``--mesh_pp`` > 1) is not ported (ROADMAP item
-    10c, the last bring-up slice); data, tensor, sequence and context
-    parallelism (``--mesh_dp``, ``--mesh_tp``, ``--mesh_sp``, ``--mesh_cp``,
-    ``--zero1``, ``--fsdp``) are (visitron_torch/parallel)."""
-    if cfg.mesh_pp > 1:
-        raise NotImplementedError(
-            "--mesh_pp: pipeline parallelism is not ported yet (ROADMAP item 10c, the "
-            "GPipe trainer); the port runs data, tensor, sequence and context "
-            "parallelism across processes (--mesh_dp, --mesh_tp, --mesh_sp, --mesh_cp, "
-            "--zero1, --fsdp)")
+PRETRAIN_AXES = ("mesh_sp", "mesh_cp", "mesh_pp")
+
+
+def refuse_pretrain_axes(cfg: RunConfig) -> None:
+    """The fine-tuning trainers (viewpoint, turn-based, classifier) run
+    data and tensor parallelism (``--mesh_dp``, ``--mesh_tp``); sequence,
+    context and pipeline parallelism (``--mesh_sp``, ``--mesh_cp``,
+    ``--mesh_pp``) are the pretrain task's, and a fine-tuning trainer given
+    one refuses it (``run`` drops a value inherited from a config file with
+    a warning, as the JAX package ignores it)."""
+    for axis in PRETRAIN_AXES:
+        if getattr(cfg, axis) > 1:
+            raise ValueError(f"--{axis} applies to the pretrain task; use --mesh_tp for "
+                             "the fine-tune loops")

@@ -33,6 +33,10 @@ MaskedState(inner_state)})``, the classifier's) becomes the port's
 ``{"inner_states": {label: state}}``; its moment trees hold ``MaskedNode``
 leaves for the other labels' parameters, which carry nothing.
 
+:func:`convert_pipeline_state` carries a JAX ``PipelinePretrainTrainer``
+state (``{"rest", "stages"}`` trees, the stages stacked on a leading layer
+axis) into the port's pipeline trainer, for one rank's stage block.
+
 The turn-based, classifier and speaker agents keep the viewpoint agent's
 ``{"encoder", "decoder"}`` layout, so :func:`convert_agent_params` takes
 theirs too; the speaker's ``optax.adam`` state (``ScaleByAdamState``, then
@@ -95,7 +99,9 @@ def _flax_to_named(tree: dict, expected: dict, owner: str, device=None) -> dict:
         name = ".".join(tuple(map(_segment, path[:-1])) + (_RENAMES[path[-1]],))
         arr = _float_array(leaf)
         if path[-1] == "kernel":
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            # A Dense kernel's last two axes swap (a pipeline's stacked
+            # layers keep their leading L axis first).
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else np.swapaxes(arr, -1, -2)
         if name not in expected:
             raise KeyError(f"flax parameter {'/'.join(path)} has no counterpart "
                            f"{name!r} in {owner}")
@@ -129,6 +135,30 @@ def convert_pretrain_params(jax_params: dict, model: nn.Module, device=None) -> 
     collection) as the flat parameters of the port's ``PretrainModel``
     (``PretrainTrainer.model``), on ``device``."""
     return flax_to_state_dict(jax_params, model, device)
+
+
+def convert_pipeline_state(jax_state: dict, trainer) -> dict:
+    """A JAX ``PipelinePretrainTrainer`` state (``{"params": {"rest",
+    "stages"}, "opt_state"}`` as numpy, the stages' every layer) as this
+    rank's state of the port's ``parallel.pipeline.PipelinePretrainTrainer``
+    ``trainer``: the parameters in the port's ``{"rest", "stages"}`` layout
+    (the stacked kernels transposed on their last two axes), the optimizer
+    state through :func:`convert_opt_state`, both cut to this rank's stage
+    block; ``rng`` the trainer's dropout generators."""
+    from visitron_torch.parallel.pipeline import (map_stage_moments, split_pretrain_params,
+                                                  stage_block)
+
+    rest, stages = split_pretrain_params(dict(trainer.model.named_parameters()))
+    jax_params = jax_state["params"]
+    full = {"rest": _flax_to_named(jax_params["rest"], rest, "the pipeline's rest",
+                                   trainer.device),
+            "stages": _flax_to_named(jax_params["stages"], stages, "the pipeline's stages",
+                                     trainer.device)}
+    opt_state = convert_opt_state(jax_state["opt_state"], trainer.optimizer, full)
+    opt_state = map_stage_moments(opt_state, full, lambda s: stage_block(s, trainer.mesh))
+    return {"params": {"rest": full["rest"], "stages": stage_block(full["stages"],
+                                                                   trainer.mesh)},
+            "opt_state": opt_state, "rng": trainer.dropout_rng()}
 
 
 def _drop_masked(tree):

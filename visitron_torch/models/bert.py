@@ -150,7 +150,7 @@ class BertConfig:
 
 def config_for_mesh(cfg: BertConfig, mesh) -> BertConfig:
     """``cfg`` for a rank of ``mesh`` (visitron_tpu/models/bert.py:
-    config_for_mesh): unchanged without a mesh or on a dp-only one.  An sp
+    config_for_mesh): unchanged without a mesh or on a dp-only or pp one.  An sp
     mesh sets ``sp_mesh``; sp must divide the heads.  A cp mesh sets
     ``cp_mesh`` and turns the fused and flash kernels off: attention runs
     the ring.  A tp mesh sets ``tp_mesh``; tp must divide the heads and the
@@ -158,7 +158,9 @@ def config_for_mesh(cfg: BertConfig, mesh) -> BertConfig:
     shard_map wrappers run on; a rank here calls the kernels on its heads,
     the fold of their seed in ``DropoutRng.seed_offset``.)"""
     axis = getattr(mesh, "axis", None)
-    if mesh is None or axis is None or mesh.size <= 1:
+    if mesh is None or axis is None or mesh.size <= 1 or axis == "pp":
+        # A pp rank runs whole layers of its stage on whole rows
+        # (parallel/pipeline.py).
         return cfg
     if axis == "sp":
         if cfg.num_attention_heads % mesh.size:

@@ -114,7 +114,8 @@ class DropoutRng:
     generator, so drawing needs no device sync) draws the int32 seeds of the
     attention kernels' hash dropout, plus ``seed_offset``: a rank's fold
     under a mesh (``parallel.Mesh.kernel_seed`` of 0: dp_index x 1000003 +
-    axis_index x 7919, as the JAX mesh wrappers fold their coordinates; 0
+    axis_index x 7919, as the JAX mesh wrappers fold their coordinates; a
+    pp stage's own seeds, its microbatches drawing one after the other; 0
     under cp, whose ring hashes absolute coordinates), 0 on one device.
     Modules take ``rng=None`` for the deterministic (serving) pass."""
 

@@ -1,7 +1,6 @@
 """A multi-rank dry run: ranks that take the port's mesh arms through one
 training step each and print one line of losses (the counterpart of the
-JAX package's ``__graft_entry__.dryrun_multichip``, whose arms it runs but
-pipeline parallelism).
+JAX package's ``__graft_entry__.dryrun_multichip``, whose arms it runs).
 
     python -m visitron_torch.parallel.dryrun --ranks 4               # cards
     python -m visitron_torch.parallel.dryrun --ranks 4 --device cpu  # CPU
@@ -17,7 +16,9 @@ run's tiny BERT (hidden 64, 2 layers, 4 heads) on random batches from
     teacher-forced step in a synthetic world;
   * sp + ZeRO-1 (dp ranks/2, sp 2): a pretraining step;
   * FSDP (dp ranks): a pretraining step, its largest parameter sharded;
-  * ring cp (dp ranks/2, cp 2): a pretraining step.
+  * ring cp (dp ranks/2, cp 2): a pretraining step;
+  * pipeline (dp ranks/2, pp 2): a GPipe pretraining step of 2
+    microbatches (the JAX dry run's ``pipeline(dp=2,pp=2)`` arm).
 
 Every loss must be finite; rank 0 prints ``dryrun ok: ...`` and the command
 exits 0, else it exits 1.  Each process imports torch and the port only.
@@ -85,6 +86,17 @@ def pretrain_losses(mesh, batch: dict, steps: int = 1, **kw) -> list[float]:
     return losses
 
 
+def pipeline_loss(mesh, batch: dict, microbatches: int) -> float:
+    """The loss of one GPipe pretraining step on the (dp, pp) ``mesh``."""
+    from visitron_torch.models import BertConfig
+    from visitron_torch.parallel.pipeline import PipelinePretrainTrainer
+
+    trainer = PipelinePretrainTrainer(BertConfig(**BERT), mesh,
+                                      num_microbatches=microbatches, total_steps=10)
+    _, bundle = trainer.step_fn()(trainer.init_state(), parallel.shard_batch(mesh, batch))
+    return float(bundle["loss"])
+
+
 def nav_loss(mesh, seed: int) -> float:
     """One teacher-forced viewpoint step on ``mesh`` in a synthetic world."""
     from visitron_torch.agents import NavEpisodeBatcher, NavRuntime, ViewpointAgent
@@ -125,14 +137,15 @@ def run_rank(ranks: int, seed: int) -> str:
     sp = pretrain_losses(parallel.make_sp_mesh(None, 2), batch, zero1=True)
     fsdp = pretrain_losses(parallel.make_mesh(), batch, fsdp=True)
     cp = pretrain_losses(parallel.make_cp_mesh(None, 2), batch)
-    losses = tp_losses + [nav] + sp + fsdp + cp
+    pp = pipeline_loss(parallel.make_pp_mesh(None, 2), batch, 2)
+    losses = tp_losses + [nav] + sp + fsdp + cp + [pp]
     if not np.all(np.isfinite(losses)):
         raise RuntimeError(f"dryrun: a non-finite loss in {losses}")
     half = ranks // 2
     return (f"dryrun ok: {ranks} {dist.get_backend()} ranks, tp(dp={half},tp=2) pretrain loss="
             f"{tp_losses[-1]:.4f}, nav loss={nav:.4f}, sp+zero1(dp={half},sp=2) loss="
             f"{sp[0]:.4f}, fsdp(dp={ranks}) loss={fsdp[0]:.4f}, ring-cp(dp={half},cp=2) "
-            f"loss={cp[0]:.4f}")
+            f"loss={cp[0]:.4f}, pipeline(dp={half},pp=2) loss={pp:.4f}")
 
 
 def main(argv=None) -> int:

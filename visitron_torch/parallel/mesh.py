@@ -1,6 +1,7 @@
-"""Parallelism across processes: the process group, the (dp, tp|sp|cp) mesh,
-the shard rules of ZeRO-1, FSDP and tensor parallelism, and the collectives
-of a training step (visitron_tpu/parallel/mesh.py).
+"""Parallelism across processes: the process group, the (dp, tp|sp|cp|pp)
+mesh, the shard rules of ZeRO-1, FSDP and tensor parallelism, and the
+collectives of a training step (visitron_tpu/parallel/mesh.py; the pp mesh
+is visitron_tpu/parallel/pipeline.py's ``make_pp_mesh``).
 
 The JAX package runs one SPMD program over a ``jax.sharding.Mesh``: XLA
 inserts the gradient all-reduce, ZeRO-1 / FSDP are placements that the
@@ -18,24 +19,30 @@ module alone:
     raises; nothing falls back to one process;
   * :class:`Mesh` is a (dp, X) grid over every rank of the group, X being
     the size of a second axis ``tp`` (tensor parallelism), ``sp`` (Ulysses
-    sequence parallelism) or ``cp`` (ring-attention context parallelism), 1
-    for a dp-only mesh.  Rank r sits at (r // X, r % X), the row-major grid
+    sequence parallelism), ``cp`` (ring-attention context parallelism) or
+    ``pp`` (pipeline stages, ``parallel/pipeline.py``), 1 for a dp-only
+    mesh.  Rank r sits at (r // X, r % X), the row-major grid
     of ``mesh_utils.create_device_mesh``; the mesh holds one process group
     per dp column (``dp_group``: the ranks of one axis index) and per row
     (``axis_group``: the ranks of one dp index), made by every rank in the
     same order (:func:`make_mesh`, :func:`make_sp_mesh`,
-    :func:`make_cp_mesh`, :func:`maybe_mesh`);
+    :func:`make_cp_mesh`, :func:`make_pp_mesh`, :func:`maybe_mesh`);
   * :func:`all_reduce_sum` sums a list of tensors over a group in flat
     buckets of at most ``BUCKET_BYTES``; :func:`reduce_scatter` and
     :func:`all_gather` move leaves sharded on an axis, also through one flat
     buffer per dtype; :func:`all_to_all` (sp's tokens <-> heads reshards),
     :func:`ring_shift` (cp's send/recv pair), :func:`copy_to_axis` /
     :func:`reduce_from_axis` (tp's two Megatron operators),
-    :func:`broadcast` (``replicate_state``) and :func:`all_gather_object`
-    complete the set.  Each keeps a call counter, ``<helper>.calls``, raised
-    by one per collective it issues (the kernel wrappers' ``launches``
-    counterpart); a group that cannot carry a collective raises, nothing is
-    staged through the host;
+    :func:`send_next` / :func:`recv_prev` and :func:`send_prev` /
+    :func:`recv_next` (pp's stage-to-stage transfers, activations forward
+    and their gradients back), :func:`broadcast` (``replicate_state``) and
+    :func:`all_gather_object` complete the set.  Each keeps a call counter,
+    ``<helper>.calls``, raised by one per collective it issues (the kernel
+    wrappers' ``launches`` counterpart); a group that cannot carry a
+    collective raises.  The one transfer staged through the host is a stage
+    send or receive of a CUDA tensor under gloo, whose send/recv take host
+    memory only: chosen by the backend's name, never after a failed try, and
+    counted (:func:`p2p_host_staged`);
   * the shard rules: over dp, a leaf is sharded on the first axis, in the
     JAX package's layout, whose size is >= dp and divisible by dp; leaves
     that no axis fits, and every leaf at dp 1, stay replicated
@@ -56,6 +63,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import time
 from dataclasses import dataclass
 
 import torch
@@ -132,8 +140,8 @@ def host_shard_info(mesh: Mesh | None) -> tuple[int, int]:
 class Mesh:
     """A (dp, ``axis``) grid over the ranks of the default process group:
     ``dp`` rows of ``size`` ranks, this process being ``rank``, on
-    ``device``.  ``axis`` is "tp", "sp" or "cp" (None, and ``size`` 1, for
-    a dp-only mesh).  ``dp_group`` holds the ranks of this rank's axis index
+    ``device``.  ``axis`` is "tp", "sp", "cp" or "pp" (None, and ``size`` 1,
+    for a dp-only mesh).  ``dp_group`` holds the ranks of this rank's axis index
     (its dp column), ``axis_group`` those of its dp index (its row); None is
     the default group.  A Mesh built by hand, without a group, serves the
     seed-fold, rule and slicing functions of a given rank."""
@@ -177,12 +185,15 @@ class Mesh:
         """``seed`` for this rank's share of the activations: seed + dp_index
         x 1000003, as the JAX mesh wrappers fold dp_index into the kernels'
         dropout seed, plus axis_index x 7919 where the axis shards the tokens
-        (sp, cp).  The ranks of a tp row hold the same (replicated)
-        activations, so their hidden-dropout masks and sampled actions are
-        drawn alike.  The port folds the hidden-dropout and sampling
-        generators' seeds this way."""
+        (sp, cp) or the layers (pp: a stage's ranks hold other layers of the
+        same rows, and draw their own masks, as the JAX pipeline folds the
+        stage into its dropout key, visitron_tpu/parallel/pipeline.py:152-154).
+        The ranks of a tp row hold the same (replicated) activations, so
+        their hidden-dropout masks and sampled actions are drawn alike.  The
+        port folds the hidden-dropout and sampling generators' seeds this
+        way."""
         out = int(seed) + self.dp_index * DP_SEED_STRIDE
-        if self.tokens_sharded:
+        if self.tokens_sharded or self.axis == "pp":
             out += self.axis_index * AXIS_SEED_STRIDE
         return out
 
@@ -191,7 +202,12 @@ class Mesh:
         seed + dp_index x 1000003 + axis_index x 7919 (the JAX mesh
         wrappers' fold; the kernels read its low 32 bits, so the int32
         wrap-around of the JAX sum gives the same bits).  ``seed`` itself
-        under cp, whose ring hashes absolute coordinates."""
+        under cp, whose ring hashes absolute coordinates.  Under pp the same
+        fold gives each stage of each dp row its own seeds; the microbatches
+        of a stage draw one after the other from its seed generator, so every
+        (microbatch, layer, stage, dp shard) hashes its own keep mask, where
+        the JAX pipeline folds (step, stage) and the dp index into its key
+        (pipeline.py:152-154, :243-249): the two agree in distribution."""
         if self.axis == "cp":
             return int(seed)
         return int(seed) + self.dp_index * DP_SEED_STRIDE + self.axis_index * AXIS_SEED_STRIDE
@@ -258,6 +274,16 @@ def make_cp_mesh(dp: int | None, cp: int, device=None) -> Mesh:
     over cp through attention itself: the K/V shards rotate around the row
     (``ops/ring_attention.ring_attention``); parameters stay replicated."""
     return _grid(dp, "cp", cp, device)
+
+
+def make_pp_mesh(dp: int | None, pp: int, device=None) -> Mesh:
+    """A (dp, pp) mesh: data-parallel rows of pp-stage pipelines
+    (visitron_tpu/parallel/pipeline.py:make_pp_mesh).  Rank r holds stage
+    r % pp of dp row r // pp: the row group is one pipeline, whose ranks
+    pass activations down and gradients up (:func:`send_next` and its
+    peers), the column group the ranks of one stage, over which its
+    gradients are averaged.  ``dp`` None, or world / pp."""
+    return _grid(dp, "pp", pp, device)
 
 
 def maybe_mesh(dp: int = 0, tp: int = 1, device=None) -> Mesh | None:
@@ -552,6 +578,92 @@ class ring_shift:  # noqa: N801 (a counted collective, used like the other helpe
         return list(_Shifted.apply(self.pending, *self.sent))
 
 
+def p2p_host_staged(t: torch.Tensor) -> torch.Tensor:
+    """The host copy of a CUDA tensor that a gloo send or receive moves
+    (gloo's send/recv read and write host memory; a CUDA tensor aborts the
+    rank), counted: ``calls`` one per staged transfer, ``nbytes`` the bytes
+    staged."""
+    p2p_host_staged.calls += 1
+    p2p_host_staged.nbytes += t.numel() * t.element_size()
+    return t.detach().to("cpu")
+
+
+p2p_host_staged.calls = 0
+p2p_host_staged.nbytes = 0
+
+
+def _stage_peer(mesh: Mesh, step: int) -> int:
+    """The global rank of the stage ``step`` places down this rank's pp row
+    (no wrap: the first stage has no previous one, the last no next)."""
+    a = mesh.axis_index + step
+    if not 0 <= a < mesh.size:
+        raise ValueError(f"stage {mesh.axis_index} of {mesh.size} has no stage {a}")
+    return mesh.dp_index * mesh.size + a
+
+
+def _staged(mesh: Mesh, device: torch.device) -> bool:
+    """Whether a stage transfer of a tensor on ``device`` goes through the
+    host: gloo with a CUDA tensor (the backend's transport, chosen by its
+    name)."""
+    return device.type == "cuda" and mesh.backend == "gloo"
+
+
+def _send(t: torch.Tensor, mesh: Mesh, step: int) -> None:
+    peer = _stage_peer(mesh, step)
+    t = t.detach().contiguous()
+    dist.send(p2p_host_staged(t) if _staged(mesh, t.device) else t, peer)
+
+
+def _recv(shape, dtype, mesh: Mesh, step: int, fn) -> torch.Tensor:
+    peer = _stage_peer(mesh, step)
+    t0 = time.perf_counter()
+    if _staged(mesh, mesh.device):
+        buf = torch.empty(shape, dtype=dtype)
+        dist.recv(buf, peer)
+        out = p2p_host_staged(buf).to(mesh.device)
+    else:
+        out = torch.empty(shape, dtype=dtype, device=mesh.device)
+        dist.recv(out, peer)
+    fn.seconds += time.perf_counter() - t0
+    return out
+
+
+def send_next(t: torch.Tensor, mesh: Mesh) -> None:
+    """Send ``t`` (a stage's output) to the next stage of this rank's pp
+    row."""
+    _send(t, mesh, 1)
+    send_next.calls += 1
+
+
+def recv_prev(shape, dtype, mesh: Mesh) -> torch.Tensor:
+    """The tensor the previous stage of this rank's pp row sends (a
+    ``shape`` / ``dtype`` tensor on ``mesh.device``).  ``recv_prev.seconds``
+    adds up the host time spent in it: with gloo the wait for the sender,
+    with NCCL the enqueue only."""
+    out = _recv(shape, dtype, mesh, -1, recv_prev)
+    recv_prev.calls += 1
+    return out
+
+
+def send_prev(t: torch.Tensor, mesh: Mesh) -> None:
+    """Send ``t`` (the gradient of a stage's input) to the previous stage."""
+    _send(t, mesh, -1)
+    send_prev.calls += 1
+
+
+def recv_next(shape, dtype, mesh: Mesh) -> torch.Tensor:
+    """The tensor the next stage sends (the gradient of this stage's
+    output); ``seconds`` as :func:`recv_prev`'s."""
+    out = _recv(shape, dtype, mesh, 1, recv_next)
+    recv_next.calls += 1
+    return out
+
+
+for _fn in (send_next, recv_prev, send_prev, recv_next):
+    _fn.calls = 0
+recv_prev.seconds = recv_next.seconds = 0.0
+
+
 class _CopyToAxis(torch.autograd.Function):
     """Megatron's ``f``: identity forward, gradient all-reduced over the row
     (the input of a column-parallel layer)."""
@@ -588,12 +700,15 @@ def reduce_from_axis(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 COLLECTIVES = (all_reduce_sum, reduce_scatter, all_gather, broadcast, all_gather_object,
-               all_to_all, ring_shift)
+               all_to_all, ring_shift, send_next, recv_prev, send_prev, recv_next,
+               p2p_host_staged)
 
 
 def reset_collective_counts() -> None:
     for fn in COLLECTIVES:
         fn.calls = 0
+    p2p_host_staged.nbytes = 0
+    recv_prev.seconds = recv_next.seconds = 0.0
 
 
 def collective_counts() -> dict:

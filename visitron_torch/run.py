@@ -28,12 +28,14 @@ Parallelism: launched as ``python -m torch.distributed.run
 NCCL, each on ``cuda:LOCAL_RANK`` (gloo on the CPU when ``device="cpu"``),
 on a (dp, X) mesh of N ranks: ``--mesh_tp X`` (tensor parallelism, every
 training task), ``--mesh_sp X`` (Ulysses sequence parallelism) or
-``--mesh_cp X`` (ring-attention context parallelism), pretrain only, with
-``--mesh_dp`` 0 or N / X; ``--zero1`` (pretrain, viewpoint) and ``--fsdp``
-(pretrain) shard the optimizer state or the whole training state over dp;
-rank 0 writes the files and runs validation, on the single-device layout.
-The other tasks run in one process.  Pipeline parallelism (``--mesh_pp``,
-ROADMAP item 10c) is not ported and raises.
+``--mesh_cp X`` (ring-attention context parallelism) or ``--mesh_pp X``
+(GPipe pipeline stages, on one host; ``--pipeline_microbatches``),
+pretrain only, with ``--mesh_dp`` 0 or N / X; ``--zero1`` (pretrain,
+viewpoint) and ``--fsdp`` (pretrain, not with ``--mesh_pp``) shard the
+optimizer state or the whole training state over dp; rank 0 writes the
+files, and runs validation on the single-device layout (every rank of a
+pp mesh runs the pipelined evaluation).  The other tasks run in one
+process.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from visitron_torch import parallel
-from visitron_torch.config import RunConfig, refuse_unported_hardware
+from visitron_torch.config import PRETRAIN_AXES, RunConfig
 from visitron_torch.train.workspace import Workspace
 
 # The tasks that train data-parallel over a process group.
@@ -384,7 +386,7 @@ def main(argv=None, device=None):
         print(f"warning: config-file zero1=true is ignored by task {task!r}",
               file=sys.stderr)
         cfg = dataclasses.replace(cfg, zero1=False)
-    for axis in ("mesh_sp", "mesh_cp"):
+    for axis in PRETRAIN_AXES:
         if getattr(cfg, axis) > 1 and task != "pretrain":
             if axis in explicit:
                 raise SystemExit(f"--{axis} applies to the pretrain task; use --mesh_tp "
@@ -392,7 +394,6 @@ def main(argv=None, device=None):
             print(f"warning: config-file {axis}={getattr(cfg, axis)} is ignored by task "
                   f"{task!r}", file=sys.stderr)
             cfg = dataclasses.replace(cfg, **{axis: 1})
-    refuse_unported_hardware(cfg)
     joined = not dist.is_initialized() and parallel.launched_by_torchrun()
     if joined:
         # Under torchrun: this rank's process group, NCCL on cuda:LOCAL_RANK

@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from visitron_torch.agents.classifier import ClassifierAgent
-from visitron_torch.config import RunConfig, refuse_unported_hardware
+from visitron_torch.config import RunConfig, refuse_pretrain_axes
 from visitron_torch.data.classifier_dataset import build_classifier_instances
 from visitron_torch.parallel.mesh import host_shard_info, replicate_state
 from visitron_torch.train.checkpoint import CheckpointManager, place_like
@@ -47,7 +47,7 @@ class ClassifierTrainer:
     device: object = None  # None: the card
 
     def __post_init__(self):
-        refuse_unported_hardware(self.cfg)
+        refuse_pretrain_axes(self.cfg)
         setup_trainer_mesh(self)
         self.agent = ClassifierAgent(
             self.ws.bert_config, self.ws.runtime,

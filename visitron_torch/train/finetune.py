@@ -42,7 +42,7 @@ from visitron_torch._device import resolve_device
 from visitron_torch.agents import ViewpointAgent
 from visitron_torch.agents.batcher import NavEpisodeBatcher
 from visitron_torch.agents.speaker import build_aug_instances
-from visitron_torch.config import RunConfig, refuse_unported_hardware
+from visitron_torch.config import RunConfig, refuse_pretrain_axes
 from visitron_torch.data.datasets import build_nav_instances
 from visitron_torch.evaluation import Evaluator
 from visitron_torch.models.layers import DropoutRng
@@ -105,10 +105,12 @@ def setup_trainer_mesh(trainer) -> None:
 
 
 def per_host_batch_size(cfg: RunConfig, mesh) -> int:
-    """This rank's share of the global batch ``train_batch_size(world)``
-    (visitron_tpu/train/finetune.py:98-106)."""
-    world = 1 if mesh is None else mesh.dp
-    return cfg.train_batch_size(world) // world
+    """This rank's dp row's share of the global batch
+    ``train_batch_size(world)``, per_gpu x every rank as the JAX package's
+    is per_gpu x every device (visitron_tpu/train/finetune.py:115-116)."""
+    if mesh is None:
+        return cfg.train_batch_size(1)
+    return cfg.train_batch_size(mesh.world) // mesh.dp
 
 
 def params_to(tree, device):
@@ -125,7 +127,7 @@ class ViewpointTrainer:
     device: object = None  # None: the card
 
     def __post_init__(self):
-        refuse_unported_hardware(self.cfg)
+        refuse_pretrain_axes(self.cfg)
         setup_trainer_mesh(self)
         self.agent = ViewpointAgent(
             self.ws.bert_config,

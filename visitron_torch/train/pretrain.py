@@ -52,15 +52,15 @@ import torch
 from torch.func import functional_call
 
 from visitron_torch._device import resolve_device
-from visitron_torch.config import refuse_unported_hardware
 from visitron_torch.data.features import RegionFeatureStore
 from visitron_torch.data.pretrain_dataset import PretrainDataset
 from visitron_torch.models.bert import BertConfig, config_for_mesh
 from visitron_torch.models.layers import DropoutRng, init_module_params
 from visitron_torch.models.pretrain import PretrainModel, pretrain_loss
 from visitron_torch.parallel.mesh import (DataParallel, host_shard_info, is_primary,
-                                          jax_axis_orders, make_cp_mesh, make_sp_mesh,
-                                          maybe_mesh, shard_params_rules, token_range)
+                                          jax_axis_orders, make_cp_mesh, make_pp_mesh,
+                                          make_sp_mesh, maybe_mesh, shard_params_rules,
+                                          token_range)
 from visitron_torch.pipelines.pretrain_datagen import generate_pretrain_examples
 from visitron_torch.train.checkpoint import CheckpointManager
 from visitron_torch.train.logging import MetricsLogger, check_finite, setup_logger
@@ -70,6 +70,17 @@ from visitron_torch.train.optim import (adamw_with_warmup, apply_updates, tree_l
 
 BATCH_KEYS = ("input_ids", "token_type_ids", "attention_mask", "labels", "token_labels",
               "img_feats", "img_location_embeddings", "next_action")
+
+
+def batch_to_device(host_batch: dict, device) -> dict:
+    """A host batch of numpy arrays as device tensors: integers as int64,
+    floats as fp32."""
+    out = {}
+    for key in BATCH_KEYS:
+        a = np.asarray(host_batch[key])
+        dtype = torch.float32 if a.dtype.kind == "f" else torch.int64
+        out[key] = torch.as_tensor(a).to(device=device, dtype=dtype)
+    return out
 
 
 @dataclass
@@ -149,14 +160,7 @@ class PretrainTrainer:
 
     # -- the step ---------------------------------------------------------------
     def to_device(self, host_batch: dict) -> dict:
-        """A host batch of numpy arrays as device tensors: integers as int64,
-        floats as fp32."""
-        out = {}
-        for key in BATCH_KEYS:
-            a = np.asarray(host_batch[key])
-            dtype = torch.float32 if a.dtype.kind == "f" else torch.int64
-            out[key] = torch.as_tensor(a).to(device=self.device, dtype=dtype)
-        return out
+        return batch_to_device(host_batch, self.device)
 
     def rank_labels(self, batch: dict) -> tuple:
         """(labels, token_labels, whether this rank counts the next-action
@@ -310,16 +314,23 @@ def _fetch(bundle: dict) -> dict:
 
 def pretrain_mesh(cfg, device=None):
     """The pretraining mesh of the run's flags, as visitron_tpu/run.py:
-    172-200 selects it: (dp, sp) with ``--mesh_sp`` > 1, (dp, cp) with
-    ``--mesh_cp`` > 1, else (dp, tp) (``parallel.maybe_mesh``: None without
-    a process group)."""
-    for axis, make in (("sp", make_sp_mesh), ("cp", make_cp_mesh)):
+    172-200 selects it: (dp, pp) with ``--mesh_pp`` > 1 (the ranks of one
+    host: torchrun's ``LOCAL_WORLD_SIZE`` must be its ``WORLD_SIZE``, as
+    the JAX package's pipeline is single-host), (dp, sp) with ``--mesh_sp``
+    > 1, (dp, cp) with ``--mesh_cp`` > 1, else (dp, tp)
+    (``parallel.maybe_mesh``: None without a process group)."""
+    for axis, make in (("pp", make_pp_mesh), ("sp", make_sp_mesh), ("cp", make_cp_mesh)):
         size = getattr(cfg, f"mesh_{axis}")
         if size > 1:
             if not torch.distributed.is_initialized():
                 n = max(cfg.mesh_dp, 1) * size
                 raise ValueError(f"--mesh_{axis} {size} needs {n} ranks: launch with "
                                  f"python -m torch.distributed.run --nproc_per_node {n}")
+            local, world = os.environ.get("LOCAL_WORLD_SIZE"), os.environ.get("WORLD_SIZE")
+            if axis == "pp" and local is not None and local != world:
+                raise ValueError(f"--mesh_pp runs on one host: torchrun gives this host "
+                                 f"{local} of {world} ranks; combine several hosts with "
+                                 "--mesh_dp instead")
             return make(cfg.mesh_dp or None, size, device)
     return maybe_mesh(cfg.mesh_dp, cfg.mesh_tp, device)
 
@@ -328,11 +339,20 @@ def pretrain_loop(cfg, ws, device=None) -> dict:
     """``run pretrain`` over the workspace ``ws`` on ``device`` (None: the
     card), over the ranks of the process group if there is one
     (:func:`pretrain_mesh`: ``--mesh_dp``, ``--mesh_tp``, ``--mesh_sp``,
-    ``--mesh_cp``; ``--zero1``, ``--fsdp``); returns the final training
-    state (this rank's blocks and shards under tp, ``--zero1`` /
-    ``--fsdp``)."""
-    refuse_unported_hardware(cfg)
+    ``--mesh_cp``, ``--mesh_pp``; ``--zero1``, ``--fsdp``); returns the
+    final training state (this rank's blocks and shards under tp,
+    ``--zero1`` / ``--fsdp``, its stage block under pp).
+
+    Under ``--mesh_pp`` the ``parallel.pipeline.PipelinePretrainTrainer`` trains,
+    as in visitron_tpu/run.py:172-256: the global batch is
+    ``per_gpu_train_batch_size`` x the world (the JAX package's device
+    count), each dp row's ``--pipeline_microbatches`` (0: the largest m <=
+    min(4 pp, the row's rows) that divides them), checkpoints hold the
+    parameters in the single-device layout and the optimizer state in the
+    trainer's (``--resume`` needs the same ``--mesh_pp``), and every rank
+    runs the pipelined validation."""
     mesh = pretrain_mesh(cfg, device)
+    pipeline = mesh is not None and mesh.axis == "pp"
     device = resolve_device(mesh.device if mesh is not None and device is None else device)
     primary = is_primary(mesh)
     logger = setup_logger(output_dir=cfg.output_dir, is_main_process=primary)
@@ -374,16 +394,26 @@ def pretrain_loop(cfg, ws, device=None) -> dict:
             debug=cfg.debug, seed=cfg.seed, cache_path=cache)
 
     dataset = make_dataset(["train"])
-    world = 1 if mesh is None else mesh.dp
+    world = 1 if mesh is None else mesh.world
     batch_size = cfg.train_batch_size(world)
     steps_per_epoch = max(len(dataset) // batch_size, 1)
-    trainer = PretrainTrainer(
-        ws.bert_config.replace(detector_classes=len(detector_classes)),
-        learning_rate=cfg.learning_rate, warmup_steps=cfg.warmup_steps,
-        total_steps=cfg.num_epochs * steps_per_epoch, schedule=cfg.scheduler,
-        weight_decay=cfg.weight_decay, adam_epsilon=cfg.adam_epsilon,
-        max_grad_norm=cfg.max_grad_norm, bf16_adam_moments=cfg.bf16_adam_moments,
-        zero1=cfg.zero1, fsdp=cfg.fsdp, mesh=mesh, seed=cfg.seed, device=device)
+    bert = ws.bert_config.replace(detector_classes=len(detector_classes))
+    common = dict(learning_rate=cfg.learning_rate, warmup_steps=cfg.warmup_steps,
+                  total_steps=cfg.num_epochs * steps_per_epoch, schedule=cfg.scheduler,
+                  weight_decay=cfg.weight_decay, adam_epsilon=cfg.adam_epsilon,
+                  max_grad_norm=cfg.max_grad_norm,
+                  bf16_adam_moments=cfg.bf16_adam_moments, seed=cfg.seed, device=device)
+    if pipeline:
+        from visitron_torch.parallel.pipeline import (PipelinePretrainTrainer,
+                                                      default_microbatches)
+
+        microbatches = (cfg.pipeline_microbatches
+                        or default_microbatches(mesh.size, batch_size // mesh.dp))
+        trainer = PipelinePretrainTrainer(bert, mesh, num_microbatches=microbatches,
+                                          **common)
+    else:
+        trainer = PretrainTrainer(bert, zero1=cfg.zero1, fsdp=cfg.fsdp, mesh=mesh,
+                                  **common)
     # The JAX trainer traces its model on a sample batch, which draws from
     # the dataset's masking stream; drawing it here keeps the batches the
     # same.
@@ -430,13 +460,17 @@ def pretrain_loop(cfg, ws, device=None) -> dict:
         metrics.log(vals, step=it)
 
     def validate(epoch, it, state):
-        # Per-epoch, per-dataset validation on rank 0, the mesh-free eval
-        # path over the whole split, logged as {ds}_{split}/...
-        # (pretrain.py:301-579); RxR has no val split.
-        params = (trainer.dp.single_device_params(state["params"]) if trainer.dp
-                  else state["params"])
-        if not primary:
-            return
+        # Per-epoch, per-dataset validation, logged as {ds}_{split}/...
+        # (pretrain.py:301-579); RxR has no val split.  Rank 0 runs the
+        # mesh-free eval path over the whole split; under pp every rank
+        # runs the pipelined one.
+        if pipeline:
+            params = state
+        else:
+            params = (trainer.dp.single_device_params(state["params"]) if trainer.dp
+                      else state["params"])
+            if not primary:
+                return
         for ds_name, flag in (("ndh", cfg.add_ndh_data), ("r2r", cfg.add_r2r_data),
                               ("r4r", cfg.add_r4r_data)):
             if not flag:
@@ -446,8 +480,9 @@ def pretrain_loop(cfg, ws, device=None) -> dict:
                 if val_ds is None or len(val_ds) < batch_size:
                     continue
                 vals = trainer.evaluate(params, val_ds, batch_size)
-                logger.info("epoch %d %s_%s %s", epoch, ds_name, split, vals)
-                metrics.log(vals, step=it, prefix=f"{ds_name}_{split}/")
+                if primary:
+                    logger.info("epoch %d %s_%s %s", epoch, ds_name, split, vals)
+                    metrics.log(vals, step=it, prefix=f"{ds_name}_{split}/")
 
     state, _ = run_loop(loop, trainer.raw_step_fn(), (
         b if isinstance(b, EpochEnd) else trainer.to_device(b) for b in batches()),

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from visitron_torch.agents.turn_based import TurnBasedAgent
-from visitron_torch.config import RunConfig, refuse_unported_hardware
+from visitron_torch.config import RunConfig, refuse_pretrain_axes
 from visitron_torch.evaluation import Evaluator
 from visitron_torch.models.layers import DropoutRng
 from visitron_torch.train.checkpoint import CheckpointManager
@@ -42,7 +42,7 @@ class TurnBasedTrainer:
     device: object = None  # None: the card
 
     def __post_init__(self):
-        refuse_unported_hardware(self.cfg)
+        refuse_pretrain_axes(self.cfg)
         setup_trainer_mesh(self)
         self.agent = TurnBasedAgent(
             self.ws.bert_config, self.ws.runtime,
