@@ -260,9 +260,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               pretraining ZeRO-1 and FSDP) whose collectives it carries
               runs on the two halves of a batch against rank 0's
               one-process step on the whole batch (fp32, dropouts 0, as
-              phase 33); a line names the arms that ran and those that
-              could not, which count as not passed (the NDH dp arm must
-              run);
+              phase 33), with the host time of both runs (fresh state and
+              the step or steps); a line names the arms that ran and those
+              that could not, which count as not passed (the NDH dp arm
+              must run);
  36. mesh kernels (in the main process, after phase 9): K1f/K1b (B 64, S
               256), K4f/K4b (B 16, S 768) and K5f/K5b (B 16, S 1024)
               on 6 of 12 heads, as a tp or sp rank's model calls them, the
@@ -280,12 +281,12 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               and sp 2 pretraining at S 768 (batch 16), cp 2 (the ring) at
               S 1024 (batch 8), fp32 with the dropouts at 0, against rank
               0's one-process step on the whole batch with phase 35's
-              bounds, the kernels' launches a step checked.  NCCL (and
-              gloo on the CPU, in a rehearsal) must carry every
-              collective and run every arm.  Only gloo with CUDA tensors
-              on a shared card may lack one (its send/recv is not tried
-              there: it aborts a rank); a line then names the arms that
-              could not run, and the two tp arms must run;
+              bounds, the kernels' launches a step checked, the
+              collectives, the bytes staged through the host and the host
+              time of both runs.  Every backend must carry every
+              collective and run every arm: under gloo with CUDA tensors
+              the ring's send/recv goes through the host
+              (``parallel.p2p``, counted in ``parallel.p2p_host_staged``);
  38. mesh CLI: ``torch.distributed.run --nproc_per_node 1 -m
               visitron_torch.run pretrain --debug --mesh_sp 1`` (one
               epoch at batch 8) and ``viewpoint --debug --mesh_tp 1`` (2
@@ -314,7 +315,31 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               single-device layout (a one-process ``PretrainTrainer``
               loads them), the optimizer state in the pipeline's
               ``{"rest", "stages"}`` layout, the resume logged, every
-              rank's validation logged, finite losses.
+              rank's validation logged, finite losses;
+ 41. T 40 (in the main process, after phase 21): bench.py's long NDH
+              workload (BENCH_EPISODE_LEN=40, trusted_path) at phase 10's
+              world and width: the teacher-forced step (batch 64, the
+              agent's dropouts; 2 warm-up and 5 timed steps), launches a
+              step K1f 12, K1b 12, K2f 25, K2b 25 as at 10 steps (the
+              encoder runs once an episode), ms a step, nav actions/s,
+              the idle share, peak memory; the argmax serving rollout at
+              40 steps (tools/bench_eval.py's serving_t40: trajectories on
+              graph edges, K1f 12 and K2f 25 a batch, ms a batch, the
+              decode loop of one batch under
+              torch.cuda.set_sync_debug_mode("error")); one fp32 step with
+              every dropout at 0 on a 2-item batch, card vs CPU, as phase
+              11's; the bf16 forward and backward with
+              ``BertConfig(remat=True)`` against one without from the same
+              parameters, batch and dropout seeds (the loss equal bit for
+              bit, the gradients within GRAD_TOL, K1f 24 and K2f 49 with
+              remat, the peak memory of both) and the remat step's ms;
+ 42. bf16 Adam moments: the NDH step with ``bf16_adam_moments`` at phase
+              11's set-up, two steps (launches as phase 11's, finite
+              losses), the moments bf16 and the optimizer state half the
+              bytes of the fp32-moment state of the same parameters; two
+              fp32 steps with every dropout at 0 on a 2-item batch, card vs
+              CPU: the parameters within lr * 1e-2 wherever both steps'
+              gradients exceed 1e-2, within 4 lr elsewhere.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
@@ -325,10 +350,13 @@ per iteration of phase 22's viewpoint and pretrain runs and of phases
 23-25's, 28's, 29's and 32's runs (``cli_launches``), in phases 29-31's
 paths (``option_and_feature_launches``), its launches a step in phase 33's
 data-parallel runs (``dp_launches``), in phase 37's arms
-(``mp_launches``) and on each rank of phase 39's pipeline
-(``pp_launches``), and the count of device times that no
-torch.profiler session gave (``device_times_unmeasured``; such a time is
-null, and the run fails where K1f, K2f, K1b or K2b has none); the last line
+(``mp_launches``), on each rank of phase 39's pipeline
+(``pp_launches``), in phase 41's T 40 step, serving batch and remat
+forward and backward (``t40_launches``) and a step of phase 42's
+bf16-moment step (``bf16_moments_launches``), and the count of device
+times that no torch.profiler session gave (``device_times_unmeasured``;
+such a time is null, and the run fails where K1f, K2f, K1b or K2b has
+none); the last line
 is ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
 """
 
@@ -389,7 +417,7 @@ from visitron_torch.ops.layernorm import (fused_add_layernorm, fused_add_layerno
                                           layernorm_bwd_reference, layernorm_reference)
 from visitron_torch.parallel.pipeline import PipelinePretrainTrainer
 from visitron_torch.train import PretrainTrainer
-from visitron_torch.train.optim import apply_updates, tree_leaves
+from visitron_torch.train.optim import agent_optimizer, apply_updates, tree_leaves
 from visitron_torch.testing import SyntheticWorld
 from visitron_torch.testing.synthetic import _TARGETS, _WORDS
 
@@ -1317,12 +1345,12 @@ def build_world(sizes, device, dtype):
     return world, table, tok, instances, train_instances, runtime
 
 
-def make_agent(sizes, tok, runtime, dtype, device):
+def make_agent(sizes, tok, runtime, dtype, device, remat: bool = False, **agent_kw):
     cfg = BertConfig(vocab_size=len(tok), max_position_embeddings=sizes["seq"],
-                     type_vocab_size=4, dtype=dtype, **sizes["bert"])
+                     type_vocab_size=4, dtype=dtype, remat=remat, **sizes["bert"])
     return ViewpointAgent(cfg, runtime, feature_dim=sizes["feat"],
                           episode_len=sizes["episode_len"], rnn_dim=sizes["rnn"],
-                          encoder_hidden_size=sizes["rnn"], device=device)
+                          encoder_hidden_size=sizes["rnn"], device=device, **agent_kw)
 
 
 def check_trajectories(results, instances, runtime, episode_len) -> None:
@@ -1703,7 +1731,7 @@ def time_split(agent, state, batch) -> None:
         f"tensors); alone: {'; '.join(alone)}")
 
 
-def fp32_agents(device, sizes, sl) -> dict:
+def fp32_agents(device, sizes, sl, **agent_kw) -> dict:
     """{device: agent} on the card and on the CPU: fp32, every dropout 0."""
     agents = {}
     for dev in (device, "cpu"):
@@ -1715,17 +1743,18 @@ def fp32_agents(device, sizes, sl) -> dict:
         agents[dev] = ViewpointAgent(cfg, rt, feature_dim=sizes["feat"],
                                      episode_len=sizes["episode_len"], rnn_dim=sizes["rnn"],
                                      encoder_hidden_size=sizes["rnn"], dropout=0.0,
-                                     device=dev)
+                                     device=dev, **agent_kw)
     return agents
 
 
-def phase_train_agreement(device, sizes, sl) -> None:
-    """One fp32 train step with every dropout at 0 on a 2-item batch: the card
-    (kernels) against the CPU (plain twins)."""
-    say("train agreement: one fp32 step, dropouts 0, card vs CPU on a 2-item batch")
+def phase_train_agreement(device, sizes, sl, path_type: str = "planner_path") -> None:
+    """One fp32 train step with every dropout at 0 on a 2-item batch of
+    ``sizes``' episodes: the card (kernels) against the CPU (plain twins)."""
+    say(f"train agreement: one fp32 step ({sizes['episode_len']}-step {path_type} "
+        "episodes), dropouts 0, card vs CPU on a 2-item batch")
     agents = fp32_agents(device, sizes, sl)
     batcher = NavEpisodeBatcher(sl["train_instances"][:2], agents["cpu"].runtime,
-                                batch_size=2, path_type="planner_path")
+                                batch_size=2, path_type=path_type)
     batch = next(batcher.train_batches(1, episode_len=sizes["episode_len"]))
     out = {}
     for dev, agent in agents.items():
@@ -1949,6 +1978,242 @@ def phase_evaluate(sl) -> None:
         + ", ".join(f"{k} {v:.4f}" for k, v in summary.items()))
     if not all(np.isfinite(v) for v in summary.values()):
         fail(f"non-finite evaluation summary {summary}")
+
+
+# -- phases 41-42: bench.py's long NDH workload, NDH remat, bf16 Adam moments ------------------
+
+def ndh_launches(layers: int, remat: bool = False, backward: bool = True) -> dict:
+    """An NDH encoder pass's launches: K1f 1 a layer, K2f 2 a layer + 1 (the
+    embedding LayerNorm), their backward kernels alike; ``remat`` runs each
+    layer's forward again in the backward."""
+    fwd = 2 if remat else 1
+    out = {"K1f": fwd * layers, "K2f": fwd * 2 * layers + 1}
+    if backward:
+        out.update(K1b=layers, K2b=2 * layers + 1)
+    return out
+
+
+def check_launches(name: str, counts: dict, want: dict) -> None:
+    want = {k: want.get(k, 0) for k in COUNTED}
+    say(f"  {name}: launches {', '.join(f'{k} {v}' for k, v in counts.items() if v)}")
+    if not REHEARSAL and counts != want:
+        fail(f"{name}: launches {counts}; expected {want}")
+
+
+def opt_state_bytes(opt_state) -> int:
+    return sum(t.numel() * t.element_size() for t in parallel.mesh._leaves(opt_state)
+               if isinstance(t, torch.Tensor))
+
+
+def phase_t40(device, sizes, sl) -> dict:
+    """41. NDH at bench.py's long workload (BENCH_EPISODE_LEN=40,
+    BENCH_PATH_TYPE=trusted_path; tools/bench_eval.py's serving_t40) on
+    phase 10's world at full width: (a) the teacher-forced step, 2 warm-up
+    and 5 timed, launches a step as the 10-step episode's (the encoder runs
+    once an episode), ms, nav actions/s, the idle share, peak memory; (b) the
+    argmax serving rollout: trajectories on graph edges, launches and ms a
+    batch, and the decode loop of one batch under
+    torch.cuda.set_sync_debug_mode("error"); (c) one fp32 step with every
+    dropout at 0 on a 2-item batch, card vs CPU; (d) the bf16 step's forward
+    and backward with ``BertConfig(remat=True)`` against one without, from
+    the same parameters, batch and dropout seeds: the loss equal bit for
+    bit, the gradients within GRAD_TOL, the peak memory of both, and the
+    remat step's ms."""
+    t_len = sizes["long_episode_len"]
+    long = {**sizes, "episode_len": t_len}
+    layers = BertConfig(**sizes["bert"]).num_hidden_layers
+    say(f"T {t_len}: NDH teacher-forced step, batch {sizes['batch']}, {t_len}-step "
+        "trusted_path episodes (bench.py's BENCH_EPISODE_LEN=40 workload)")
+    agent = make_agent(long, sl["tok"], sl["runtime"], sizes["dtype"], device)
+    batcher = NavEpisodeBatcher(sl["train_instances"], sl["runtime"],
+                                batch_size=sizes["batch"], path_type="trusted_path")
+    n_warm, n_timed = 2, 5
+    batches = list(batcher.train_batches(n_warm + n_timed, episode_len=t_len))
+    active = np.mean([b["active"].sum(1).mean() for b in batches])
+    step = agent.train_step_fn()
+    start, state, losses, ms, totals, peak = timed_steps(agent, step, agent.init_state,
+                                                         batches, n_warm)
+    say(f"  mean active steps an episode {active:.2f} of {t_len}; S buckets "
+        f"{[agent.trim_batch(b)['ids'].shape[1] for b in batches]}")
+    med = check_trained(start, state, losses, ms, peak, long)
+    del start
+    idle = None if REHEARSAL else profile_device(
+        lambda: step(state, batches[n_warm]), f"T {t_len} train step")
+    train = {"ms_per_step": med, "range": (min(ms), max(ms)), "peak_bytes": peak,
+             "idle": idle, "actions_per_s": sizes["batch"] * t_len / med * 1e3,
+             "launches": {k: v // n_timed for k, v in totals.items()}}
+
+    say(f"T {t_len}: the argmax serving rollout, ViewpointAgent.test (serving_t{t_len})")
+    params = state["params"]
+    eval_batcher = NavEpisodeBatcher(sl["instances"], sl["runtime"],
+                                     batch_size=sizes["batch"])
+    n_batches = -(-len(sl["instances"]) // sizes["batch"])
+    agent.test(params, eval_batcher.eval_batches(), feedback="argmax")  # warm-up
+    zero_counts()
+    results, seconds, _, _ = counted_run(agent, params, eval_batcher, submit=False)
+    serve_counts = {k: v // n_batches for k, v in read_counts().items()}
+    check_trajectories(results, sl["instances"], sl["runtime"], t_len)
+    check_launches(f"serving at T {t_len}, a batch", serve_counts,
+                   ndh_launches(layers, backward=False))
+    runs = sorted([seconds * 1e3 / n_batches]
+                  + [counted_run(agent, params, eval_batcher, False)[1] * 1e3 / n_batches
+                     for _ in range(4)])
+    serve_ms = runs[len(runs) // 2]
+    moves = np.mean([len(p) - 1 for p in results.values()])
+    say(f"  {len(results)} trajectories on graph edges (mean {moves:.2f} moves); "
+        f"{serve_ms:.2f} ms/batch (median of {len(runs)} runs, range {runs[0]:.2f}-"
+        f"{runs[-1]:.2f}), {sizes['batch'] / serve_ms * 1e3:.1f} episodes/s, "
+        f"{sizes['batch'] * t_len / serve_ms * 1e3:.1f} actions/s")
+    with torch.inference_mode():
+        batch = agent.trim_batch(next(iter(eval_batcher.eval_batches())))
+        enc = agent.encode(params, batch)
+        rows, views = agent._index(batch["start_rows"]), agent._index(batch["start_views"])
+        sync()
+        if not REHEARSAL:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = agent.decode_rollout(params, *enc, rows, views)
+        finally:
+            if not REHEARSAL:
+                torch.cuda.set_sync_debug_mode(0)
+    say(f"  the {t_len}-step argmax decode loop of one batch ran without a "
+        f"synchronising call; logits {tuple(out[3].shape)}")
+    if not torch.isfinite(out[3].float().masked_fill(out[3] < -1e8, 0)).all():
+        fail(f"non-finite T {t_len} rollout logits")
+    del out, enc
+    serving = {"ms_per_batch": serve_ms, "launches": serve_counts,
+               "episodes_per_s": sizes["batch"] / serve_ms * 1e3}
+
+    phase_train_agreement(device, long, sl, path_type="trusted_path")
+
+    say(f"T {t_len}: remat, one forward and backward with BertConfig(remat=True) and one "
+        "without, same parameters, batch and dropout seeds")
+    remat_agent = make_agent(long, sl["tok"], sl["runtime"], sizes["dtype"], device,
+                             remat=True)
+    batch = agent.trim_batch(batches[n_warm])
+    grads_of, remat = {}, {}
+    for name, ag in (("plain", agent), ("remat", remat_agent)):
+        sync()
+        if not REHEARSAL:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t1 = time.perf_counter()
+        loss, grads = ag.loss_and_grads(params, batch, ag.dropout_rng())
+        sync()
+        seconds = time.perf_counter() - t1
+        counts = read_counts()
+        rise = None if REHEARSAL else torch.cuda.max_memory_allocated() - base
+        grads_of[name] = (loss, torch.cat([g.flatten() for g in tree_leaves(grads)]).cpu())
+        del grads
+        say(f"  {name}: loss {float(loss):.6f}, {seconds * 1e3:.1f} ms (host clock, one "
+            f"run), peak device memory above the resident state "
+            f"{'n/a' if rise is None else f'{rise / 2**30:.2f} GiB'}")
+        check_launches(f"{name} forward and backward", counts,
+                       ndh_launches(layers, remat=name == "remat"))
+        remat[f"{name}_peak_rise_bytes"] = rise
+        remat[f"{name}_launches"] = counts
+    (l0, g0), (l1, g1) = grads_of["plain"], grads_of["remat"]
+    say(f"  losses equal bit for bit: {bool(torch.equal(l0, l1))}")
+    if not torch.equal(l0, l1):
+        fail("the remat step's loss differs from the plain step's")
+    check_close(f"remat gradients vs plain ({g0.numel()} entries)", g1, g0,
+                GRAD_TOL[sizes["dtype"]])
+    del grads_of, g0, g1
+    rstep = remat_agent.train_step_fn()
+    rstate = {**state, "rng": remat_agent.dropout_rng()}
+    rms = []
+    for b in batches[n_warm:n_warm + 3]:
+        sync()
+        t1 = time.perf_counter()
+        rstate, rloss = rstep(rstate, b)
+        sync()
+        rms.append((time.perf_counter() - t1) * 1e3)
+    remat["ms_per_step"] = sorted(rms)[len(rms) // 2]
+    say(f"  remat step {remat['ms_per_step']:.2f} ms (median of {len(rms)}) beside the plain "
+        f"step's {med:.2f} ms; loss {float(rloss):.4f}")
+    if not torch.isfinite(rloss):
+        fail("non-finite remat step loss")
+    del rstate, state, remat_agent, agent
+    release()
+    return {"train": train, "serving": serving, "remat": remat}
+
+
+def phase_bf16_moments(device, sizes, sl) -> dict:
+    """42. ``bf16_adam_moments`` (bench.py's BENCH_BF16_ADAM): the NDH
+    teacher-forced step at phase 11's set-up, two steps: launches, finite
+    losses, the moments bf16 and the optimizer state half the bytes of the
+    same parameters' fp32-moment state; then two fp32 steps with every
+    dropout at 0 on a 2-item batch, card vs CPU: the parameters within
+    lr * 1e-2 wherever both steps' gradients exceed 10 x AGREE_TOL (2 lr a
+    step elsewhere)."""
+    say(f"bf16 Adam moments: NDH teacher-forced step with bf16_adam_moments, batch "
+        f"{sizes['batch']}, {sizes['episode_len']}-step planner_path episodes, 2 steps")
+    layers = BertConfig(**sizes["bert"]).num_hidden_layers
+    agent = make_agent(sizes, sl["tok"], sl["runtime"], sizes["dtype"], device,
+                       bf16_adam_moments=True)
+    batcher = NavEpisodeBatcher(sl["train_instances"], sl["runtime"],
+                                batch_size=sizes["batch"], path_type="planner_path", seed=4)
+    step = agent.train_step_fn()
+    state = agent.init_state()
+    ms, losses = [], []
+    zero_counts()
+    for batch in batcher.train_batches(2, episode_len=sizes["episode_len"]):
+        sync()
+        t1 = time.perf_counter()
+        state, loss = step(state, batch)
+        sync()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+    counts = {k: v // 2 for k, v in read_counts().items()}
+    check_launches("a step", counts, ndh_launches(layers))
+    adam = state["opt_state"][1]
+    dtypes = {str(t.dtype) for name in ("mu", "nu") for t in tree_leaves(adam[name])}
+    low = opt_state_bytes(state["opt_state"])
+    full = opt_state_bytes(agent_optimizer(agent.learning_rate, "adam", agent.max_grad_norm)
+                           .init(state["params"]))
+    say(f"  losses {losses}; ms a step {', '.join(f'{x:.2f}' for x in ms)} (the first "
+        f"with warm-up); moments {sorted(dtypes)}; optimizer state {low / 2**20:.2f} MiB "
+        f"with bf16 moments, {full / 2**20:.2f} MiB with fp32 ({low / full:.4f}x)")
+    if not np.isfinite(losses).all():
+        fail(f"non-finite bf16-moment losses {losses}")
+    if dtypes != {"torch.bfloat16"} or 2 * low != full:
+        fail(f"moments {dtypes}, {low} state bytes against {full} with fp32 moments")
+    del state, agent
+    release()
+
+    say("bf16 Adam moments agreement: two fp32 steps, dropouts 0, card vs CPU on a 2-item "
+        "batch")
+    agents = fp32_agents(device, sizes, sl, bf16_adam_moments=True)
+    batches = list(NavEpisodeBatcher(sl["train_instances"][:2], agents["cpu"].runtime,
+                                     batch_size=2, path_type="planner_path")
+                   .train_batches(2, episode_len=sizes["episode_len"]))
+    ends, big = {}, None
+    for dev, ag in agents.items():
+        state = ag.init_state()
+        start = torch.cat([p.detach().flatten().cpu() for p in tree_leaves(state["params"])])
+        for b in batches:
+            if dev == device:  # the gradients that decide where Adam's step is sign-like
+                g = torch.cat([x.flatten() for x in tree_leaves(
+                    ag.loss_and_grads(state["params"], ag.trim_batch(b), None)[1])]).cpu()
+                mask = g.abs() > 10 * AGREE_TOL[0]
+                big = mask if big is None else big & mask
+            state, _ = ag.train_step_fn()(state, b)
+        adam = state["opt_state"][1]
+        if {t.dtype for n in ("mu", "nu") for t in tree_leaves(adam[n])} != {torch.bfloat16}:
+            fail(f"{dev}: the moments are not bf16")
+        ends[dev] = torch.cat([p.detach().flatten().cpu() for p in tree_leaves(
+            state["params"])]) - start
+    lr = agents["cpu"].learning_rate
+    diff = (ends[device] - ends["cpu"]).abs()
+    err = float(diff[big].max()) / lr if big.any() else float("nan")
+    say(f"  parameters after two steps ({int(big.sum())} of {diff.numel()} entries with "
+        f"|g| > {10 * AGREE_TOL[0]:g} in both steps): max|card - cpu| {err:.3g} lr "
+        f"(tolerance 1e-2 lr there), {float(diff.max()) / lr:.3g} lr elsewhere (tolerance 4 lr)")
+    if not big.any() or err > 1e-2 or float(diff.max()) > 4 * lr + 1e-6:
+        fail("the bf16-moment steps disagree between the card and the CPU")
+    return {"ms": ms, "launches": counts, "state_bytes": low, "fp32_state_bytes": full,
+            "agree_lr": err}
 
 
 # -- phase 22: the run CLI ---------------------------------------------------------------
@@ -3793,6 +4058,15 @@ def release() -> None:
         torch.cuda.empty_cache()
 
 
+def host_timed(fn) -> tuple:
+    """(``fn()``, its ms on the host clock between two syncs)."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def dp_profile(fn, what: str) -> dict:
     """One warm call of ``fn`` under torch.profiler: device busy time, idle
     share, and the collectives' device time (NCCL or gloo kernels and the
@@ -4020,25 +4294,28 @@ def dp_two(sz: dict) -> dict:
             plain = agent()
             batch = plain.trim_batch(next(batcher.train_batches(
                 1, episode_len=sizes["episode_len"])))
-            want = dp_ndh_step(plain, batch) if mesh.rank == 0 else None
+            want = host_timed(lambda: dp_ndh_step(plain, batch)) if mesh.rank == 0 else None
             del plain
             release()
             parallel.reset_collective_counts()
-            got = dp_ndh_step(agent(mesh, zero1=arm.endswith("zero1")), batch, mesh)
+            got = host_timed(lambda: dp_ndh_step(agent(mesh, zero1=arm.endswith("zero1")),
+                                                 batch, mesh))
             lr = 5e-5
         else:
             rng = np.random.default_rng(SEED + 3)
             batches = [pretrain_batch(rng, pre, pre["vocab"], 2054, 1601) for _ in range(2)]
-            want = (dp_pretrain_run(pre, device, None, "dp", batches)
+            want = (host_timed(lambda: dp_pretrain_run(pre, device, None, "dp", batches))
                     if mesh.rank == 0 else None)
             parallel.reset_collective_counts()
-            got = dp_pretrain_run(pre, device, mesh, arm.split()[1], batches)
+            got = host_timed(lambda: dp_pretrain_run(pre, device, mesh, arm.split()[1],
+                                                     batches))
             lr = 5e-5
         coll = parallel.collective_counts()
         if mesh.rank == 0:
-            out[arm] = dp_update_check(f"two ranks, {arm}", want, got, lr)
-            out[arm]["collectives"] = coll
-            say(f"    collectives {coll}")
+            out[arm] = dp_update_check(f"two ranks, {arm}", want[0], got[0], lr)
+            out[arm].update(collectives=coll, ms={"one_process": want[1], "two_ranks": got[1]})
+            say(f"    collectives {coll}; host time (fresh state + the step(s)) one process "
+                f"{want[1]:.1f} ms, two ranks {got[1]:.1f} ms")
         ran.append(arm)
         del want, got
         release()
@@ -4294,44 +4571,27 @@ def phase_mp_kernels(device, mp) -> dict:
     return out
 
 
-# Each arm's collectives, as parallel.mesh issues them: tp all-reduces and
-# gathers its blocks into the single-device layout, sp exchanges heads and
-# tokens, cp sends and receives the K/V blocks.
-MP_ARMS = {"tp ndh": ("all_reduce", "all_gather"), "tp pretrain": ("all_reduce", "all_gather"),
-           "sp pretrain": ("all_reduce", "all_to_all"),
-           "cp pretrain": ("all_reduce", "send_recv")}
+# The two-rank arms of phase 37.  tp all-reduces and gathers its blocks into
+# the single-device layout, sp exchanges heads and tokens, cp sends and
+# receives the K/V blocks (through the host under gloo with CUDA tensors).
+MP_ARMS = ("tp ndh", "tp pretrain", "sp pretrain", "cp pretrain")
 
 
-def mp_probe(tp_mesh, tolerate: bool) -> dict:
-    """Which collectives the group carries on this rank's tensors, each tried
-    once on a few elements over the row of ``tp_mesh`` (every rank tries the
-    same in the same order).  A collective that raises is recorded only
-    where ``tolerate`` (gloo with CUDA tensors on a shared card); elsewhere
-    the error is the port's, and it propagates."""
+def mp_probe(tp_mesh) -> list:
+    """Each collective the arms need, tried once on a few elements over the
+    row of ``tp_mesh`` (every rank tries the same in the same order); one
+    that raises fails the phase, on every backend.  send/recv is the ring's
+    shift: under gloo with CUDA tensors it goes through the host."""
     x = torch.ones(4, device=tp_mesh.device)
     tries = {"all_reduce": lambda: parallel.all_reduce_sum([x], tp_mesh, "axis"),
              "all_gather": lambda: parallel.all_gather([x], [0], tp_mesh, "axis"),
              "reduce_scatter": lambda: parallel.reduce_scatter([x], [0], tp_mesh, "axis"),
              "all_to_all": lambda: parallel.all_to_all(x.view(2, 2), tp_mesh),
              "send_recv": lambda: parallel.ring_shift([x], tp_mesh).finish()}
-    out = {}
-    if tolerate:
-        # Tried once on an H100 with torch 2.11: gloo's send/recv read a
-        # CUDA tensor as host memory; one rank raised, the other aborted
-        # (gloo::IoException "writev: Bad address").  So it is not tried.
-        out["send_recv"] = "gloo's send/recv take host memory: a CUDA tensor aborts a rank"
-        del tries["send_recv"]
-    for name, fn in tries.items():
-        try:
-            fn()
-            sync()
-            out[name] = None
-        except (RuntimeError, ValueError, NotImplementedError) as err:
-            if not tolerate:
-                raise
-            out[name] = f"{type(err).__name__}: {str(err).splitlines()[0][:160]}"
-    return {k: out[k] for k in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
-                                "send_recv")}
+    for fn in tries.values():
+        fn()
+    sync()
+    return list(tries)
 
 
 def mp_ndh_step(agent, batch, mesh=None):
@@ -4346,11 +4606,13 @@ def mp_ndh_step(agent, batch, mesh=None):
 
 def mp_two(sz: dict) -> dict:
     """37. Two ranks on the card(s): NCCL on two cards, else gloo with CUDA
-    tensors on cuda:0.  After a probe of the collectives, each arm whose
-    collectives the group carries: the tp NDH teacher-forced step (batch
-    64), tp, sp and cp pretraining (S 768 batch 16; cp at S 1024 batch 8),
-    fp32 with the dropouts at 0, against rank 0's one-process step on the
-    whole batch (phase 35's bounds), with the kernels' launches a step."""
+    tensors on cuda:0 (the ring's shifts staged through the host).  After a
+    probe of the collectives, every arm: the tp NDH teacher-forced step
+    (batch 64), tp, sp and cp pretraining (S 768 batch 16; cp at S 1024
+    batch 8), fp32 with the dropouts at 0, against rank 0's one-process step
+    on the whole batch (phase 35's bounds), with the kernels' launches, the
+    collectives and the bytes staged a step, and the host time of both runs
+    (fresh state and the step or steps)."""
     two_cards = not REHEARSAL and torch.cuda.device_count() >= 2
     shared = not REHEARSAL and not two_cards
     device = parallel.init_process_group(
@@ -4362,18 +4624,12 @@ def mp_two(sz: dict) -> dict:
     rank, backend = dist.get_rank(), dist.get_backend()
     say(f"mesh two ranks: rank {rank}, backend {backend}, device {device}"
         + (" (both ranks on one card)" if shared else ""))
-    probe = mp_probe(meshes["tp"], tolerate=shared)
-    say(f"  collectives on {device.type} tensors: "
-        + ", ".join(f"{k} {'yes' if v is None else 'no'}" for k, v in probe.items()))
+    probe = mp_probe(meshes["tp"])
+    say(f"  collectives on {device.type} tensors: {', '.join(probe)} (each carried)")
     sizes, pre, long = sz["sizes"], sz["pre"], sz["long"]
-    ran, not_run, wants = [], {}, {}
+    wants = {}
     out = {"backend": backend, "shared_card": shared, "probe": probe, "launches": {}}
-    for arm, needs in MP_ARMS.items():
-        missing = [c for c in needs if probe[c] is not None]
-        if missing:
-            not_run[arm] = (f"{backend} does not carry {', '.join(missing)} on "
-                            f"{device.type} tensors ({probe[missing[0]]})")
-            continue
+    for arm in MP_ARMS:
         axis = arm.split()[0]
         mesh = meshes[axis]
         if arm == "tp ndh":
@@ -4383,12 +4639,12 @@ def mp_two(sz: dict) -> dict:
             plain = agent()
             batch = plain.trim_batch(next(batcher.train_batches(
                 1, episode_len=sizes["episode_len"])))
-            want = mp_ndh_step(plain, batch) if rank == 0 else None
+            want = host_timed(lambda: mp_ndh_step(plain, batch)) if rank == 0 else None
             del plain
             release()
             parallel.reset_collective_counts()
             zero_counts()
-            got = mp_ndh_step(agent(mesh), batch, mesh)
+            got = host_timed(lambda: mp_ndh_step(agent(mesh), batch, mesh))
             steps, what = 1, f"batch {sizes['batch']}, S {batch['ids'].shape[1]}"
         else:
             shape = {**long, "batch": max(long["batch"] // 2, 1)} if axis == "cp" else pre
@@ -4398,26 +4654,31 @@ def mp_two(sz: dict) -> dict:
             # The tp and sp arms share their S 768 batches: one reference.
             key = "pretrain cp" if axis == "cp" else "pretrain"
             if rank == 0 and key not in wants:
-                wants[key] = dp_pretrain_run(shape, device, None, "dp", batches)
+                wants[key] = host_timed(lambda: dp_pretrain_run(shape, device, None, "dp",
+                                                                batches))
             want = wants.get(key)
             parallel.reset_collective_counts()
             zero_counts()
-            got = dp_pretrain_run(shape, device, mesh, "dp", batches)
+            got = host_timed(lambda: dp_pretrain_run(shape, device, mesh, "dp", batches))
             steps = 2
             what = f"batch {shape['batch']}, S {shape['text'] + shape['img']}, 2 steps"
         launches = {k: v // steps for k, v in read_counts().items()}
         coll = {k: v / steps for k, v in parallel.collective_counts().items()}
+        staged = parallel.p2p_host_staged.nbytes / steps
         if rank == 0:
-            out[arm] = dp_update_check(f"two ranks, {arm} (fp32, {what})", want, got, 5e-5)
-            out[arm]["collectives"] = coll
+            out[arm] = dp_update_check(f"two ranks, {arm} (fp32, {what})", want[0], got[0],
+                                       5e-5)
+            out[arm].update(collectives=coll, staged_bytes=staged,
+                            ms={"one_process": want[1], "two_ranks": got[1]})
             say(f"    launches a step {', '.join(f'{k} {v}' for k, v in launches.items() if v)}"
-                f"; collectives a step {', '.join(f'{k} {v:g}' for k, v in coll.items() if v)}")
+                f"; collectives a step {', '.join(f'{k} {v:g}' for k, v in coll.items() if v)}"
+                f"; staged through the host a step {staged / 2**20:.2f} MiB; host time "
+                f"(fresh state + {steps} step(s)) one process {want[1]:.1f} ms, two ranks "
+                f"{got[1]:.1f} ms")
         out["launches"][arm] = launches
-        ran.append(arm)
         del want, got
         release()
     del wants
-    out["ran"], out["not_run"] = ran, not_run
     return out
 
 
@@ -4475,19 +4736,14 @@ def phase_mp(tmp: str) -> dict:
     two = run_dp_child("two", 2, tmp, flag="--mp-phase")
     cli = phase_mp_cli(tmp)
     say(f"mesh two ranks ({two['backend']}{', one card' if two['shared_card'] else ''}): "
-        f"arms that ran: {', '.join(two['ran']) or 'none'}; arms that could not run: "
-        + ("; ".join(f"{k} ({v})" for k, v in two["not_run"].items()) or "none"))
-    # Only gloo with CUDA tensors on a shared card may leave an arm out.
-    for arm in ("tp ndh", "tp pretrain") if two["shared_card"] else MP_ARMS:
-        if arm not in two["ran"]:
-            fail(f"the two-rank {arm} arm could not run")
+        f"every arm ran: {', '.join(MP_ARMS)}")
     layers = BertConfig(**phase_sizes()["sizes"]["bert"]).num_hidden_layers
     want = {"ndh": {"K1f": layers, "K1b": layers, "K2f": 2 * layers + 1,
                     "K2b": 2 * layers + 1},
             "pretrain": {"K4f": layers, "K4b": layers, "K3f": 1, "K3b": 1,
                          "K2f": 2 * layers + 2, "K2b": 2 * layers + 2},
             "ring": {"K3f": 1, "K3b": 1, "K2f": 2 * layers + 2, "K2b": 2 * layers + 2}}
-    for arm in two["ran"]:
+    for arm in MP_ARMS:
         expect = {k: want[MP_WANT[arm]].get(k, 0) for k in COUNTED}
         if not REHEARSAL and two["launches"][arm] != expect:
             fail(f"two ranks, {arm}: launches a step {two['launches'][arm]}, expected "
@@ -4705,7 +4961,7 @@ def phase_pp_cli(tmp: str) -> dict:
 
 
 def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp, mp,
-                 pp) -> dict:
+                 pp, t40, bf16) -> dict:
     """One entry per kernel: K1f and K2f at the serving bucket with the
     serving run's launches, K1b and K2b at the train bucket with the train
     run's, K3f/K3b and K4f/K4b at the pretraining shapes with the pretrain
@@ -4729,7 +4985,11 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp, mp
     launches a step on each rank of phase 39's pipeline (bf16, dropouts
     on); ``pp_cli_launches``: its launches on each rank in phase 40's first
     run (one epoch with validation; null where the CLI ran under NCCL on
-    two cards, in processes the script cannot count in)."""
+    two cards, in processes the script cannot count in); ``t40_launches``:
+    its launches in phase 41 a teacher-forced step and a serving batch at
+    40-step episodes and in the remat forward and backward;
+    ``bf16_moments_launches``: its launches a step of phase 42's
+    bf16-moment step."""
     code = {fn.__name__: k for k, fn in COUNTED.items()}
     ndh = {"fused_attention_packed": "K1f", "fused_add_layernorm": "K2f",
            "fused_attention_packed_bwd": "K1b", "fused_add_layernorm_bwd": "K2b"}
@@ -4792,14 +5052,18 @@ def kernels_line(times, sl, tr, pt, lc, st, rl, cli, opt, scene, regions, dp, mp
              **{f"pretrain_{k}": dp["world1"]["pretrain_time"][k]["launches"][code[name]]
                 for k in ("dp", "zero1", "fsdp")},
              "long_fsdp_s1024": dp["world1"]["long_fsdp_launches"][code[name]]},
-         "mp_launches": {arm.replace(" ", "_"): (mp["two"]["launches"][arm][code[name]]
-                                                 if arm in mp["two"]["launches"] else None)
+         "mp_launches": {arm.replace(" ", "_"): mp["two"]["launches"][arm][code[name]]
                          for arm in MP_ARMS},
          "pp_launches": {stage: pp["launches"][stage][code[name]]
                          for stage in ("first", "last")},
          "pp_cli_launches": ({stage: pp["cli"]["launches"][stage][code[name]]
                               for stage in ("first", "last")}
-                             if pp["cli"]["launches"] else None)}
+                             if pp["cli"]["launches"] else None),
+         "t40_launches": {"train_step": t40["train"]["launches"][code[name]],
+                          "serving_batch": t40["serving"]["launches"][code[name]],
+                          "remat_forward_backward":
+                              t40["remat"]["remat_launches"][code[name]]},
+         "bf16_moments_launches": bf16["launches"][code[name]]}
         for name, (src, replaces), t, launches in entries]}
 
 
@@ -4809,7 +5073,8 @@ def phase_sizes() -> dict:
         attn = {"batch": 2, "heads": 2, "head_dim": 64, "seqs": (128,)}
         ln = {"hidden": 128, "rows": (2 * 128,)}
         sizes = {"scans": 1, "viewpoints": 12, "feat": 32, "instances": 6, "seq": 128,
-                 "batch": 4, "episode_len": 3, "rnn": 24, "dtype": torch.float32,
+                 "batch": 4, "episode_len": 3, "long_episode_len": 6, "rnn": 24,
+                 "dtype": torch.float32,
                  "draws": 20_000, "bert": {"num_hidden_layers": 2, "hidden_size": 128,
                           "num_attention_heads": 2, "intermediate_size": 256}}
         ce = {"rows": 64, "vocab": 4099}
@@ -4837,9 +5102,10 @@ def phase_sizes() -> dict:
         # R 12288: the S 768 pretraining step's; 16384 and 32768: NDH at S 256
         # and 512 (16384 also the S 1024 step's).
         ln = {"hidden": 768, "rows": (16 * 768, 64 * 256, 64 * 512)}
+        # bench.py's world; phase 41 at its BENCH_EPISODE_LEN=40 workload.
         sizes = {"scans": 4, "viewpoints": 60, "feat": 2048, "instances": 128,
-                 "seq": 512, "batch": 64, "episode_len": 10, "rnn": 512,
-                 "dtype": torch.bfloat16, "draws": 65536, "bert": {}}
+                 "seq": 512, "batch": 64, "episode_len": 10, "long_episode_len": 40,
+                 "rnn": 512, "dtype": torch.bfloat16, "draws": 65536, "bert": {}}
         # tools/bench_pretrain.py: batch 16 x (512 text + 256 regions) = S 768.
         ce = {"rows": 16 * 768, "vocab": 30525}
         attn4 = {"batch": 16, "heads": 12, "head_dim": 64, "seq": 768}
@@ -4935,6 +5201,8 @@ def main(argv=None) -> int:
     phase_student_agreement(device, sizes, sl)
     phase_sampling(device, sizes["draws"])
     phase_evaluate(sl)
+    t40 = phase_t40(device, sizes, sl)
+    bf16 = phase_bf16_moments(device, sizes, sl)
     phase_turn_based_agreement(device, sizes, sl)
     speaker = phase_speaker(device, spk, sl)
     options = phase_options(device, opt)
@@ -4974,7 +5242,7 @@ def main(argv=None) -> int:
         return 0
     say(f"nvidia-smi: {smi}")
     print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl, cli, options, scene_out,
-                                  regions_out, dp, mp, pp)), flush=True)
+                                  regions_out, dp, mp, pp, t40, bf16)), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

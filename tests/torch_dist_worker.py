@@ -118,6 +118,49 @@ def case_ring(mesh, inp):
     return {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
 
 
+def case_p2p(mesh, inp):
+    """The point-to-point helper (``parallel.mesh.p2p``) on this rank's
+    tensors, direct and with staging forced: a ring shift (the other rank's
+    tensors come back) and a stage send / receive each way; then the public
+    ``ring_shift`` and ``send_next`` / ``recv_prev`` / ``send_prev`` /
+    ``recv_next``.  A staged send's source is overwritten before the wait:
+    the receiver must get the values it had when the send was issued."""
+    from visitron_torch.parallel import mesh as pm
+
+    mine = [t[mesh.rank].clone() for t in inp["tensors"]]
+    dst, src = pm._neighbours(mesh, 1)
+    other = 1 - mesh.rank
+    out = {}
+    for staged in (False, True):
+        parallel.reset_collective_counts()
+        sent = [t.clone() for t in mine]
+        work = pm.p2p([(t, dst) for t in sent], [(t.shape, t.dtype, src) for t in sent],
+                      mesh.device, mesh.axis_group, staged=staged)
+        if staged:
+            for t in sent:
+                t.fill_(-7)
+        ring = work.wait()
+        if mesh.rank == 0:
+            pm.p2p([(mine[0], other)], [], mesh.device, staged=staged).wait()
+            stage = pm.p2p([], [(mine[1].shape, mine[1].dtype, other)], mesh.device,
+                           staged=staged).wait()[0]
+        else:
+            stage = pm.p2p([], [(mine[0].shape, mine[0].dtype, other)], mesh.device,
+                           staged=staged).wait()[0]
+            pm.p2p([(mine[1], other)], [], mesh.device, staged=staged).wait()
+        out[staged] = {"ring": ring, "stage": stage, "calls": pm.p2p_host_staged.calls,
+                       "nbytes": pm.p2p_host_staged.nbytes}
+    parallel.reset_collective_counts()
+    public = {"ring": parallel.ring_shift(mine, mesh).finish()}
+    if mesh.rank == 0:
+        parallel.send_next(mine[0], mesh)
+        public["stage"] = parallel.recv_next(mine[1].shape, mine[1].dtype, mesh)
+    else:
+        public["stage"] = parallel.recv_prev(mine[0].shape, mine[0].dtype, mesh)
+        parallel.send_prev(mine[1], mesh)
+    return {**out, "public": public}
+
+
 def case_history(mesh, inp):
     """The text model's forward with history K/V states on this rank's
     blocks of the full parameters (the plain attention on its heads), and

@@ -642,11 +642,18 @@ class ViewpointAgent(DialogAgent):
         no host read-back; ``generator`` draws the sampled actions.  Returns
         (rows, views, moved, logits) tensors of shape (B, T) (logits
         (B, T, K+1)) for a trimmed batch."""
-        rt = self.runtime
         ctx, h1, c, ctx_mask = self.encode(params, batch, **self._eval_kw())
+        return self.decode_rollout(params, ctx, h1, c, ctx_mask,
+                                   self._index(batch["start_rows"]),
+                                   self._index(batch["start_views"]), feedback, generator)
+
+    def decode_rollout(self, params, ctx, h1, c, ctx_mask, cur_row, view,
+                       feedback: str = "argmax", generator: torch.Generator | None = None):
+        """The decoder half of :meth:`device_rollout`: ``episode_len``
+        decode/act steps from the encoder's outputs and the start rows and
+        views, already on the device."""
+        rt = self.runtime
         b = ctx.shape[0]
-        cur_row = self._index(batch["start_rows"])
-        view = self._index(batch["start_views"])
         slots = torch.arange(rt.max_candidates + 1, device=self.device)
         ended = torch.zeros(b, dtype=torch.bool, device=self.device)
         taken = torch.zeros((b, slots.numel()), dtype=torch.bool, device=self.device)

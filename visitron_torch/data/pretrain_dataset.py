@@ -17,7 +17,8 @@ the JAX package's order, so one seed gives the same batches.  The region
 tokens are joined through a Python ``set``, whose order is stable only within
 one process.  The preprocessed-example cache (``cache_path``) tokenizes once
 across epochs and runs, keyed by a fingerprint of what shapes the examples.
-Multi-host epochs are not ported (they raise ``NotImplementedError``).
+Multi-host epochs (``epoch_batches(host_id, num_hosts)``) take each host's
+strided shard of one (seed, epoch) shuffle.
 """
 
 from __future__ import annotations

@@ -39,10 +39,11 @@ module alone:
     :func:`all_gather_object` complete the set.  Each keeps a call counter,
     ``<helper>.calls``, raised by one per collective it issues (the kernel
     wrappers' ``launches`` counterpart); a group that cannot carry a
-    collective raises.  The one transfer staged through the host is a stage
-    send or receive of a CUDA tensor under gloo, whose send/recv take host
-    memory only: chosen by the backend's name, never after a failed try, and
-    counted (:func:`p2p_host_staged`);
+    collective raises.  The ring's and the stages' sends and receives go
+    through one point-to-point helper, :func:`p2p`, which stages a CUDA
+    tensor through the host under gloo, whose send/recv take host memory
+    only: chosen by the backend's name and the device, never after a failed
+    try, and counted (:func:`p2p_host_staged`);
   * the shard rules: over dp, a leaf is sharded on the first axis, in the
     JAX package's layout, whose size is >= dp and divisible by dp; leaves
     that no axis fits, and every leaf at dp 1, stay replicated
@@ -518,19 +519,85 @@ def _neighbours(mesh: Mesh, step: int) -> tuple[int, int]:
     return base + (a - step) % n, base + (a + step) % n
 
 
-def _start_shift(tensors: list, mesh: Mesh, step: int):
-    """Issue one send/recv pair per tensor (one batch of P2P ops); returns
-    (receive buffers, works)."""
-    dst, src = _neighbours(mesh, step)
-    sent = [t.contiguous() for t in tensors]
-    bufs = [torch.empty_like(t) for t in sent]
+def _staged(backend: str, device) -> bool:
+    """Whether a send or receive of a tensor on ``device`` goes through the
+    host: under gloo with a CUDA tensor (gloo's send/recv read and write host
+    memory only; a CUDA tensor aborts the rank).  Chosen by the backend's
+    name and the device alone, never after a failed try."""
+    return torch.device(device).type == "cuda" and backend == "gloo"
+
+
+def p2p_host_staged(t: torch.Tensor, device="cpu") -> torch.Tensor:
+    """``t`` copied to ``device`` for a transfer staged through the host: a
+    send's host copy, made when the send is issued (the caller may reuse
+    ``t`` at once), or a received host buffer's copy on the receiving rank's
+    device.  Counted: ``calls`` one per staged send or receive, ``nbytes``
+    the bytes staged."""
+    p2p_host_staged.calls += 1
+    p2p_host_staged.nbytes += t.numel() * t.element_size()
+    return t.detach().to(device, copy=True)
+
+
+p2p_host_staged.calls = 0
+p2p_host_staged.nbytes = 0
+
+
+class _P2P:
+    """Sends and receives in flight (:func:`p2p`); :meth:`wait` waits for
+    them and returns the received tensors on the device."""
+
+    def __init__(self, works, sent, bufs, device, staged):
+        # ``sent`` (the staged host copies among them) must outlive the sends.
+        self.works, self.sent, self.bufs = works, sent, bufs
+        self.device, self.staged = device, staged
+
+    def wait(self) -> list:
+        for w in self.works:
+            w.wait()
+        self.sent = None
+        if self.staged:
+            return [p2p_host_staged(b, self.device) for b in self.bufs]
+        return self.bufs
+
+
+def p2p(sends: list, recvs: list, device, group=None, staged: bool | None = None) -> _P2P:
+    """Issue ``sends`` ((tensor, global rank) pairs) and ``recvs`` ((shape,
+    dtype, global rank) triples) over ``group`` (None: the default group)
+    and return at once; the handle's ``wait()`` gives the received tensors
+    on ``device``.  Send i is issued before receive i, pair by pair, so two
+    ranks that exchange tensors issue their ops in the same order (gloo's
+    batched send/recv needs it); several ops go as one batch
+    (``batch_isend_irecv``, NCCL's group call), a lone op alone.  The
+    transfers go through the host where :func:`_staged` says so for
+    ``device``; ``staged`` True stages CPU tensors too (the same copies and
+    counts, without a card)."""
+    if staged is None:
+        staged = _staged(dist.get_backend(group), device)
+    device = torch.device(device)
+    sent = [p2p_host_staged(t.contiguous()) if staged else t.detach().contiguous()
+            for t, _ in sends]
+    bufs = [torch.empty(shape, dtype=dtype, device="cpu" if staged else device)
+            for shape, dtype, _ in recvs]
     ops = []
-    for t, buf in zip(sent, bufs):
-        ops.append(dist.P2POp(dist.isend, t, dst, mesh.axis_group))
-        ops.append(dist.P2POp(dist.irecv, buf, src, mesh.axis_group))
-    works = dist.batch_isend_irecv(ops)
+    for i in range(max(len(sends), len(recvs))):
+        if i < len(sends):
+            ops.append(dist.P2POp(dist.isend, sent[i], sends[i][1], group))
+        if i < len(recvs):
+            ops.append(dist.P2POp(dist.irecv, bufs[i], recvs[i][2], group))
+    if len(ops) == 1:
+        works = [ops[0].op(ops[0].tensor, ops[0].peer, ops[0].group)]
+    else:
+        works = dist.batch_isend_irecv(ops)
+    return _P2P(works, sent, bufs, device, staged)
+
+
+def _start_shift(tensors: list, mesh: Mesh, step: int) -> _P2P:
+    """Issue one send/recv pair per tensor to the ring neighbours
+    ``step`` places away (one batch of P2P ops)."""
+    dst, src = _neighbours(mesh, step)
     ring_shift.calls += 1
-    return bufs, (works, sent)
+    return p2p([(t, dst) for t in tensors], [(t.shape, t.dtype, src) for t in tensors],
+               tensors[0].device, mesh.axis_group)
 
 
 class _Shifted(torch.autograd.Function):
@@ -540,9 +607,7 @@ class _Shifted(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pending, *sent):
-        bufs, (works, _) = pending["bufs"], pending["works"]
-        for w in works:
-            w.wait()
+        bufs = pending["work"].wait()
         ctx.mesh, ctx.step = pending["mesh"], pending["step"]
         ctx.mark_non_differentiable(*[b for b, t in zip(bufs, sent) if not t.requires_grad])
         return tuple(bufs)
@@ -552,9 +617,7 @@ class _Shifted(torch.autograd.Function):
         want = [i for i, need in enumerate(ctx.needs_input_grad[1:]) if need]
         out = [None] * len(grads)
         if want:
-            bufs, (works, _) = _start_shift([grads[i] for i in want], ctx.mesh, -ctx.step)
-            for w in works:
-                w.wait()
+            bufs = _start_shift([grads[i] for i in want], ctx.mesh, -ctx.step).wait()
             for i, b in zip(want, bufs):
                 out[i] = b
         return (None, *out)
@@ -565,31 +628,20 @@ class ring_shift:  # noqa: N801 (a counted collective, used like the other helpe
     a + 1's, modulo the row): constructing it issues the send/recv pairs
     and returns at once, so that the caller computes on the current blocks
     while they travel; :meth:`finish` waits and returns the received
-    blocks, differentiable (their gradients travel back the other way)."""
+    blocks on the device, differentiable (their gradients travel back the
+    other way).  Under gloo with CUDA tensors the blocks go through the
+    host (:func:`p2p`): their host copies are made here, and the received
+    blocks reach the device in :meth:`finish`."""
 
     calls = 0
 
     def __init__(self, tensors: list, mesh: Mesh, step: int = 1):
         self.sent = tensors
-        bufs, works = _start_shift([t.detach() for t in tensors], mesh, step)
-        self.pending = {"bufs": bufs, "works": works, "mesh": mesh, "step": step}
+        work = _start_shift([t.detach() for t in tensors], mesh, step)
+        self.pending = {"work": work, "mesh": mesh, "step": step}
 
     def finish(self) -> list:
         return list(_Shifted.apply(self.pending, *self.sent))
-
-
-def p2p_host_staged(t: torch.Tensor) -> torch.Tensor:
-    """The host copy of a CUDA tensor that a gloo send or receive moves
-    (gloo's send/recv read and write host memory; a CUDA tensor aborts the
-    rank), counted: ``calls`` one per staged transfer, ``nbytes`` the bytes
-    staged."""
-    p2p_host_staged.calls += 1
-    p2p_host_staged.nbytes += t.numel() * t.element_size()
-    return t.detach().to("cpu")
-
-
-p2p_host_staged.calls = 0
-p2p_host_staged.nbytes = 0
 
 
 def _stage_peer(mesh: Mesh, step: int) -> int:
@@ -601,29 +653,13 @@ def _stage_peer(mesh: Mesh, step: int) -> int:
     return mesh.dp_index * mesh.size + a
 
 
-def _staged(mesh: Mesh, device: torch.device) -> bool:
-    """Whether a stage transfer of a tensor on ``device`` goes through the
-    host: gloo with a CUDA tensor (the backend's transport, chosen by its
-    name)."""
-    return device.type == "cuda" and mesh.backend == "gloo"
-
-
 def _send(t: torch.Tensor, mesh: Mesh, step: int) -> None:
-    peer = _stage_peer(mesh, step)
-    t = t.detach().contiguous()
-    dist.send(p2p_host_staged(t) if _staged(mesh, t.device) else t, peer)
+    p2p([(t.detach(), _stage_peer(mesh, step))], [], t.device).wait()
 
 
 def _recv(shape, dtype, mesh: Mesh, step: int, fn) -> torch.Tensor:
-    peer = _stage_peer(mesh, step)
     t0 = time.perf_counter()
-    if _staged(mesh, mesh.device):
-        buf = torch.empty(shape, dtype=dtype)
-        dist.recv(buf, peer)
-        out = p2p_host_staged(buf).to(mesh.device)
-    else:
-        out = torch.empty(shape, dtype=dtype, device=mesh.device)
-        dist.recv(out, peer)
+    out = p2p([], [(shape, dtype, _stage_peer(mesh, step))], mesh.device).wait()[0]
     fn.seconds += time.perf_counter() - t0
     return out
 

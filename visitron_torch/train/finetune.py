@@ -23,7 +23,7 @@ device (``device=None``: the card), the workspace's.
 In a process group (``python -m torch.distributed.run``) the trainer runs
 over a (dp, tp) mesh of its ranks (``parallel.maybe_mesh(--mesh_dp,
 --mesh_tp)``): each dp row draws its per-host batch of the global
-``train_batch_size(dp)`` from its strided shard of the instances
+``train_batch_size(world)`` from its strided shard of the instances
 (``NavEpisodeBatcher(host_id, num_hosts)``), ``--mesh_tp`` splits the
 encoder's BERT layers over the ranks of a row, ``--zero1`` shards the
 optimizer state over dp, rank 0 writes the checkpoints (the single-device
