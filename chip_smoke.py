@@ -339,7 +339,38 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               bytes of the fp32-moment state of the same parameters; two
               fp32 steps with every dropout at 0 on a 2-item batch, card vs
               CPU: the parameters within lr * 1e-2 wherever both steps'
-              gradients exceed 1e-2, within 4 lr elsewhere.
+              gradients exceed 1e-2, within 4 lr elsewhere;
+ 43. realscale: the deployment's world (tools/realscale_smoke.py's, through
+              visitron_torch.testing.realscale): 90 scans x 120 viewpoints =
+              10,800 viewpoints x 36 views x 2048-d, the scene table packed
+              as bf16 on the host in page-locked memory (no fp32 copy of the
+              whole table) and placed with one copy: 1,592,524,800 bytes on
+              the card, checked; two teacher-forced steps of BERT-base bf16
+              at batch 64 at T 10 planner_path and at T 40 trusted_path
+              (finite losses; launches a step K1f 12, K1b 12, K2f 25, K2b
+              25, as on phase 10's world); the argmax serving rollout at T
+              10 on this runtime (trajectories on graph edges, K1f 12 and
+              K2f 25 a batch, the decode loop of one batch under
+              torch.cuda.set_sync_debug_mode("error")); the host seconds of
+              the world, the pack, the candidate tables and the placement,
+              the host's resident and peak memory, the card's memory after
+              placement and its peak over the steps, and in the same call
+              on this world and on phase 10's 240-viewpoint world (35.4 MB,
+              inside the 50 MB L2): the T 10 step's ms (median of 5 after 2
+              warm-up) and the device time of one episode's table reads
+              (gather_step_inputs at its 10 steps, torch.profiler);
+ 44. science: the end-to-end science run (tools/synthetic_e2e.py's,
+              through visitron_torch.testing.science) on its seed-5 world of
+              4 scans x 50 viewpoints: BERT-base bf16, T 10 planner_path,
+              batch 32, Adam 1e-4, 1000 iterations (the tool's default),
+              the argmax rollouts of the first 48 training episodes scored
+              by Evaluator before and after; launches a step as phase
+              11's; gates fixed before
+              any run: every loss finite, the mean loss of the last 50
+              steps <= 0.6 x that of the first 50, Goal Progress after -
+              before >= 1.0 m, Success Rate after > before; nav actions/s
+              over the training loop (batch x 10 a step).  It runs right
+              after phase 2, before any torch.profiler session.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
@@ -356,8 +387,15 @@ forward and backward (``t40_launches``) and a step of phase 42's
 bf16-moment step (``bf16_moments_launches``), and the count of device
 times that no torch.profiler session gave (``device_times_unmeasured``;
 such a time is null, and the run fails where K1f, K2f, K1b or K2b has
-none); the last line
-is ``{"ok": true, "device": {...}}``.  A rehearsal prints neither.
+none); beside the kernels, ``realscale`` (phase 43: the viewpoints, the
+table's bytes on the card, the launches a step at T 10 and T 40 and a
+serving batch, the peak GiB over the steps, the T 10 step's ms and the table
+reads' device ms on both worlds) and ``science`` (phase 44: the iterations,
+GP, SR, SPL and nDTW before and after, the mean loss of the first and of
+the last 50 steps, nav actions/s); the last line is ``{"ok": true,
+"device": {...}}``.  A rehearsal prints neither; it runs phases 43-44 on
+2 scans x 12 viewpoints, 32-d, and 20 iterations, and reports the
+learning gates without enforcing them at that size.
 """
 
 from __future__ import annotations
@@ -367,6 +405,7 @@ import contextlib
 import csv
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -390,6 +429,7 @@ from visitron_torch import geometry as geo
 from visitron_torch import parallel
 from visitron_torch.agents import NavEpisodeBatcher, NavRuntime, ViewpointAgent, decoding
 from visitron_torch.agents.decoding import select_action
+from visitron_torch.agents.viewpoint import gather_step_inputs
 from visitron_torch.data import (SceneFeatureTable, WordPieceTokenizer,
                                  build_wordpiece_vocab)
 from visitron_torch.data.datasets import build_nav_instances
@@ -418,7 +458,7 @@ from visitron_torch.ops.layernorm import (fused_add_layernorm, fused_add_layerno
 from visitron_torch.parallel.pipeline import PipelinePretrainTrainer
 from visitron_torch.train import PretrainTrainer
 from visitron_torch.train.optim import agent_optimizer, apply_updates, tree_leaves
-from visitron_torch.testing import SyntheticWorld
+from visitron_torch.testing import SyntheticWorld, realscale, science
 from visitron_torch.testing.synthetic import _TARGETS, _WORDS
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
@@ -463,6 +503,16 @@ REHEARSAL = False
 
 def say(msg: str) -> None:
     print(("[rehearsal, CPU, plain twins] " if REHEARSAL else "") + msg, flush=True)
+
+
+LAP = [time.perf_counter()]
+
+
+def lap(what: str) -> None:
+    """The seconds since the last lap (or the start), for the phases named."""
+    now = time.perf_counter()
+    say(f"[time] {what}: {now - LAP[0]:.1f} s")
+    LAP[0] = now
 
 
 def fail(msg: str) -> None:
@@ -522,6 +572,18 @@ UNMEASURED: list = []
 CUPTI_WARM = False
 
 
+def device_kernels(prof) -> list:
+    """(name, us) of each device record of a finished torch.profiler
+    session: the records ``prof.events()`` lists, read from the raw ones
+    (``events()`` builds a Python object for every host op too, some
+    seconds for one NDH step's ~10^5 records)."""
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and e.name() not in ("[memory]", "[OutOfMemory]")
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def device_ms(fn, calls: int = 5) -> dict | None:
     """Device time of one call, by kernel name: the durations of the kernels
     ``fn`` launches under torch.profiler (CUPTI), averaged over ``calls``
@@ -547,10 +609,8 @@ def device_ms(fn, calls: int = 5) -> dict | None:
                 fn()
             torch.cuda.synchronize()
         by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us() / 1e3 / calls)
+        for name, us in device_kernels(prof):
+            by_name[name] = by_name.get(name, 0.0) + us / 1e3 / calls
         if by_name:
             return by_name
         say("  (torch.profiler recorded no device kernel; profiling again)")
@@ -1493,12 +1553,12 @@ def profile_device(fn, what: str, kinds: bool = False) -> float:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    kernels = device_kernels(prof)
+    busy_us = sum(us for _, us in kernels)
     by_name: dict = {}
-    for e in kernels:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, us in kernels:
+        n, total = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, total + us)
     idle = 1 - busy_us / wall_us
     say(f"  profile of one {what}: {len(kernels)} device kernels, busy "
         f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall (idle share "
@@ -2214,6 +2274,234 @@ def phase_bf16_moments(device, sizes, sl) -> dict:
         fail("the bf16-moment steps disagree between the card and the CPU")
     return {"ms": ms, "launches": counts, "state_bytes": low, "fp32_state_bytes": full,
             "agree_lr": err}
+
+
+# -- phases 43-44: the deployment's world on the card, and learning end to end -----------
+
+def rss_gib() -> dict:
+    """The host's resident memory now (VmRSS) and getrusage's peak, in GiB."""
+    out = {"peak_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key == "VmRSS":
+                out["rss_gib"] = int(value.split()[0]) / 2 ** 20
+    return out
+
+
+def gather_device_ms(tag: str, runtime, batch) -> dict:
+    """Device time of the decoder's table reads over one teacher-forced
+    episode of ``batch``: gather_step_inputs at each of its T steps, at the
+    rows and views the steps read (torch.profiler, mean of 5 passes); the
+    index / gather kernels, and every kernel of the calls."""
+    if REHEARSAL:
+        return {}
+    rows = torch.as_tensor(np.asarray(batch["cur_row"]), dtype=torch.int64).to(runtime.device)
+    views = torch.as_tensor(np.asarray(batch["view"]), dtype=torch.int64).to(runtime.device)
+
+    def episode():
+        with torch.inference_mode():
+            for t in range(rows.shape[1]):
+                gather_step_inputs(runtime, rows[:, t], views[:, t])
+
+    by_name = device_ms(episode)
+    if by_name is None:
+        return not_measured(f"the gathers, {tag}", "gathers_ms", "all_ms")
+    gathers = {n: ms for n, ms in by_name.items() if "index" in n.lower()
+               or "gather" in n.lower()}
+    out = {"gathers_ms": sum(gathers.values()), "all_ms": sum(by_name.values())}
+    say(f"  device time of one episode's table reads ({tag}, {rows.shape[1]} steps of "
+        f"{rows.shape[0]} rows; torch.profiler, mean of 5): index/gather kernels "
+        f"{out['gathers_ms']:.4f} ms ({len(gathers)} kinds), all of gather_step_inputs' "
+        f"kernels {out['all_ms']:.4f} ms")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        say(f"    {ms:8.4f} ms  {name[:100]}")
+    return out
+
+
+def phase_realscale(device, rs, sizes, sl) -> dict:
+    """43. The deployment's world on the card (tools/realscale_smoke.py's
+    configuration, visitron_torch.testing.realscale): (a) the world of 90
+    scans x 120 viewpoints, its bf16 scene table packed on the host into
+    page-locked memory and placed with one copy (1,592,524,800 bytes), then
+    two teacher-forced steps at T 10 planner_path and at T 40 trusted_path
+    (batch 64, BERT-base bf16): finite losses, launches a step as the small
+    world's; (b) the argmax serving rollout at T 10 on this runtime:
+    trajectories on graph edges, launches a batch, the decode loop under
+    torch.cuda.set_sync_debug_mode("error"); (c) the host seconds of the
+    world, the pack, the candidate tables and the placement, the host's
+    memory, the table's bytes on the card, the card's memory after
+    placement and its peak over the steps, the T 10 step's ms (median of 5
+    after 2 warm-up) and the device time of one episode's table reads, on
+    this runtime and on phase 10's 240-viewpoint runtime."""
+    layers = BertConfig(**rs["bert"]).num_hidden_layers
+    say(f"realscale: the deployment's world resident on the "
+        f"{'CPU' if REHEARSAL else 'card'} (tools/realscale_smoke.py's configuration)")
+    before = rss_gib()
+    mem0 = 0 if REHEARSAL else torch.cuda.memory_allocated()
+    rw = realscale.build_world(device, **rs["world"])
+    host = rss_gib()
+    table, feats = rw.table.table, rw.runtime.feats
+    placed = 0 if REHEARSAL else torch.cuda.memory_allocated() - mem0
+    want_bytes = table.shape[0] * geo.NUM_VIEWS * rw.world.scene_feat_dim * 2
+    card_bytes = feats.numel() * feats.element_size()
+    say(f"  {table.shape[0]} viewpoints ({len(rw.world.graphs)} scans); host seconds: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rw.seconds.items())
+        + f"; host table {str(table.dtype)[6:]}, page-locked {table.is_pinned()}; on the "
+        f"{feats.device.type}: {card_bytes} bytes {str(feats.dtype)[6:]} (expected "
+        f"{want_bytes}); the card's memory {placed / 2 ** 30:.3f} GiB placed")
+    say(f"  host memory: resident {before['rss_gib']:.2f} -> {host['rss_gib']:.2f} GiB, "
+        f"peak (getrusage) {before['peak_rss_gib']:.2f} -> {host['peak_rss_gib']:.2f} GiB")
+    if (table.dtype != torch.bfloat16 or feats.dtype != torch.bfloat16
+            or card_bytes != want_bytes or (not REHEARSAL and not table.is_pinned())):
+        fail(f"the scene table: host {table.dtype}, pinned {table.is_pinned()}, device "
+             f"{feats.dtype}, {card_bytes} bytes against {want_bytes}")
+    if not REHEARSAL and rs["world"] == {} and card_bytes != 1_592_524_800:
+        fail(f"the Matterport-scale table holds {card_bytes} bytes, not 1,592,524,800")
+    inst, tok = realscale.instances(rw, n=rs["instances"], seq=rs["seq"])
+
+    def agent_for(t_len):
+        return realscale.make_agent(rw, tok, t_len, seq=rs["seq"], dtype=rs["dtype"],
+                                    bert=rs["bert"], **rs["agent"])
+
+    out = {"viewpoints": int(table.shape[0]), "table_bytes": int(card_bytes),
+           "placed_bytes": int(placed), "host_seconds": rw.seconds,
+           "host_rss_gib": {"before": before, "after": host}, "launches": {}, "losses": {}}
+    reset_peak()
+    trained = None
+    for path_type, t_len in realscale.SHAPES:
+        agent = agent_for(t_len)
+        batch = realscale.first_batch(rw, inst, path_type, t_len, batch_size=rs["batch"])
+        zero_counts()
+        t0 = time.perf_counter()
+        state, losses = realscale.train_steps(agent, batch, 2)
+        losses = [float(x) for x in losses]
+        seconds = time.perf_counter() - t0
+        counts = {k: v // 2 for k, v in read_counts().items()}
+        say(f"  T {t_len} {path_type}, batch {rs['batch']}: losses {losses}, the two steps "
+            f"{seconds:.1f} s (the first with warm-up); peak so far {peak_gib():.2f} GiB")
+        if not np.isfinite(losses).all():
+            fail(f"non-finite losses at T {t_len} on the Matterport-scale world")
+        check_launches(f"T {t_len} step", counts, ndh_launches(layers))
+        if not REHEARSAL and read_counts() != {k: 2 * v for k, v in counts.items()}:
+            fail("the two steps launched different kernels")
+        out["launches"][f"t{t_len}_step"] = counts
+        out["losses"][f"t{t_len}"] = losses
+        if t_len == 10:
+            trained = (agent, state["params"])
+        del state
+    out["peak_gib"] = peak_gib()
+
+    say(f"realscale: the argmax serving rollout at T 10 on the "
+        f"{table.shape[0]}-viewpoint runtime")
+    agent, params = trained
+    eval_batcher = NavEpisodeBatcher(inst, rw.runtime, batch_size=rs["batch"])
+    n_batches = -(-len(inst) // rs["batch"])
+    agent.test(params, eval_batcher.eval_batches(), feedback="argmax")  # warm-up
+    zero_counts()
+    results, seconds, _, _ = counted_run(agent, params, eval_batcher, submit=False)
+    serve_counts = {k: v // n_batches for k, v in read_counts().items()}
+    check_trajectories(results, inst, rw.runtime, 10)
+    check_launches("serving, a batch", serve_counts, ndh_launches(layers, backward=False))
+    moves = np.mean([len(p) - 1 for p in results.values()])
+    say(f"  {len(results)} trajectories on graph edges (mean {moves:.2f} moves); "
+        f"{seconds * 1e3 / n_batches:.2f} ms/batch (one run)")
+    with torch.inference_mode():
+        batch = agent.trim_batch(next(iter(eval_batcher.eval_batches())))
+        enc = agent.encode(params, batch)
+        rows, views = agent._index(batch["start_rows"]), agent._index(batch["start_views"])
+        sync()
+        if not REHEARSAL:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            rolled = agent.decode_rollout(params, *enc, rows, views)
+        finally:
+            if not REHEARSAL:
+                torch.cuda.set_sync_debug_mode(0)
+    say("  the 10-step argmax decode loop of one batch ran without a synchronising call")
+    if not torch.isfinite(rolled[3].float().masked_fill(rolled[3] < -1e8, 0)).all():
+        fail("non-finite rollout logits on the Matterport-scale world")
+    out["launches"]["serving_batch"] = serve_counts
+    out["serving"] = {"trajectories": len(results), "mean_moves": float(moves),
+                      "ms_per_batch": seconds * 1e3 / n_batches}
+    del trained, agent, params, enc, rolled
+
+    say(f"realscale: the T 10 step ({rs['timed']} timed after 2 warm-up) and one episode's "
+        f"table reads, on this world and on phase 10's {sl['table'].table.shape[0]}-viewpoint "
+        "world, in this call")
+    out["t10_step_ms"], out["gathers"] = {}, {}
+    worlds = (("realscale", rw.runtime, inst, agent_for(10)),
+              ("bench", sl["runtime"], sl["train_instances"],
+               make_agent(sizes, sl["tok"], sl["runtime"], sizes["dtype"], device)))
+    for name, runtime, instances, agent in worlds:
+        batches = list(NavEpisodeBatcher(instances, runtime, batch_size=rs["batch"],
+                                         path_type="planner_path")
+                       .train_batches(2 + rs["timed"], episode_len=10))
+        n_rows = runtime.feats.shape[0]
+        say(f"  {name}: {n_rows} viewpoints, table {n_rows * runtime.feats[0].nbytes / 1e6:.1f}"
+            " MB")
+        start, state, losses, ms, _, peak = timed_steps(agent, agent.train_step_fn(),
+                                                        agent.init_state, batches, 2)
+        med = check_trained(start, state, losses, ms, peak,
+                            {"batch": rs["batch"], "episode_len": 10})
+        out["t10_step_ms"][name] = {"median": med, "range": (min(ms), max(ms))}
+        out["gathers"][name] = gather_device_ms(name, runtime, batches[2])
+        del agent, start, state
+    del worlds, rw, table, feats
+    release()
+    return out
+
+
+def phase_science(device, sci) -> dict:
+    """44. The science run (tools/synthetic_e2e.py's, through
+    visitron_torch.testing.science): BERT-base bf16, T 10 planner_path,
+    batch 32, Adam 1e-4 on the seed-5 world of 4 scans x 50 viewpoints,
+    ``iters`` steps between two argmax evaluations of the first 48 training
+    episodes by Evaluator.  Gates: every loss finite, launches a step as an
+    NDH step's, the mean loss of the last 50 steps <= 0.6 x that of the
+    first 50, GP after - GP before >= 1.0 m, SR after > SR before (reported,
+    not enforced, in a rehearsal); nav actions/s over the training loop."""
+    iters, window = sci["iters"], min(50, sci["iters"] // 2)
+    say(f"science: train -> argmax rollout -> Evaluator, batch {sci['batch']}, T 10 "
+        f"planner_path, {iters} iterations (tools/synthetic_e2e.py's run)")
+    sc = science.setup(batch=sci["batch"], episodes=sci["episodes"], seq=sci["seq"],
+                       device=device, dtype=sci["dtype"], world=sci["world"],
+                       bert=sci["bert"], **sci["agent"])
+    layers = sc.agent.cfg.num_hidden_layers
+    state = sc.agent.init_state()
+    before = science.brief(science.evaluate(sc, state["params"]))
+    zero_counts()
+    state, losses, seconds = science.train(sc, state, iters, log=say)
+    counts = read_counts()
+    after = science.brief(science.evaluate(sc, state["params"]))
+    del state
+    per_step = {k: v // iters for k, v in counts.items()}
+    check_launches("a step", per_step, ndh_launches(layers))
+    if not REHEARSAL and counts != {k: iters * v for k, v in per_step.items()}:
+        fail(f"launches over {iters} steps {counts}")
+    first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
+    actions = sci["batch"] * 10 * iters / seconds
+    out = {"before": before, "after": after, "loss_first": first, "loss_last": last,
+           "window": window, "iters": iters, "seconds": seconds, "actions_per_s": actions,
+           "launches": per_step}
+    say("  before: " + ", ".join(f"{k} {v:.3f}" for k, v in before.items())
+        + "; after: " + ", ".join(f"{k} {v:.3f}" for k, v in after.items()))
+    say(f"  mean loss of the first {window} steps {first:.4f}, of the last {window} "
+        f"{last:.4f} (ratio {last / first:.3f}); {seconds:.1f} s of training, "
+        f"{actions:.1f} nav actions/s")
+    if not np.isfinite(losses).all():
+        fail("non-finite losses in the science run")
+    gates = {"loss ratio <= 0.6": last <= 0.6 * first,
+             "GP gain >= 1.0 m": after["gp"] - before["gp"] >= 1.0,
+             "SR after > SR before": after["sr"] > before["sr"]}
+    say("  gates: " + ", ".join(f"{k} {'met' if v else 'MISSED'}" for k, v in gates.items())
+        + (" (reported, not enforced, at the rehearsal's size)" if REHEARSAL else ""))
+    if not REHEARSAL and not all(gates.values()):
+        fail(f"the science run missed {[k for k, v in gates.items() if not v]}")
+    out["gates"] = gates
+    del sc
+    release()
+    return out
 
 
 # -- phase 22: the run CLI ---------------------------------------------------------------
@@ -3432,7 +3720,7 @@ def kernel_count(fn) -> int | None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    n = len(device_kernels(prof))
     return n or None
 
 
@@ -4082,12 +4370,12 @@ def dp_profile(fn, what: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels)
-    coll = [e for e in kernels if "nccl" in e.name.lower()]
-    coll_us = sum(e.time_range.elapsed_us() for e in coll)
+    kernels = device_kernels(prof)
+    busy = sum(us for _, us in kernels)
+    coll = [(name, us) for name, us in kernels if "nccl" in name.lower()]
+    coll_us = sum(us for _, us in coll)
     # torch.cat's kernel: the flat buckets' packing (and the model's own cats).
-    cat_us = sum(e.time_range.elapsed_us() for e in kernels if "CatArrayBatchedCopy" in e.name)
+    cat_us = sum(us for name, us in kernels if "CatArrayBatchedCopy" in name)
     out = {"busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3,
            "idle": (1 - busy / wall_us) if kernels else None,
            "collective_ms": coll_us / 1e3, "collective_kernels": len(coll),
@@ -5097,6 +5385,12 @@ def phase_sizes() -> dict:
         extract = {"face": 32}
         mp = {"heads": 4, "head_dim": 64, "K1": (2, 128), "K4": (2, 256), "K5": (2, 256)}
         pp = {"microbatches": 2, "steps": 2}
+        tiny_world = {"num_scans": 2, "viewpoints_per_scan": 12, "scene_feat_dim": 32}
+        tiny_agent = {"rnn_dim": 24, "encoder_hidden_size": 24}
+        rs = {"world": tiny_world, "instances": 8, "seq": 128, "batch": 4, "timed": 2,
+              "bert": sizes["bert"], "agent": tiny_agent, "dtype": torch.float32}
+        sci = {"world": tiny_world, "episodes": 12, "seq": 128, "batch": 4, "iters": 20,
+               "bert": sizes["bert"], "agent": tiny_agent, "dtype": torch.float32}
     else:
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
         # R 12288: the S 768 pretraining step's; 16384 and 32768: NDH at S 256
@@ -5136,9 +5430,32 @@ def phase_sizes() -> dict:
               "K5": (16, 1024)}
         # Phase 39: pp 2 of BERT-base's 12 layers, 8 microbatches of 2 rows.
         pp = {"microbatches": 8, "steps": 4}
+        # Phases 43-44: tools/realscale_smoke.py's and tools/synthetic_e2e.py's
+        # configurations (their worlds: visitron_torch.testing.realscale.WORLD,
+        # science.WORLD), the science run at the tool's 1000 iterations: at
+        # 400, the decoder's 0.5 dropouts leave the loss at 0.68-0.73x its
+        # start on the card and, at a reduced width on the CPU, in the JAX
+        # package too (PERF.md).
+        rs = {"world": {}, "instances": 128, "seq": 512, "batch": 64, "timed": 5,
+              "bert": {}, "agent": {}, "dtype": torch.bfloat16}
+        sci = {"world": {}, "episodes": 200, "seq": 512, "batch": 32, "iters": 1000,
+               "bert": {}, "agent": {}, "dtype": torch.bfloat16}
     return {"attn": attn, "ln": ln, "sizes": sizes, "ce": ce, "attn4": attn4, "pre": pre,
             "long": long, "flash": flash, "spk": spk, "opt": opt, "scene": scene,
-            "regions": regions, "extract": extract, "mp": mp, "pp": pp}
+            "regions": regions, "extract": extract, "mp": mp, "pp": pp, "realscale": rs,
+            "science": sci}
+
+
+def share_bytecode() -> tempfile.TemporaryDirectory:
+    """Have the processes the script starts (torchrun and its ranks) keep
+    and reuse the bytecode of the modules they import, in a directory
+    removed at exit: on the card's machine Python runs with
+    PYTHONDONTWRITEBYTECODE and compiles every module it imports from
+    source, some 1,700 (torch's) and ~8 s in each process."""
+    pyc = tempfile.TemporaryDirectory(prefix="chip_smoke_pyc_")
+    os.environ["PYTHONPYCACHEPREFIX"] = pyc.name
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    return pyc
 
 
 def main(argv=None) -> int:
@@ -5164,7 +5481,8 @@ def main(argv=None) -> int:
     REHEARSAL = args.cpu_rehearsal
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    pyc = share_bytecode()  # noqa: F841 (removed when it is collected at exit)
+    t_start = LAP[0] = time.perf_counter()
     device = "cpu" if REHEARSAL else "cuda"
     sz = phase_sizes()
     attn, ln, sizes, ce, attn4, pre, long, flash, spk, opt, scene, regions, extract = (
@@ -5173,16 +5491,24 @@ def main(argv=None) -> int:
     dev_info = phase_device()
     smi = dev_info.pop("nvidia_smi", None)
     phase_build()
+    lap("phases 1-2 (device, build)")
+    # First, before any torch.profiler session: after the profiled phases
+    # (CUPTI kept up, TEARDOWN_CUPTI=0) its launch-bound loop ran at 0.8x
+    # the nav actions/s of a process of its own (PERF.md).
+    sci = phase_science(device, sz["science"])
+    lap("phase 44 (the science run)")
     times = {"k1": phase_k1(device, attn), "k2": phase_k2(device, ln),
              "k1b": phase_k1b(device, attn), "k2b": phase_k2b(device, ln),
              **phase_k3(device, ce), **phase_k4(device, attn4), **phase_k5(device, flash)}
     mp_kernels = phase_mp_kernels(device, sz["mp"])
+    lap("phases 3-9, 36 (the kernels against their twins)")
     sl = phase_serving(device, sizes)
     sl["ln_rows"] = sizes["batch"] * sl["bucket"]
     phase_agreement(device, sizes, sl)
     tr = phase_train(device, sizes, sl)
     tr["ln_rows"] = sizes["batch"] * tr["bucket"]
     phase_train_agreement(device, sizes, sl)
+    lap("phases 10-11 (serving, train, agreement)")
     pt = phase_pretrain(device, pre)
     del pt["trainer"], pt["state"]  # the long-context phase's peak memory is its own
     phase_pretrain_agreement(device, pre)
@@ -5193,6 +5519,7 @@ def main(argv=None) -> int:
     phase_pretrain_agreement(device, long, "K5", "long-context agreement",
                              use_flash_attention=True)
     phase_long_dropout_agreement(device, long)
+    lap("phases 12-15 (pretraining)")
     st = phase_student(device, sizes, sl, rl=False)
     del st["state"]
     rl = phase_student(device, sizes, sl, rl=True)
@@ -5201,13 +5528,18 @@ def main(argv=None) -> int:
     phase_student_agreement(device, sizes, sl)
     phase_sampling(device, sizes["draws"])
     phase_evaluate(sl)
+    lap("phases 16-21 (sampled, RL, sampling, evaluate)")
     t40 = phase_t40(device, sizes, sl)
     bf16 = phase_bf16_moments(device, sizes, sl)
+    lap("phases 41-42 (T 40, bf16 moments)")
+    rs = phase_realscale(device, sz["realscale"], sizes, sl)
+    lap("phase 43 (the Matterport-scale world)")
     phase_turn_based_agreement(device, sizes, sl)
     speaker = phase_speaker(device, spk, sl)
     options = phase_options(device, opt)
     scene_out = phase_scene(device, scene)
     regions_out = phase_regions(device, regions)
+    lap("phases 23 (agreement), 27, 29-31 (speaker, options, features)")
     with tempfile.TemporaryDirectory() as tmp, cli_bert():
         cli = phase_cli(device, tmp)
         cli["turn_based"] = phase_turn_based(device, tmp, cli)
@@ -5217,13 +5549,17 @@ def main(argv=None) -> int:
         cli["speaker"] = phase_speaker_cli(device, tmp, cli)
         cli["no_fused_ln"] = phase_no_fused_ln_cli(device, tmp, cli)
         cli["extract"] = phase_extract_cli(device, tmp, extract)
+    lap("phases 22-26, 28, 29, 32 (the CLI)")
     with tempfile.TemporaryDirectory() as tmp:
         dp = phase_dp(tmp)
+    lap("phases 33-35 (dp)")
     with tempfile.TemporaryDirectory() as tmp:
         mp = phase_mp(tmp)
+    lap("phases 37-38 (tp / sp / cp)")
     mp["kernels"] = mp_kernels
     with tempfile.TemporaryDirectory() as tmp:
         pp = phase_pp(tmp)
+    lap("phases 39-40 (pp)")
     say(f"speaker: step {speaker['ms']:.2f} ms (full width), CLI iteration "
         f"{cli['speaker']['ms']:.1f} ms, --aug_data fine-tune iteration "
         f"{cli['speaker']['vp_ms']:.1f} ms, phase 22's viewpoint iteration {cli['vp_ms']:.1f} ms")
@@ -5241,8 +5577,17 @@ def main(argv=None) -> int:
     if REHEARSAL:
         return 0
     say(f"nvidia-smi: {smi}")
-    print(json.dumps(kernels_line(times, sl, tr, pt, lc, st, rl, cli, options, scene_out,
-                                  regions_out, dp, mp, pp, t40, bf16)), flush=True)
+    line = kernels_line(times, sl, tr, pt, lc, st, rl, cli, options, scene_out, regions_out,
+                        dp, mp, pp, t40, bf16)
+    line["realscale"] = {"viewpoints": rs["viewpoints"], "table_bytes": rs["table_bytes"],
+                         "launches": rs["launches"], "peak_gib": rs["peak_gib"],
+                         "t10_step_ms": {k: v["median"] for k, v in rs["t10_step_ms"].items()},
+                         "gathers_ms": {k: v.get("gathers_ms") for k, v in rs["gathers"].items()}}
+    line["science"] = {"iterations": sci["iters"], "before": sci["before"],
+                       "after": sci["after"], "loss_first_50": sci["loss_first"],
+                       "loss_last_50": sci["loss_last"],
+                       "nav_actions_per_s": sci["actions_per_s"]}
+    print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0
 

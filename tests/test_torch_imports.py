@@ -1,5 +1,6 @@
 """visitron_torch stands alone: it imports nothing of JAX or of the JAX
-package, and its entry points run on the card unless asked for the CPU."""
+package (nor does chip_smoke.py or the port's tools), and its entry points
+run on the card unless asked for the CPU."""
 
 import ast
 import os
@@ -13,7 +14,9 @@ import torch
 import visitron_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "visitron_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "visitron_tpu")
+# The port's tools (the JAX tools' counterparts on the card).
+TOOLS = ("tools/torch_realscale_smoke.py", "tools/torch_synthetic_e2e.py")
 
 
 def _port_sources():
@@ -23,12 +26,14 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    for tool in TOOLS:
+        yield os.path.join(ROOT, tool)
 
 
 def test_every_module_imports_with_jax_blocked():
-    """A fresh interpreter with jax, flax, optax and visitron_tpu made
-    unimportable (entries already loaded at start-up are blocked too)
-    imports every module of the port and chip_smoke."""
+    """A fresh interpreter with jax, flax, optax, ml_dtypes and visitron_tpu
+    made unimportable (entries already loaded at start-up are blocked too)
+    imports every module of the port, chip_smoke and the port's tools."""
     code = f"""
 import importlib, pkgutil, sys
 blocked = {BLOCKED!r}
@@ -42,6 +47,13 @@ names = [m.name for m in pkgutil.walk_packages(visitron_torch.__path__, 'visitro
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import importlib.util
+for path in {TOOLS!r}:
+    spec = importlib.util.spec_from_file_location(path.rsplit('/', 1)[-1][:-3], path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert callable(tool.main)
+from visitron_torch.testing import realscale, science
 print(len(names))
 print(' '.join(names))
 """
@@ -56,6 +68,9 @@ print(' '.join(names))
     assert {"visitron_torch.ops.ring_attention", "visitron_torch.parallel.mesh",
             "visitron_torch.parallel.pipeline", "visitron_torch.parallel.dryrun",
             "visitron_torch.utils.benchmark"} <= set(names.split())
+    # The deployment's world and the science run (the JAX tools' counterparts).
+    assert {"visitron_torch.testing.realscale",
+            "visitron_torch.testing.science"} <= set(names.split())
 
 
 def test_sources_import_nothing_of_jax():
@@ -92,7 +107,8 @@ def test_package_lists_every_ported_module():
                 "models.resnet", "models.detector", "pipelines.rendering",
                 "pipelines.scene_features", "pipelines.region_features",
                 "pipelines.orientation", "parallel", "parallel.mesh",
-                "parallel.pipeline", "utils.benchmark"):
+                "parallel.pipeline", "utils.benchmark", "testing.realscale",
+                "testing.science"):
         assert f"visitron_torch.{mod}" in names, mod
 
 

@@ -19,7 +19,10 @@ turn-based helpers (``navigable_at``, ``turn_based_teacher``,
 ``apply_turn_action``, ``turn_based_rollout_arrays``) work on the host
 copies.
 Integer tables are int64 on the device (PyTorch's index type) and int32 on
-the host, as in the JAX package.
+the host, as in the JAX package.  A scene table packed as a torch tensor in
+the device dtype (``SceneFeatureTable.pack(dtype=torch.bfloat16)``) goes to
+the device as it is, in one copy, page-locked if it was packed so; the
+host table stays where it is.
 """
 
 from __future__ import annotations
@@ -97,6 +100,8 @@ class NavRuntime:
             return torch.as_tensor(a, dtype=torch.int64).to(dev)
 
         def float_table(a, dtype):
+            if isinstance(a, torch.Tensor):  # a packed torch table: no fp32 copy
+                return a.to(dev, dtype)
             return torch.as_tensor(np.asarray(a, np.float32)).to(dev, dtype)
 
         return cls(

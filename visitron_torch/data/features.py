@@ -6,7 +6,8 @@ per (scan, viewpoint) with base64 (36, 2048) float32 features.
 
 `SceneFeatureTable` packs all scans into a single (total_viewpoints, 36, D)
 array with an id->row index, so the rollout hot loop is a device gather
-instead of a host dict lookup + copy per step.  Host-side numpy; the runtime
+instead of a host dict lookup + copy per step.  On the host: a numpy array,
+or a torch tensor for a dtype numpy lacks (bfloat16); the runtime
 (agents/runtime.py) moves the table onto the device.
 
 `RegionFeatureStore` holds per-view region features and detector tokens for
@@ -24,6 +25,7 @@ import sys
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from visitron_torch import geometry as geo
 
@@ -84,7 +86,7 @@ class SceneFeatureTable:
     whole batch's panorama features are one integer-gather on device.
     """
 
-    table: np.ndarray  # (total_vps, 36, D) float32
+    table: np.ndarray | torch.Tensor  # (total_vps, 36, D), host memory
     row_index: dict[str, int]  # "scan_vp" -> row
     scan_offsets: dict[str, int]  # scan -> first row
     image_w: int = 640
@@ -94,35 +96,44 @@ class SceneFeatureTable:
     def row(self, scan: str, viewpoint: str) -> int:
         return self.row_index[f"{scan}_{viewpoint}"]
 
-    def get(self, scan: str, viewpoint: str) -> np.ndarray:
-        """The (36, D) features of one viewpoint (the environment's join)."""
+    def get(self, scan: str, viewpoint: str) -> np.ndarray | torch.Tensor:
+        """The (36, D) features of one viewpoint (the environment's join): a
+        row of the table, numpy or torch as the table is."""
         return self.table[self.row(scan, viewpoint)]
 
     @classmethod
     def pack(cls, graphs: dict, features: dict[str, np.ndarray],
              image_w: int = 640, image_h: int = 480, vfov: int = 60,
              dtype=np.float32) -> "SceneFeatureTable":
-        """Pack a {scan_vp: (36, D)} dict scan-contiguously (graph index order)."""
-        rows: list[np.ndarray] = []
+        """Pack a {scan_vp: (36, D)} dict scan-contiguously (graph index order)
+        into a table allocated once and filled row by row.
+
+        ``dtype``: a numpy dtype gives a numpy table; a torch dtype a torch
+        tensor on the host (torch.bfloat16: the JAX package's
+        ``ml_dtypes.bfloat16`` table, bit for bit, both rounding to nearest
+        even), page-locked where a card is present (the runtime then copies
+        it to the card in one transfer)."""
         row_index: dict[str, int] = {}
         scan_offsets: dict[str, int] = {}
-        r = 0
         for scan in sorted(graphs):
-            g = graphs[scan]
-            scan_offsets[scan] = r
-            for vp in g.viewpoints:
-                key = f"{scan}_{vp}"
-                rows.append(np.asarray(features[key], dtype=dtype))
-                row_index[key] = r
-                r += 1
-        return cls(
-            table=np.stack(rows, axis=0),
-            row_index=row_index,
-            scan_offsets=scan_offsets,
-            image_w=image_w,
-            image_h=image_h,
-            vfov=vfov,
-        )
+            scan_offsets[scan] = len(row_index)
+            for vp in graphs[scan].viewpoints:
+                row_index[f"{scan}_{vp}"] = len(row_index)
+        shape = (len(row_index), *np.shape(features[next(iter(row_index))]))
+        if isinstance(dtype, torch.dtype):
+            table = torch.empty(shape, dtype=dtype, pin_memory=torch.cuda.is_available())
+        else:
+            table = np.empty(shape, dtype)
+        for key, r in row_index.items():
+            if isinstance(table, np.ndarray):
+                table[r] = features[key]
+                continue
+            src = np.asarray(features[key], np.float32)
+            if not src.flags.writeable:  # e.g. np.frombuffer rows of a TSV file
+                src = src.copy()
+            table[r].copy_(torch.from_numpy(src))
+        return cls(table=table, row_index=row_index, scan_offsets=scan_offsets,
+                   image_w=image_w, image_h=image_h, vfov=vfov)
 
     @classmethod
     def zeros(cls, graphs: dict, feature_dim: int, **kw) -> "SceneFeatureTable":
