@@ -73,13 +73,18 @@ Phases, one or more lines each; any failure raises and exits non-zero:
  11. train    the NDH teacher-forced train step, ViewpointAgent.train_step_fn
               over NavEpisodeBatcher.train_batches (planner_path, batch 64,
               10-step episodes, the agent's dropouts, Adam at 5e-5, clip 40):
-              2 warm-up steps and 8 timed; losses finite, params changed,
+              2 warm-up steps and 5 timed; losses finite, params changed,
               the launches of every kernel counted around one step and the
               timed run; ms per step, nav actions/s, the forward / backward /
-              optimizer split, the device idle share from torch.profiler, peak
-              memory; then one fp32 step with every dropout at 0 on a 2-item
-              batch on the card and on the CPU: loss, gradients and updated
-              parameters agree;
+              optimizer split, peak memory; tools/torch_profile_nav_step.py's
+              summary (visitron_torch.testing.nav_profile) of 3 steps under
+              torch.profiler: busy time, idle share, device time by kind of
+              kernel and the top kernels, gated on the device kernels a step
+              other than host-to-device copies (14840; the copies vary, 4-7
+              a step) and on K1f / K1b / K2f / K2b in the trace at the
+              counted launches; then one fp32 step with every dropout at 0 on a
+              2-item batch on the card and on the CPU: loss, gradients and
+              updated parameters agree;
  12. pretrain the multimodal pretraining step, PretrainTrainer.step_fn, at
               tools/bench_pretrain.py's configuration (BERT-base bf16, vocab
               30525, batch 16 x (512 text + 256 regions), MLM + next-action +
@@ -114,7 +119,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
  16. sampled train: the NDH student-forced train step,
               ViewpointAgent.sample_train_step_fn("sample"), at phase 11's
               set-up over NavEpisodeBatcher.with_sample_teacher batches: 2
-              warm-up steps and 8 timed, launches per step K1f 12, K1b 12,
+              warm-up steps and 5 timed, launches per step K1f 12, K1b 12,
               K2f 25, K2b 25, losses finite, params changed, ms per step,
               nav actions/s, peak memory, the idle share; then one step each
               with argmax, topk, nucleus, temperature and penalty feedback;
@@ -251,8 +256,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
  34. dp CLI: ``torch.distributed.run --nproc_per_node 1 -m
               visitron_torch.run viewpoint --debug --zero1`` (4 iterations,
               checkpoints 2 and 4, val) and ``pretrain --debug --fsdp``
-              (one epoch): checkpoints in the single-device layout, finite
-              losses, seconds with start-up;
+              (one epoch), both at once: checkpoints in the single-device
+              layout, finite losses, seconds with start-up (contended: the
+              two runs share the card and the host);
  35. dp two ranks: ``--dp-phase two`` with 2 processes: NCCL on two
               cards, else gloo with CUDA tensors on cuda:0 (NCCL refuses
               two ranks on one card); a probe of the collectives the group
@@ -290,8 +296,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
  38. mesh CLI: ``torch.distributed.run --nproc_per_node 1 -m
               visitron_torch.run pretrain --debug --mesh_sp 1`` (one
               epoch at batch 8) and ``viewpoint --debug --mesh_tp 1`` (2
-              iterations): checkpoints, finite losses, seconds with
-              start-up;
+              iterations), both at once: checkpoints, finite losses,
+              seconds with start-up (contended: the two runs share the card
+              and the host);
  39. pipeline two ranks: ``--pp-phase two`` with 2 processes, NCCL on two
               cards, else gloo with CUDA tensors on cuda:0, whose stage
               transfers go through the host (``parallel.p2p_host_staged``,
@@ -319,7 +326,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
  41. T 40 (in the main process, after phase 21): bench.py's long NDH
               workload (BENCH_EPISODE_LEN=40, trusted_path) at phase 10's
               world and width: the teacher-forced step (batch 64, the
-              agent's dropouts; 2 warm-up and 5 timed steps), launches a
+              agent's dropouts; 2 warm-up and 3 timed steps), launches a
               step K1f 12, K1b 12, K2f 25, K2b 25 as at 10 steps (the
               encoder runs once an episode), ms a step, nav actions/s,
               the idle share, peak memory; the argmax serving rollout at
@@ -356,7 +363,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               the host's resident and peak memory, the card's memory after
               placement and its peak over the steps, and in the same call
               on this world and on phase 10's 240-viewpoint world (35.4 MB,
-              inside the 50 MB L2): the T 10 step's ms (median of 5 after 2
+              inside the 50 MB L2): the T 10 step's ms (median of 3 after 2
               warm-up) and the device time of one episode's table reads
               (gather_step_inputs at its 10 steps, torch.profiler);
  44. science: the end-to-end science run (tools/synthetic_e2e.py's,
@@ -371,6 +378,23 @@ Phases, one or more lines each; any failure raises and exits non-zero:
               before >= 1.0 m, Success Rate after > before; nav actions/s
               over the training loop (batch x 10 a step).  It runs right
               after phase 2, before any torch.profiler session.
+ 45. aug_ab   the back-translation A/B (tools/aug_ab.py's chain, through
+              visitron_torch.testing.aug_ab) on its seed-13
+              directional-language world at its widths: the speaker (LSTM
+              128, feature dropout 0.6, movement frame) 600 iterations, 300
+              captioned walks, a fresh follower (BERT 2 x 128, bf16) 250
+              iterations an arm, baseline and aug, each scored on the 64
+              held-out episodes; gates fixed in PERF.md before its first
+              run at these settings on the card: records == instances ==
+              300, every record a walk over graph edges, no K1-K5 launch in
+              the speaker's steps or the augment, the follower's launches a
+              step as counted from the code (K2f / K2b 5, no K1: head dim
+              32), its evaluation's (K2f 5 a batch), the speaker's word CE
+              at its last log over its first, the captions' parse and hop
+              accuracy, the hop accuracy over that of the same captions
+              rotated one walk on (a speaker blind to its trajectory scores
+              the same on both), each arm's loss ratio; ΔGP printed, not
+              gated.  It runs right after phase 44, in the main process.
 
 The line before the last is a JSON object listing each kernel with its
 launches in its path's run (K1f and K2f: serving; K1b and K2b: train; K3f,
@@ -390,12 +414,19 @@ such a time is null, and the run fails where K1f, K2f, K1b or K2b has
 none); beside the kernels, ``realscale`` (phase 43: the viewpoints, the
 table's bytes on the card, the launches a step at T 10 and T 40 and a
 serving batch, the peak GiB over the steps, the T 10 step's ms and the table
-reads' device ms on both worlds) and ``science`` (phase 44: the iterations,
+reads' device ms on both worlds), ``science`` (phase 44: the iterations,
 GP, SR, SPL and nDTW before and after, the mean loss of the first and of
-the last 50 steps, nav actions/s); the last line is ``{"ok": true,
-"device": {...}}``.  A rehearsal prints neither; it runs phases 43-44 on
-2 scans x 12 viewpoints, 32-d, and 20 iterations, and reports the
-learning gates without enforcing them at that size.
+the last 50 steps, nav actions/s), ``aug_ab`` (phase 45: the captions'
+fidelity and that of the control, the captions rotated one walk on, each
+arm's held-out GP, SR, SPL and nDTW, ΔGP, the iterations, records,
+seconds and the launches of the speaker and augment, a follower step and
+an eval batch) and ``ndh_step_profile`` (phase 11's 3 profiled
+steps: ms, busy ms, idle share and kernels a step, device ms by kind); the
+last line is ``{"ok": true, "device": {...}}``.  A rehearsal prints
+neither; it runs phases 43-45 on 2 scans x 12 viewpoints, 32-d, and 20
+iterations (phase 45: 200 speaker and 20 follower iterations, 16 records,
+one BERT layer), and reports the learning gates without enforcing them at
+that size.
 """
 
 from __future__ import annotations
@@ -438,7 +469,8 @@ from visitron_torch.models import BertConfig
 from visitron_torch.models.layers import DropoutRng
 from visitron_torch.models.lstm import masked_lstm_scan
 from visitron_torch.ops import attention as attn_ops
-from visitron_torch.ops.attention import (flash_attention, flash_attention_bwd,
+from visitron_torch.ops.attention import (attention_supports_fused, flash_attention,
+                                          flash_attention_bwd,
                                           flash_attention_bwd_reference,
                                           flash_attention_reference,
                                           fused_attention, fused_attention_bwd,
@@ -458,7 +490,8 @@ from visitron_torch.ops.layernorm import (fused_add_layernorm, fused_add_layerno
 from visitron_torch.parallel.pipeline import PipelinePretrainTrainer
 from visitron_torch.train import PretrainTrainer
 from visitron_torch.train.optim import agent_optimizer, apply_updates, tree_leaves
-from visitron_torch.testing import SyntheticWorld, realscale, science
+from visitron_torch.testing import SyntheticWorld, aug_ab, nav_profile, realscale, science
+from visitron_torch.testing.nav_profile import device_kernels
 from visitron_torch.testing.synthetic import _TARGETS, _WORDS
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
@@ -570,18 +603,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # Tags of the device times that no profiling session gave.
 UNMEASURED: list = []
 CUPTI_WARM = False
-
-
-def device_kernels(prof) -> list:
-    """(name, us) of each device record of a finished torch.profiler
-    session: the records ``prof.events()`` lists, read from the raw ones
-    (``events()`` builds a Python object for every host op too, some
-    seconds for one NDH step's ~10^5 records)."""
-    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3)
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == torch.autograd.DeviceType.CUDA
-            and e.name() not in ("[memory]", "[OutOfMemory]")
-            and not getattr(e, "is_hidden_event", lambda: False)()]
 
 
 def device_ms(fn, calls: int = 5) -> dict | None:
@@ -1528,22 +1549,9 @@ def profile_rollout(agent, params, batch) -> None:
         profile_device(lambda: agent.device_rollout(params, batch), "device rollout")
 
 
-# Device kernels by kind, for the pretrain step's breakdown (first match).
-# K1, K4 and K5 launch the same device kernels (csrc/attention.cu).
-KERNEL_KINDS = (("K1/K4/K5 attention", ("::attention_fwd", "::attention_bwd")),
-                ("K3 softmax-CE", ("::ce_fwd", "::ce_bwd")),
-                ("K2f add+LayerNorm", ("::add_layernorm_fwd",)),
-                ("K2b add+LayerNorm backward", ("::add_layernorm_bwd",)),
-                ("GEMM (cuBLAS/CUTLASS)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
-                ("host-to-device copies", ("Memcpy HtoD",)),
-                ("optimizer (foreach)", ("foreach", "multi_tensor")),
-                ("other elementwise / reductions", ("",)))
-
-
 def profile_device(fn, what: str, kinds: bool = False) -> float:
-    """Run ``fn`` once warm, then once under torch.profiler (CUPTI); print the
-    device busy time, the idle share and the top kernels (with ``kinds``,
-    also the busy time by kind of kernel); return the idle share."""
+    """Run ``fn`` once warm, then once under torch.profiler (CUPTI); print
+    nav_profile's summary of it (say_profile); return the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1552,28 +1560,25 @@ def profile_device(fn, what: str, kinds: bool = False) -> float:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = device_kernels(prof)
-    busy_us = sum(us for _, us in kernels)
-    by_name: dict = {}
-    for name, us in kernels:
-        n, total = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, total + us)
-    idle = 1 - busy_us / wall_us
-    say(f"  profile of one {what}: {len(kernels)} device kernels, busy "
-        f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall (idle share "
-        f"{idle:.1%}; the wall includes the profiler's own cost)")
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        say(f"    {us / 1e3:8.3f} ms  {n:5d} x  {name[:90]}")
+        wall_s = time.perf_counter() - t0
+    summary = nav_profile.summarize(device_kernels(prof), 1, wall_s)
+    say_profile(summary, f"one {what}", kinds)
+    return summary["idle_share"]
+
+
+def say_profile(prof: dict, what: str, kinds: bool = True) -> None:
+    """Print a nav_profile summary: the device kernels, busy time and wall
+    a step, the idle share, the top 8 kernels and (with ``kinds``) the busy
+    time by kind of kernel."""
+    say(f"  profile of {what}: {prof['kernels_per_step']:g} device kernels a step, busy "
+        f"{prof['busy_ms_per_step']:.2f} ms of {prof['ms_per_step']:.2f} ms wall a step "
+        f"(idle share {prof['idle_share']:.1%}; the wall includes the profiler's own cost)")
+    for name, ms in list(prof["top_ops_ms_per_step"].items())[:8]:
+        say(f"    {ms:8.3f} ms  {name[:90]}")
     if kinds:
-        sums = {kind: [0, 0.0] for kind, _ in KERNEL_KINDS}
-        for name, (n, us) in by_name.items():
-            kind = next(k for k, keys in KERNEL_KINDS if any(key in name for key in keys))
-            sums[kind][0] += n
-            sums[kind][1] += us
-        say("  busy time by kind: " + "; ".join(
-            f"{kind} {us / 1e3:.2f} ms ({n} kernels)" for kind, (n, us) in sums.items()))
-    return idle
+        say("  busy time a step by kind: " + "; ".join(
+            f"{kind} {ms:.3f} ms ({prof['groups_kernels_per_step'][kind]:g} kernels)"
+            for kind, ms in prof["groups_ms_per_step"].items()))
 
 
 def phase_agreement(device, sizes, sl) -> None:
@@ -1648,7 +1653,7 @@ def check_counts(per_step: dict, totals: dict, want: dict, n_steps: int) -> None
 def phase_train(device, sizes, sl) -> dict:
     say("train: NDH teacher-forced train step, ViewpointAgent.train_step_fn")
     agent, runtime, cfg = sl["agent"], sl["runtime"], sl["agent"].cfg
-    n_warm, n_timed = 2, 8
+    n_warm, n_timed = 2, 5
     t0 = time.perf_counter()
     batcher = NavEpisodeBatcher(sl["train_instances"], runtime, batch_size=sizes["batch"],
                                 path_type="planner_path")
@@ -1664,12 +1669,47 @@ def phase_train(device, sizes, sl) -> dict:
                                                          batches, n_warm)
     med = check_trained(start, state, losses, ms, peak, sizes)
     time_split(agent, state, batches[n_warm])
-    idle = None if REHEARSAL else profile_device(
-        lambda: step(state, batches[n_warm]), "train step")
+    prof = None if REHEARSAL else profile_train_steps(step, state, batches[n_warm],
+                                                      cfg.num_hidden_layers)
     bucket = max(set(buckets[n_warm:]), key=buckets[n_warm:].count)
     return {"ms_per_step": med, "range": (min(ms), max(ms)), "k1b": totals["K1b"],
-            "k2b": totals["K2b"], "bucket": bucket, "peak_bytes": peak, "idle": idle,
-            "counts": totals}
+            "k2b": totals["K2b"], "bucket": bucket, "peak_bytes": peak,
+            "idle": None if prof is None else prof["idle_share"], "counts": totals,
+            "profile": prof}
+
+
+# Device kernels in one NDH train step at BERT-base, host-to-device copies
+# left out: 14840 on two batches of bench.py's world.  The copies vary from
+# step to step (4-7), so the earlier one-step profile's 14844 and 14845
+# (PERF.md) held 4 and 5 of them.
+NDH_STEP_COMPUTE_KERNELS = 14840
+COPIES = "host-to-device copies"
+# A port kernel's launch count in a profile: the device kernel each launch
+# runs once (nav_profile.LAUNCH_KERNELS).
+PROFILED_AS = {"K1f": "K1f/K4f/K5f", "K1b": "K1b/K4b/K5b", "K2f": "K2f", "K2b": "K2b"}
+
+
+def profile_train_steps(step, state, batch, layers: int, steps: int = 3) -> dict:
+    """tools/torch_profile_nav_step.py's summary (nav_profile.profile_steps)
+    of ``steps`` train steps after one warm: printed by kind and top
+    kernels; gated on the device kernels a step but the host-to-device
+    copies (NDH_STEP_COMPUTE_KERNELS) and on K1f / K1b / K2f / K2b in the
+    trace at the counted launches a step."""
+    prof, _ = nav_profile.profile_steps(step, state, batch, steps=steps)
+    say_profile(prof, f"{steps} train steps (tools/torch_profile_nav_step.py's summary)")
+    copies = prof["groups_kernels_per_step"].get(COPIES, 0)
+    compute = round((prof["kernels_per_step"] - copies) * steps)
+    say(f"  device kernels in {steps} steps: {compute} and {round(copies * steps)} "
+        "host-to-device copies")
+    if compute != NDH_STEP_COMPUTE_KERNELS * steps:
+        fail(f"{compute} device kernels but copies in {steps} profiled steps; expected "
+             f"{NDH_STEP_COMPUTE_KERNELS} a step")
+    want = ndh_launches(layers)
+    seen = {k: prof["launches_per_step"][PROFILED_AS[k]] for k in want}
+    say(f"  in the trace, a step: {', '.join(f'{k} {v:g}' for k, v in seen.items())}")
+    if seen != want:
+        fail(f"profiled launches a step {seen}; expected {want}")
+    return prof
 
 
 def timed_steps(agent, step, make_state, batches, n_warm: int):
@@ -1870,7 +1910,7 @@ def phase_student(device, sizes, sl, rl: bool) -> dict:
     agent, runtime = sl["agent"], sl["runtime"]
     name = "RL train: rl_train_step_fn" if rl else "sampled train: sample_train_step_fn('sample')"
     say(f"{name}, batch {sizes['batch']}, {sizes['episode_len']}-step episodes, planner_path")
-    n_warm, n_timed = 2, 8
+    n_warm, n_timed = 2, 5
     batcher = NavEpisodeBatcher(sl["train_instances"], runtime, batch_size=sizes["batch"],
                                 path_type="planner_path", seed=1 + rl)
     batches = [batcher.with_sample_teacher(b) for b in batcher.train_batches(n_warm + n_timed)]
@@ -2069,7 +2109,7 @@ def phase_t40(device, sizes, sl) -> dict:
     """41. NDH at bench.py's long workload (BENCH_EPISODE_LEN=40,
     BENCH_PATH_TYPE=trusted_path; tools/bench_eval.py's serving_t40) on
     phase 10's world at full width: (a) the teacher-forced step, 2 warm-up
-    and 5 timed, launches a step as the 10-step episode's (the encoder runs
+    and 3 timed, launches a step as the 10-step episode's (the encoder runs
     once an episode), ms, nav actions/s, the idle share, peak memory; (b) the
     argmax serving rollout: trajectories on graph edges, launches and ms a
     batch, and the decode loop of one batch under
@@ -2087,7 +2127,7 @@ def phase_t40(device, sizes, sl) -> dict:
     agent = make_agent(long, sl["tok"], sl["runtime"], sizes["dtype"], device)
     batcher = NavEpisodeBatcher(sl["train_instances"], sl["runtime"],
                                 batch_size=sizes["batch"], path_type="trusted_path")
-    n_warm, n_timed = 2, 5
+    n_warm, n_timed = 2, 3
     batches = list(batcher.train_batches(n_warm + n_timed, episode_len=t_len))
     active = np.mean([b["active"].sum(1).mean() for b in batches])
     step = agent.train_step_fn()
@@ -2502,6 +2542,133 @@ def phase_science(device, sci) -> dict:
     del sc
     release()
     return out
+
+
+# -- phase 45: the back-translation A/B -------------------------------------------------
+
+# Gates fixed in PERF.md before the phase's first run at these settings on
+# the card: the weaker of the JAX tool's and the port's tool's CPU runs at
+# the phase's settings and seed 88 (speaker word CE last / first log 0.504 /
+# 0.476, parse 1.0 / 1.0, hop_acc 0.495 / 0.541, hop_acc over the control's
+# 0.253 / 0.307, loss ratios 0.786 and 0.812 / 0.751 and 0.801), with a
+# margin of 0.15 (0.10 on the loss ratios, means of 50 steps, and over the
+# control, which a speaker that reads only the walk's length beats by
+# 0.10; the CE a log is one batch's).
+AUG_AB_GATES = {"speaker_ce_ratio": 0.654, "parse": 0.85, "hop_acc": 0.345,
+                "over_control": 0.153, "loss_ratio": 0.912}
+
+
+def follower_launches(cfg, seq: int, backward: bool = True) -> dict:
+    """An encoder pass's launches (ndh_launches) at ``cfg``'s head dim: K1
+    only where the fused gate takes it (the A/B's 128 / 4 heads = 32 does
+    not, so its attention is the plain one, as in the JAX package)."""
+    want = ndh_launches(cfg.num_hidden_layers, backward=backward)
+    if not attention_supports_fused(seq, seq, cfg.hidden_size // cfg.num_attention_heads):
+        for k in ("K1f", "K1b"):
+            want.pop(k, None)
+    return want
+
+
+def phase_aug_ab(device, ab) -> dict:
+    """45. The back-translation A/B (tools/aug_ab.py's, through
+    visitron_torch.testing.aug_ab) at a cut budget: the tool's world, widths
+    and seed 88, the speaker with the pipeline's feature dropout 0.6 and
+    movement frame, ``n_aug`` records, arms baseline and aug.  Gates: records
+    == instances == n_aug, every record's path a walk over graph edges, no
+    K1-K5 launch in the speaker's steps or the augment, the follower's
+    launches a step as counted from the code and none of a backward kernel
+    in its evaluation; the speaker's word CE at its last log over its first,
+    the captions' parse and hop accuracy, each arm's loss ratio (last 50 /
+    first 50) against AUG_AB_GATES (reported, not enforced, in a rehearsal).
+    ΔGP is printed, not gated: its sign flips between seeds."""
+    counts = {}
+
+    def stage(name):
+        counts[name] = read_counts()
+        zero_counts()
+
+    say(f"aug_ab: speaker {ab['speaker_iters']} iterations -> {ab['n_aug']} captioned "
+        f"walks -> follower {ab['iters']} iterations an arm (baseline, aug) -> held-out "
+        "Evaluator (tools/aug_ab.py's chain)")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = aug_ab.run(iters=ab["iters"], speaker_iters=ab["speaker_iters"], n_aug=ab["n_aug"],
+                     arms="baseline,aug", feat_dropout=0.6, movement_frame=True, seed=88,
+                     device=device, log=say, on_stage=stage, **ab["sizes"])
+    seconds = time.perf_counter() - t0
+    setup = out["setup"]
+    records, n_aug = out["records"], ab["n_aug"]
+    if not len(records) == out["aug_instances"] == n_aug:
+        fail(f"{len(records)} records, {out['aug_instances']} instances; expected {n_aug}")
+    for rec in records:
+        g = setup.world.graphs[rec["scan"]]
+        idx = [g.index[p] for p in rec["path"]]
+        if len(idx) < 2 or not all(g.adjacency[a, b] for a, b in zip(idx, idx[1:])):
+            fail(f"record {rec['path_id']}: {rec['path']} is not a walk over graph edges")
+    say(f"  {n_aug} records, each a walk over graph edges ({min(len(r['path']) for r in records)}"
+        f"-{max(len(r['path']) for r in records)} viewpoints)")
+    iters, cfg = ab["iters"], setup.cfg
+    check_launches("speaker steps and augment", {k: counts["speaker"][k] + counts["augment"][k]
+                                                  for k in COUNTED}, {})
+    step_want = follower_launches(cfg, setup.seq)
+    n_val = -(-len(setup.val_inst) // setup.batch)
+    launches = {}
+    for arm in ("baseline", "aug"):
+        total = counts[f"train_{arm}"]
+        per_step = {k: v // iters for k, v in total.items()}
+        check_launches(f"{arm}: a follower step", per_step, step_want)
+        if not REHEARSAL and total != {k: iters * v for k, v in per_step.items()}:
+            fail(f"{arm}: launches over {iters} steps {total}")
+        check_launches(f"{arm}: the held-out evaluation ({n_val} batches)",
+                       counts[f"val_{arm}"],
+                       {k: n_val * v for k, v in follower_launches(cfg, setup.seq,
+                                                                   backward=False).items()})
+        launches[arm] = per_step
+    logged = out["speaker_losses"][aug_ab.SPEAKER_LOG_EVERY - 1::aug_ab.SPEAKER_LOG_EVERY]
+    window = min(50, iters // 2)
+    ratios = {arm: float(np.mean(run["losses"][-window:]) / np.mean(run["losses"][:window]))
+              for arm, run in out["arms"].items()}
+    fid, control = out["fidelity"], out["control"]
+    over = round(fid["hop_acc"] - control["hop_acc"], 3)
+    if not (np.isfinite(out["speaker_losses"]).all()
+            and all(np.isfinite(run["losses"]).all() for run in out["arms"].values())):
+        fail("non-finite losses in the A/B")
+    sp_ratio = logged[-1] / logged[0] if len(logged) >= 2 else float("nan")
+    gates = {f"speaker word CE last / first log <= {AUG_AB_GATES['speaker_ce_ratio']}":
+             sp_ratio <= AUG_AB_GATES["speaker_ce_ratio"],
+             f"parse >= {AUG_AB_GATES['parse']}": fid["parse"] >= AUG_AB_GATES["parse"],
+             f"hop_acc >= {AUG_AB_GATES['hop_acc']}": fid["hop_acc"] >= AUG_AB_GATES["hop_acc"],
+             f"hop_acc - control's >= {AUG_AB_GATES['over_control']}":
+             over >= AUG_AB_GATES["over_control"],
+             **{f"{arm} loss ratio <= {AUG_AB_GATES['loss_ratio']}":
+                r <= AUG_AB_GATES["loss_ratio"] for arm, r in ratios.items()}}
+    vals = {arm: {k: v for k, v in run["val"].items() if k != "tag"}
+            for arm, run in out["arms"].items()}
+    delta_gp = out["delta"]["gp"]
+    say(f"  speaker word CE at its logs {[round(x, 4) for x in logged]} (last / first "
+        f"{sp_ratio:.3f}); fidelity {fid}; the control (captions rotated one walk on) "
+        f"hop_acc {control['hop_acc']}, len_mae {control['len_mae']}: hop_acc over it "
+        f"{over:+.3f}; loss ratios (last {window} / first {window}) "
+        + ", ".join(f"{arm} {r:.3f}" for arm, r in ratios.items()))
+    say("  held-out: " + "; ".join(f"{arm} " + ", ".join(f"{k} {v}" for k, v in m.items())
+                                    for arm, m in vals.items())
+        + f"; ΔGP (aug - baseline) {delta_gp:+.3f} m, not gated; {seconds:.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in out['seconds'].items())})")
+    say("  gates: " + ", ".join(f"{k} {'met' if v else 'MISSED'}" for k, v in gates.items())
+        + (" (reported, not enforced, at the rehearsal's size)" if REHEARSAL else ""))
+    if not REHEARSAL and not all(gates.values()):
+        fail(f"the A/B missed {[k for k, v in gates.items() if not v]}")
+    del out
+    release()
+    return {"fidelity": {k: v for k, v in fid.items() if k != "n"},
+            "control": {k: v for k, v in control.items() if k != "n"}, "arms": vals,
+            "delta_gp": delta_gp, "speaker_ce_logged": logged, "loss_ratios": ratios,
+            "iterations": {"speaker": ab["speaker_iters"], "follower": iters},
+            "n_aug": n_aug, "seconds": seconds,
+            "launches": {"speaker_and_augment": {k: counts["speaker"][k] + counts["augment"][k]
+                                                 for k in COUNTED},
+                         "follower_step": launches["baseline"],
+                         "eval_batch": {k: v // n_val for k, v in counts["val_baseline"].items()}}}
 
 
 # -- phase 22: the run CLI ---------------------------------------------------------------
@@ -4504,7 +4671,7 @@ def dp_world1(sz: dict) -> dict:
     agent, instances, runtime = dp_nav(sizes, device, sizes["dtype"], dropouts=True)
     batcher = NavEpisodeBatcher(instances, runtime, batch_size=sizes["batch"],
                                 path_type="planner_path")
-    nb = list(batcher.train_batches(12, episode_len=sizes["episode_len"]))
+    nb = list(batcher.train_batches(5, episode_len=sizes["episode_len"]))
     say(f"  bf16 timings (BERT-base {str(sizes['dtype'])[6:]}, the training dropouts)")
     out["ndh_time"] = {}
     # In turns, plain first and last (host-bound times drift within a call).
@@ -4515,7 +4682,7 @@ def dp_world1(sz: dict) -> dict:
     del agent, nb
     release()
     rng = np.random.default_rng(SEED + 2)
-    pb = [pretrain_batch(rng, pre, pre["vocab"], 2054, 1601) for _ in range(pre["steps"] + 2)]
+    pb = [pretrain_batch(rng, pre, pre["vocab"], 2054, 1601) for _ in range(3 + 2)]
     out["pretrain_time"] = {}
     for strategy in ("plain", "dp", "zero1", "fsdp", "plain again"):
         trainer = PretrainTrainer(pretrain_config(pre, pre["dtype"]), learning_rate=5e-5,
@@ -4636,16 +4803,55 @@ def dp_child_main(args) -> int:
     return 0
 
 
+def torchrun_worlds_of_one(runs: dict, tmp: str, prefix: str) -> dict:
+    """Start ``python -m torch.distributed.run --standalone --nproc_per_node 1
+    -m visitron_torch.run <argv> --output_dir <tmp>/<prefix><first word>``
+    for every (name, argv) of ``runs`` at once (each a world of one; they
+    share the card and the host), wait for all (DP_TIMEOUT_S) and return
+    {name: (output dir, seconds with start-up)}.  A run that fails fails
+    the phase with its output's tail; no process is left running."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs, done = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, argv in runs.items():
+            d = os.path.join(tmp, prefix + name.split()[0])
+            log = open(d + ".log", "w+")
+            procs[name] = (d, log, subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "1", "-m", "visitron_torch.run", *argv,
+                 "--output_dir", d], stdout=log, stderr=subprocess.STDOUT, cwd=repo))
+        while len(done) < len(procs):
+            for name, (_, _, proc) in procs.items():
+                if name not in done and proc.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > DP_TIMEOUT_S:
+                fail(f"torchrun {sorted(set(runs) - set(done))} did not end within "
+                     f"{DP_TIMEOUT_S} s")
+            time.sleep(0.2)
+        for name, (_, log, proc) in procs.items():
+            if proc.returncode != 0:
+                log.seek(0)
+                print(log.read()[-9000:], flush=True)
+                fail(f"torchrun {name} exited {proc.returncode}")
+        return {name: (d, done[name]) for name, (d, _, _) in procs.items()}
+    finally:
+        for _, log, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
 def phase_dp_cli(tmp: str) -> dict:
     """34. ``python -m torch.distributed.run --nproc_per_node 1 -m
     visitron_torch.run viewpoint --debug --zero1`` and ``pretrain --debug
     --fsdp`` on the card (NCCL, a world of one; BERT-base from the --debug
-    workspace): their checkpoints in the single-device layout, finite
-    losses."""
+    workspace), both at once: their checkpoints in the single-device
+    layout, finite losses."""
     if REHEARSAL:
         say("dp CLI: skipped in a rehearsal (the CLI under torchrun runs on the card)")
         return {}
-    repo = os.path.dirname(os.path.abspath(__file__))
     runs = {"viewpoint --zero1": ["viewpoint", "--config",
                                   "run_configs/viewpoint_train/ndh_oscar_setting.json",
                                   "--debug", "--zero1", "--num_iterations", "4",
@@ -4654,20 +4860,10 @@ def phase_dp_cli(tmp: str) -> dict:
             "pretrain --fsdp": ["pretrain", "--config",
                                 "run_configs/pretrain/pretrain_ndh_r2r.json", "--debug",
                                 "--fsdp", "--num_epochs", "1", "--logging_steps", "10"]}
-    out = {}
-    for name, argv in runs.items():
-        d = os.path.join(tmp, "dp_cli_" + name.split()[0])
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                               "--nproc_per_node", "1", "-m", "visitron_torch.run", *argv,
-                               "--output_dir", d], capture_output=True, text=True,
-                              timeout=DP_TIMEOUT_S, cwd=repo)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            print(proc.stdout[-3000:], proc.stderr[-6000:], flush=True)
-            fail(f"torchrun {name} exited {proc.returncode}")
-        from visitron_torch.train.checkpoint import CheckpointManager
+    from visitron_torch.train.checkpoint import CheckpointManager
 
+    out = {}
+    for name, (d, seconds) in torchrun_worlds_of_one(runs, tmp, "dp_cli_").items():
         ckpt = CheckpointManager(d)
         steps = ckpt.steps()
         with open(os.path.join(d, "train.csv")) as f:
@@ -4682,8 +4878,8 @@ def phase_dp_cli(tmp: str) -> dict:
             fail(f"torchrun {name}: the checkpoint's moments are not in the parameters' "
                  "layout")
         say(f"dp CLI: torchrun --nproc_per_node 1 {name}: {seconds:.1f} s with start-up "
-            f"and val, checkpoints {steps}, {len(losses)} logged losses (last "
-            f"{losses[-1]:.4f})")
+            f"and val (contended: both runs at once on the card and host), checkpoints "
+            f"{steps}, {len(losses)} logged losses (last {losses[-1]:.4f})")
         out[name] = {"seconds": seconds, "steps": steps}
     return out
 
@@ -4973,12 +5169,11 @@ def mp_two(sz: dict) -> dict:
 def phase_mp_cli(tmp: str) -> dict:
     """38. A world of one under torchrun: ``run pretrain --debug --mesh_sp 1``
     (batch 8) and ``run viewpoint --debug --mesh_tp 1`` (the flags accepted, a dp mesh
-    of one rank over NCCL): checkpoints, finite losses, seconds with
-    start-up."""
+    of one rank over NCCL), both at once: checkpoints, finite losses,
+    seconds with start-up."""
     if REHEARSAL:
         say("mesh CLI: skipped in a rehearsal (the CLI under torchrun runs on the card)")
         return {}
-    repo = os.path.dirname(os.path.abspath(__file__))
     runs = {"pretrain --mesh_sp 1": ["pretrain", "--config",
                                      "run_configs/pretrain/pretrain_ndh_r2r.json", "--debug",
                                      "--mesh_sp", "1", "--num_epochs", "1",
@@ -4989,27 +5184,18 @@ def phase_mp_cli(tmp: str) -> dict:
                                       "--debug", "--mesh_tp", "1", "--num_iterations", "2",
                                       "--saving_steps", "2", "--logging_steps", "1",
                                       "--eval_iters", "2"]}
-    out = {}
-    for name, argv in runs.items():
-        d = os.path.join(tmp, "mp_cli_" + name.split()[0])
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                               "--nproc_per_node", "1", "-m", "visitron_torch.run", *argv,
-                               "--output_dir", d], capture_output=True, text=True,
-                              timeout=DP_TIMEOUT_S, cwd=repo)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            print(proc.stdout[-3000:], proc.stderr[-6000:], flush=True)
-            fail(f"torchrun {name} exited {proc.returncode}")
-        from visitron_torch.train.checkpoint import CheckpointManager
+    from visitron_torch.train.checkpoint import CheckpointManager
 
+    out = {}
+    for name, (d, seconds) in torchrun_worlds_of_one(runs, tmp, "mp_cli_").items():
         steps = CheckpointManager(d).steps()
         with open(os.path.join(d, "train.csv")) as f:
             losses = [float(r["loss"]) for r in csv.DictReader(f) if r.get("loss")]
         if not steps or not losses or not all(np.isfinite(losses)):
             fail(f"torchrun {name}: checkpoints {steps}, losses {losses[:5]}")
-        say(f"mesh CLI: torchrun --nproc_per_node 1 {name}: {seconds:.1f} s with start-up, "
-            f"checkpoints {steps}, {len(losses)} logged losses (last {losses[-1]:.4f})")
+        say(f"mesh CLI: torchrun --nproc_per_node 1 {name}: {seconds:.1f} s with start-up "
+            f"(contended: both runs at once on the card and host), checkpoints {steps}, "
+            f"{len(losses)} logged losses (last {losses[-1]:.4f})")
         out[name] = {"seconds": seconds, "steps": steps}
     return out
 
@@ -5391,6 +5577,9 @@ def phase_sizes() -> dict:
               "bert": sizes["bert"], "agent": tiny_agent, "dtype": torch.float32}
         sci = {"world": tiny_world, "episodes": 12, "seq": 128, "batch": 4, "iters": 20,
                "bert": sizes["bert"], "agent": tiny_agent, "dtype": torch.float32}
+        ab = {"speaker_iters": 200, "iters": 20, "n_aug": 16,
+              "sizes": {"world": tiny_world, "bert": {"num_hidden_layers": 1},
+                        "train_episodes": 12, "val_episodes": 8, "batch": 4}}
     else:
         attn = {"batch": 64, "heads": 12, "head_dim": 64, "seqs": (256, 512)}
         # R 12288: the S 768 pretraining step's; 16384 and 32768: NDH at S 256
@@ -5436,14 +5625,17 @@ def phase_sizes() -> dict:
         # 400, the decoder's 0.5 dropouts leave the loss at 0.68-0.73x its
         # start on the card and, at a reduced width on the CPU, in the JAX
         # package too (PERF.md).
-        rs = {"world": {}, "instances": 128, "seq": 512, "batch": 64, "timed": 5,
+        rs = {"world": {}, "instances": 128, "seq": 512, "batch": 64, "timed": 3,
               "bert": {}, "agent": {}, "dtype": torch.bfloat16}
         sci = {"world": {}, "episodes": 200, "seq": 512, "batch": 32, "iters": 1000,
                "bert": {}, "agent": {}, "dtype": torch.bfloat16}
+        # Phase 45: tools/aug_ab.py's world and widths (VALIDATION.md rounds
+        # 3-4), the budget cut to fit the script's time (PERF.md).
+        ab = {"speaker_iters": 600, "iters": 250, "n_aug": 300, "sizes": {}}
     return {"attn": attn, "ln": ln, "sizes": sizes, "ce": ce, "attn4": attn4, "pre": pre,
             "long": long, "flash": flash, "spk": spk, "opt": opt, "scene": scene,
             "regions": regions, "extract": extract, "mp": mp, "pp": pp, "realscale": rs,
-            "science": sci}
+            "science": sci, "aug_ab": ab}
 
 
 def share_bytecode() -> tempfile.TemporaryDirectory:
@@ -5497,6 +5689,8 @@ def main(argv=None) -> int:
     # the nav actions/s of a process of its own (PERF.md).
     sci = phase_science(device, sz["science"])
     lap("phase 44 (the science run)")
+    ab = phase_aug_ab(device, sz["aug_ab"])
+    lap("phase 45 (the back-translation A/B)")
     times = {"k1": phase_k1(device, attn), "k2": phase_k2(device, ln),
              "k1b": phase_k1b(device, attn), "k2b": phase_k2b(device, ln),
              **phase_k3(device, ce), **phase_k4(device, attn4), **phase_k5(device, flash)}
@@ -5587,6 +5781,13 @@ def main(argv=None) -> int:
                        "after": sci["after"], "loss_first_50": sci["loss_first"],
                        "loss_last_50": sci["loss_last"],
                        "nav_actions_per_s": sci["actions_per_s"]}
+    line["aug_ab"] = {k: ab[k] for k in ("fidelity", "control", "arms", "delta_gp",
+                                         "speaker_ce_logged",
+                                         "loss_ratios", "iterations", "n_aug", "seconds",
+                                         "launches")}
+    line["ndh_step_profile"] = {k: tr["profile"][k] for k in (
+        "ms_per_step", "busy_ms_per_step", "idle_share", "kernels_per_step",
+        "groups_ms_per_step")}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": dev_info}), flush=True)
     return 0

@@ -16,7 +16,10 @@ import visitron_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "visitron_tpu")
 # The port's tools (the JAX tools' counterparts on the card).
-TOOLS = ("tools/torch_realscale_smoke.py", "tools/torch_synthetic_e2e.py")
+TOOLS = ("tools/torch_realscale_smoke.py", "tools/torch_synthetic_e2e.py",
+         "tools/torch_aug_ab.py", "tools/torch_profile_nav_step.py")
+# The JAX tools the port's modules are counterparts of, and their folder.
+JAX_TOOLS = ("tools", "aug_ab", "profile_nav_step", "synthetic_e2e", "realscale_smoke")
 
 
 def _port_sources():
@@ -53,7 +56,7 @@ for path in {TOOLS!r}:
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     assert callable(tool.main)
-from visitron_torch.testing import realscale, science
+from visitron_torch.testing import aug_ab, nav_profile, realscale, science
 print(len(names))
 print(' '.join(names))
 """
@@ -71,6 +74,9 @@ print(' '.join(names))
     # The deployment's world and the science run (the JAX tools' counterparts).
     assert {"visitron_torch.testing.realscale",
             "visitron_torch.testing.science"} <= set(names.split())
+    # The back-translation A/B and the NDH step profile.
+    assert {"visitron_torch.testing.aug_ab",
+            "visitron_torch.testing.nav_profile"} <= set(names.split())
 
 
 def test_sources_import_nothing_of_jax():
@@ -85,6 +91,9 @@ def test_sources_import_nothing_of_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in BLOCKED, f"{path}: imports {name}"
+                # Nothing of the JAX tools either (the port keeps its own
+                # copies of what it needs from them).
+                assert name.split(".")[0] not in JAX_TOOLS, f"{path}: imports {name}"
 
 
 def test_package_lists_every_ported_module():
@@ -108,7 +117,7 @@ def test_package_lists_every_ported_module():
                 "pipelines.scene_features", "pipelines.region_features",
                 "pipelines.orientation", "parallel", "parallel.mesh",
                 "parallel.pipeline", "utils.benchmark", "testing.realscale",
-                "testing.science"):
+                "testing.science", "testing.aug_ab", "testing.nav_profile"):
         assert f"visitron_torch.{mod}" in names, mod
 
 
