@@ -1,0 +1,7 @@
+"""gemm_ms.pretrain: multimodal pretraining: device ms a step in GEMM kernels."""
+
+from h100bench.metrics.readers import GEMM, kind_ms
+
+
+def read(rec):
+    return kind_ms(rec, "pretrain", GEMM)

@@ -1,0 +1,8 @@
+"""idle_share.ndh_train: NDH teacher-forced training: the share of a step's
+unprofiled wall in which no kernel ran, %."""
+
+from h100bench.metrics.readers import idle_share
+
+
+def read(rec):
+    return idle_share(rec, "ndh_train")

@@ -1,0 +1,8 @@
+"""mfu.pretrain: multimodal pretraining: model FLOPs a step over its unprofiled
+wall x 989 TFLOP/s, %."""
+
+from h100bench.metrics.readers import mfu
+
+
+def read(rec):
+    return mfu(rec, "pretrain")
