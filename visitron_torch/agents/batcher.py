@@ -23,6 +23,7 @@ import numpy as np
 
 from visitron_torch.agents.runtime import NavRuntime
 from visitron_torch.data.datasets import NavInstance
+from visitron_torch.utils import tracing
 
 # Within each shuffled window of this many batches the instances are ordered
 # by dialog length, so batches are length-homogeneous and trim to small
@@ -180,13 +181,16 @@ class NavEpisodeBatcher:
         self._ensure_streams()
         my = self.host_id if self.num_hosts > 1 else 0
         for _ in range(num_batches):
-            takes = [next(stream) for stream in self._streams]
-            batch = self._make_batch([self._shards[my][i] for i in takes[my]])
-            if self.num_hosts > 1:
-                gmax = max(self._shards[h][i].length
-                           for h, take in enumerate(takes) for i in take)
-                batch = self._global_trim(batch, int(gmax))
-            yield batch if episode_len is None else self.with_teacher(batch, episode_len)
+            with tracing.span(tracing.BATCHER):
+                takes = [next(stream) for stream in self._streams]
+                batch = self._make_batch([self._shards[my][i] for i in takes[my]])
+                if self.num_hosts > 1:
+                    gmax = max(self._shards[h][i].length
+                               for h, take in enumerate(takes) for i in take)
+                    batch = self._global_trim(batch, int(gmax))
+                if episode_len is not None:
+                    batch = self.with_teacher(batch, episode_len)
+            yield batch
 
     def eval_batches(self, episode_len: int | None = None):
         """One sequential pass; the final batch wraps to the front (the test

@@ -83,6 +83,7 @@ from visitron_torch.parallel.mesh import (DataParallel, jax_axis_orders,
                                           shard_params_rules)
 from visitron_torch.train.optim import (agent_optimizer, apply_updates, tree_leaves,
                                         tree_unflatten)
+from visitron_torch.utils import tracing
 
 
 def gather_step_inputs(rt: NavRuntime, cur_row, view):
@@ -237,11 +238,12 @@ class DialogAgent:
         """(ctx, h0, c0, ctx_mask) for a trimmed batch; ``rng`` turns the
         encoder's dropouts on; ``encoder``: the module (default the training
         encoder; the evaluation paths pass ``eval_encoder``)."""
-        ids, segs = self._index(batch["ids"]), self._index(batch["segs"])
-        lengths = self._index(batch["lengths"])
-        encoder = self.encoder if encoder is None else encoder
-        ctx, h, c = functional_call(encoder, params["encoder"], (ids, lengths),
-                                    {"token_type_ids": segs, "rng": rng}, strict=True)
+        with tracing.span(tracing.ENCODER):
+            ids, segs = self._index(batch["ids"]), self._index(batch["segs"])
+            lengths = self._index(batch["lengths"])
+            encoder = self.encoder if encoder is None else encoder
+            ctx, h, c = functional_call(encoder, params["encoder"], (ids, lengths),
+                                        {"token_type_ids": segs, "rng": rng}, strict=True)
         ctx_mask = torch.arange(ids.shape[1], device=self.device)[None, :] >= lengths[:, None]
         return ctx, h, c, ctx_mask
 
@@ -258,12 +260,13 @@ class DialogAgent:
         live = [p.detach() if f else p.detach().requires_grad_()
                 for p, f in zip(leaves, frozen)]
         loss, aux = loss_fn(tree_unflatten(params, live))
-        found = iter(torch.autograd.grad(
-            loss, [p for p, f in zip(live, frozen) if not f], allow_unused=True))
-        grads = []
-        for p, f in zip(leaves, frozen):
-            g = None if f else next(found)
-            grads.append(torch.zeros_like(p) if g is None and not f else g)
+        with tracing.span(tracing.BACKWARD):
+            found = iter(torch.autograd.grad(
+                loss, [p for p, f in zip(live, frozen) if not f], allow_unused=True))
+            grads = []
+            for p, f in zip(leaves, frozen):
+                g = None if f else next(found)
+                grads.append(torch.zeros_like(p) if g is None and not f else g)
         return loss.detach(), aux, tree_unflatten(params, grads)
 
     def apply_grads(self, state: dict, grads, logged: dict | None = None):
@@ -274,13 +277,16 @@ class DialogAgent:
         optimizer state."""
         logged = logged or {}
         if self.dp is None:
-            updates, opt_state = self.optimizer.update(grads, state["opt_state"],
-                                                       state["params"])
-            return {**state, "params": apply_updates(state["params"], updates),
-                    "opt_state": opt_state}, logged
-        grads, logged = self.dp.reduce(grads, logged)
-        params, opt_state = self.dp.update(self.optimizer, grads, state["opt_state"],
-                                           state["params"], apply_updates)
+            with tracing.span(tracing.OPTIMIZER):
+                updates, opt_state = self.optimizer.update(grads, state["opt_state"],
+                                                           state["params"])
+                params = apply_updates(state["params"], updates)
+            return {**state, "params": params, "opt_state": opt_state}, logged
+        with tracing.span(tracing.GRAD_REDUCE):
+            grads, logged = self.dp.reduce(grads, logged)
+        with tracing.span(tracing.OPTIMIZER):
+            params, opt_state = self.dp.update(self.optimizer, grads, state["opt_state"],
+                                               state["params"], apply_updates)
         return {**state, "params": params, "opt_state": opt_state}, logged
 
     def write_results(self, path: str) -> None:
@@ -390,13 +396,14 @@ class ViewpointAgent(DialogAgent):
         if count_sum is not None:  # each step's active count over the global batch
             counts = count_sum(counts)
         loss = torch.zeros((), device=self.device)
-        for t in range(t_len):
-            logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask,
-                                            cur_row[:, t], view[:, t], rng=rng)
-            act = active[:, t]
-            ce = F.cross_entropy(logit.float(), torch.where(act, teacher[:, t], 0),
-                                 reduction="none")
-            loss = loss + torch.sum(ce * act.float()) / torch.clamp(counts[t], min=1.0)
+        with tracing.span(tracing.DECODER):
+            for t in range(t_len):
+                logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask,
+                                                cur_row[:, t], view[:, t], rng=rng)
+                act = active[:, t]
+                ce = F.cross_entropy(logit.float(), torch.where(act, teacher[:, t], 0),
+                                     reduction="none")
+                loss = loss + torch.sum(ce * act.float()) / torch.clamp(counts[t], min=1.0)
         return loss / t_len
 
     def loss_and_grads(self, params, batch: dict, rng: DropoutRng | None,
@@ -483,21 +490,22 @@ class ViewpointAgent(DialogAgent):
         ended = torch.zeros(b, dtype=torch.bool, device=self.device)
         taken = torch.zeros((b, slots.numel()), dtype=torch.bool, device=self.device)
         sums, n_active = [], []
-        for _ in range(self.episode_len):
-            logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask, cur_row, view,
-                                            rng=rng)
-            logit = logit.float()
-            counts = rt.count[cur_row]
-            teacher = self.teacher_slot(d, cur_row, counts)
-            active = (~ended).float()
-            ce = F.cross_entropy(logit, teacher, reduction="none")
-            sums.append(torch.sum(ce * active))
-            n_active.append(active.sum())
-            a = select_action(feedback, logit.detach(), gen, target=teacher,
-                              temperature=self.temperature, taken_mask=taken)
-            taken = taken | (slots[None, :] == a[:, None])
-            cur_row, view, stop = self.move(cur_row, view, ended, a, counts)
-            ended = ended | stop
+        with tracing.span(tracing.DECODER):
+            for _ in range(self.episode_len):
+                logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask, cur_row, view,
+                                                rng=rng)
+                logit = logit.float()
+                counts = rt.count[cur_row]
+                teacher = self.teacher_slot(d, cur_row, counts)
+                active = (~ended).float()
+                ce = F.cross_entropy(logit, teacher, reduction="none")
+                sums.append(torch.sum(ce * active))
+                n_active.append(active.sum())
+                a = select_action(feedback, logit.detach(), gen, target=teacher,
+                                  temperature=self.temperature, taken_mask=taken)
+                taken = taken | (slots[None, :] == a[:, None])
+                cur_row, view, stop = self.move(cur_row, view, ended, a, counts)
+                ended = ended | stop
         n_active = torch.stack(n_active)
         if count_sum is not None:  # the global batch's (one all-reduce of T counts)
             n_active = count_sum(n_active)
@@ -558,31 +566,32 @@ class ViewpointAgent(DialogAgent):
         slots = torch.arange(rt.max_candidates + 1, device=self.device)
         ended = torch.zeros(b, dtype=torch.bool, device=self.device)
         steps = []
-        for _ in range(self.episode_len):
-            logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask, cur_row, view,
-                                            rng=rng)
-            logit = logit.float()
-            counts = rt.count[cur_row]
-            teacher = self.teacher_slot(d, cur_row, counts)
-            logp_all = F.log_softmax(logit, dim=-1)
-            # The product is masked, not only its inputs: no NaN reaches a
-            # gradient through the masked slots.
-            plogp = (logp_all.exp() * logp_all).masked_fill(slots[None, :] > counts[:, None],
-                                                            0.0)
-            entropy = -torch.sum(plogp, dim=-1)
-            a = decoding.categorical(logit.detach(), gen)
-            logp = torch.gather(logp_all, 1, a[:, None])[:, 0]
-            value = functional_call(self.critic, params["critic"], (h1.float(),),
-                                    {"rng": rng}, strict=True)
-            ce = F.cross_entropy(logit, teacher, reduction="none")
-            active = (~ended).float()
-            new_row, view, stop = self.move(cur_row, view, ended, a, counts)
-            d_cur = d["dist_col"][d["item"], cur_row - d["scan_offset"]]
-            d_new = d["dist_col"][d["item"], new_row - d["scan_offset"]]
-            bonus = success_bonus * (2.0 * (d_cur < success_margin).float() - 1.0)
-            reward = torch.where(~ended & stop, bonus, d_cur - d_new) * active
-            steps.append((logp, value, reward, active, entropy, ce))
-            cur_row, ended = new_row, ended | stop
+        with tracing.span(tracing.DECODER):
+            for _ in range(self.episode_len):
+                logit, h1, c = self.decode_step(params, h1, c, ctx, ctx_mask, cur_row, view,
+                                                rng=rng)
+                logit = logit.float()
+                counts = rt.count[cur_row]
+                teacher = self.teacher_slot(d, cur_row, counts)
+                logp_all = F.log_softmax(logit, dim=-1)
+                # The product is masked, not only its inputs: no NaN reaches a
+                # gradient through the masked slots.
+                plogp = (logp_all.exp() * logp_all).masked_fill(
+                    slots[None, :] > counts[:, None], 0.0)
+                entropy = -torch.sum(plogp, dim=-1)
+                a = decoding.categorical(logit.detach(), gen)
+                logp = torch.gather(logp_all, 1, a[:, None])[:, 0]
+                value = functional_call(self.critic, params["critic"], (h1.float(),),
+                                        {"rng": rng}, strict=True)
+                ce = F.cross_entropy(logit, teacher, reduction="none")
+                active = (~ended).float()
+                new_row, view, stop = self.move(cur_row, view, ended, a, counts)
+                d_cur = d["dist_col"][d["item"], cur_row - d["scan_offset"]]
+                d_new = d["dist_col"][d["item"], new_row - d["scan_offset"]]
+                bonus = success_bonus * (2.0 * (d_cur < success_margin).float() - 1.0)
+                reward = torch.where(~ended & stop, bonus, d_cur - d_new) * active
+                steps.append((logp, value, reward, active, entropy, ce))
+                cur_row, ended = new_row, ended | stop
         logp, value, reward, active, entropy, ce = (torch.stack(x) for x in zip(*steps))
         # Discounted returns by a reverse loop: R_t = r_t + gamma R_{t+1}.
         ret, returns = torch.zeros(b, device=self.device), []

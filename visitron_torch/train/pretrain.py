@@ -67,6 +67,7 @@ from visitron_torch.train.logging import MetricsLogger, check_finite, setup_logg
 from visitron_torch.train.loop import EpochEnd, restore_latest, run_loop
 from visitron_torch.train.optim import (adamw_with_warmup, apply_updates, tree_leaves,
                                         tree_unflatten)
+from visitron_torch.utils import tracing
 
 BATCH_KEYS = ("input_ids", "token_type_ids", "attention_mask", "labels", "token_labels",
               "img_feats", "img_location_embeddings", "next_action")
@@ -74,13 +75,22 @@ BATCH_KEYS = ("input_ids", "token_type_ids", "attention_mask", "labels", "token_
 
 def batch_to_device(host_batch: dict, device) -> dict:
     """A host batch of numpy arrays as device tensors: integers as int64,
-    floats as fp32."""
+    floats as fp32.  Counts its calls and the bytes each copy carries to the
+    device, the converted tensors' (``batch_to_device.calls``, ``.bytes``):
+    a blocking copy converts the dtype on the host, before the transfer."""
     out = {}
-    for key in BATCH_KEYS:
-        a = np.asarray(host_batch[key])
-        dtype = torch.float32 if a.dtype.kind == "f" else torch.int64
-        out[key] = torch.as_tensor(a).to(device=device, dtype=dtype)
+    with tracing.span(tracing.BATCH_TO_DEVICE):
+        for key in BATCH_KEYS:
+            a = np.asarray(host_batch[key])
+            dtype = torch.float32 if a.dtype.kind == "f" else torch.int64
+            out[key] = torch.as_tensor(a).to(device=device, dtype=dtype)
+            batch_to_device.bytes += out[key].nbytes
+    batch_to_device.calls += 1
     return out
+
+
+batch_to_device.bytes = 0
+batch_to_device.calls = 0
 
 
 @dataclass
@@ -208,11 +218,13 @@ class PretrainTrainer:
                        counts: dict | None = None):
         """(bundle, grads) for a device batch; grads mirror ``params`` (zeros
         where a parameter takes no part, as in JAX)."""
-        leaves = tree_leaves(params)
-        live = [p.detach().requires_grad_() for p in leaves]
-        bundle = self.loss_bundle(tree_unflatten(params, live), batch, rng, counts)
-        grads = torch.autograd.grad(bundle["loss"], live, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        with tracing.span(tracing.FORWARD):
+            leaves = tree_leaves(params)
+            live = [p.detach().requires_grad_() for p in leaves]
+            bundle = self.loss_bundle(tree_unflatten(params, live), batch, rng, counts)
+        with tracing.span(tracing.BACKWARD):
+            grads = torch.autograd.grad(bundle["loss"], live, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         return {k: v.detach() for k, v in bundle.items()}, tree_unflatten(params, grads)
 
     def raw_step_fn(self):
@@ -222,17 +234,20 @@ class PretrainTrainer:
         def step(state, batch):
             if self.dp is None:
                 bundle, grads = self.loss_and_grads(state["params"], batch, state["rng"])
-                updates, opt_state = self.optimizer.update(grads, state["opt_state"],
-                                                           state["params"])
-                params = apply_updates(state["params"], updates)
+                with tracing.span(tracing.OPTIMIZER):
+                    updates, opt_state = self.optimizer.update(grads, state["opt_state"],
+                                                               state["params"])
+                    params = apply_updates(state["params"], updates)
                 return {"params": params, "opt_state": opt_state,
                         "rng": state["rng"]}, bundle
             dp = self.dp
             bundle, grads = self.loss_and_grads(dp.full_params(state["params"]), batch,
                                                 state["rng"], self.global_counts(batch))
-            grads, bundle = dp.reduce(grads, bundle)
-            params, opt_state = dp.update(self.optimizer, grads, state["opt_state"],
-                                          state["params"], apply_updates)
+            with tracing.span(tracing.GRAD_REDUCE):
+                grads, bundle = dp.reduce(grads, bundle)
+            with tracing.span(tracing.OPTIMIZER):
+                params, opt_state = dp.update(self.optimizer, grads, state["opt_state"],
+                                              state["params"], apply_updates)
             return {"params": params, "opt_state": opt_state, "rng": state["rng"]}, bundle
 
         return step
