@@ -435,6 +435,7 @@ import argparse
 import contextlib
 import csv
 import json
+import math
 import os
 import resource
 import subprocess
@@ -1044,44 +1045,58 @@ def phase_k2b(device, shapes) -> dict:
 
 # -- phase 7: K3 ---------------------------------------------------------------------
 
-def ce_inputs(rows, vocab, dtype, device, g):
+def ce_inputs(rows, vocab, dtype, device, g, width=None):
     """Logits like the MLM head's, labels with ~10% ignored rows and a few
-    outside [0, V), and a per-row cotangent."""
+    outside [0, width), and a per-row cotangent.  ``width`` > ``vocab`` pads
+    the logits with -inf columns to that width, as ``PretrainModel.heads``
+    builds the buffer K3 reads (the vocabulary rounded up to a multiple of
+    8); the labels stay below ``vocab`` or outside [0, width)."""
+    width = width or vocab
     x = (3.0 * torch.randn(rows, vocab, generator=g, device=device)).to(dtype)
+    if width > vocab:
+        x = torch.cat([x, x.new_full((rows, width - vocab), -math.inf)], dim=1)
     labels = torch.randint(0, vocab, (rows,), generator=g, device=device)
     labels[::10] = -1
-    labels[1::97] = vocab + 3
+    labels[1::97] = width + 3
     cot = torch.rand(rows, generator=g, device=device)
     return x, labels, cot
 
 
 def phase_k3(device, shapes) -> dict:
-    """K3f and K3b against their twins at the MLM head's shape; returns
-    {"k3": timing, "k3b": timing} for bf16."""
+    """K3f and K3b against their twins at the MLM head's shape, on the
+    vocabulary's own width and on the main path's (rounded up to a multiple
+    of 8, the pad columns -inf); returns {"k3": timing, "k3b": timing} for
+    bf16 at the main path's width."""
     say("K3 fused_masked_softmax_ce (forward and backward) vs plain twins")
     g = torch.Generator(device=device).manual_seed(SEED + 4)
     rows, vocab = shapes["rows"], shapes["vocab"]
+    padded = vocab + -vocab % 8
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        x, labels, cot = ce_inputs(rows, vocab, dtype, device, g)
+    cases = [(dtype, width) for dtype in (torch.bfloat16, torch.float32)
+             for width in dict.fromkeys((vocab, padded))]
+    for dtype, width in cases:
+        x, labels, cot = ce_inputs(rows, vocab, dtype, device, g, width)
         ce, lse = ce_ops._forward(x, labels)  # K3f with its lse
         want_ce, want_lse = masked_softmax_ce_reference(x, labels)
         dx = fused_masked_softmax_ce_bwd(x, labels, lse, cot)
         want_dx = masked_softmax_ce_bwd_reference(x, labels, lse, cot)
         sync()
-        tag = f"R{rows} V{vocab} {str(dtype)[6:]}"
+        tag = f"R{rows} V{width}{f' (-inf past {vocab})' if width > vocab else ''} " \
+              f"{str(dtype)[6:]}"
         err = check_close(f"ce {tag}", ce, want_ce, CE_TOL)
         check_close(f"lse {tag}", lse, want_lse, CE_TOL)
-        valid = (labels >= 0) & (labels < vocab)
+        valid = (labels >= 0) & (labels < width)
         if bool((ce[~valid] != 0).any()) or bool((dx[~valid] != 0).any()):
             fail(f"K3 {tag}: an ignored row has a non-zero CE or gradient")
+        if bool((dx[:, vocab:] != 0).any()):
+            fail(f"K3 {tag}: a -inf pad column has a non-zero gradient")
         err_b = check_close(f"dlogits {tag}", dx, want_dx, CE_GRAD_TOL[dtype])
-        if dtype != torch.bfloat16:
+        if dtype != torch.bfloat16 or width != padded:
             continue
         say(f"  ({int((~valid).sum())} of {rows} rows ignored, their CE and "
-            "gradient exactly 0)")
+            "gradient exactly 0; the pad columns' gradient exactly 0)")
         elt = x.element_size()
-        nbytes = rows * vocab * elt + rows * 8 + 2 * rows * 4
+        nbytes = rows * width * elt + rows * 8 + 2 * rows * 4
         # F.cross_entropy refuses labels >= V: those rows take its ignore label.
         lib_labels = labels.masked_fill(~valid, -1)
         xl = x.detach().requires_grad_()
@@ -1106,9 +1121,9 @@ def phase_k3(device, shapes) -> dict:
             torch.autograd.grad(lib_ce, xl, cot, retain_graph=True)
 
         for key, fns, nb, ops in (
-                ("k3", (kernel, plain, library), nbytes, 5 * rows * vocab),
+                ("k3", (kernel, plain, library), nbytes, 5 * rows * width),
                 ("k3b", (kernel_b, plain_b, library_b),
-                 nbytes + rows * vocab * elt, 4 * rows * vocab)):
+                 nbytes + rows * width * elt, 4 * rows * width)):
             ms = time_ms(fns[0], iters=10)
             plain_ms = time_ms(fns[1], iters=2, warmup=1)
             lib_ms = time_ms(fns[2], iters=10)

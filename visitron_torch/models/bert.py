@@ -19,7 +19,8 @@ checkpoint (visitron_torch/convert.py) loads one to one:
     the layer's dropout draws;
   * image-region fusion (``embed_joint``): projected region features plus
     location embeddings, dropped out and concatenated after the text, and
-    ``attend_vocab``, the tied MLM decoder (a plain product);
+    ``attend_vocab``, the tied MLM decoder (a plain product at the
+    vocabulary rounded up to a multiple of 8);
   * every LayerNorm is the fused add+LayerNorm kernel (K2,
     ops/layernorm.py): the embedding LayerNorm without a residual, two
     residual LayerNorms per layer; with ``use_fused_layernorm`` off, flax's
@@ -69,7 +70,8 @@ from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from visitron_torch.models.layers import Dense, DropoutRng, Embed, maybe_drop
+from visitron_torch.models.layers import (Dense, DropoutRng, Embed, aligned_linear,
+                                          maybe_drop)
 from visitron_torch.ops.attention import (attention_supports_flash,
                                           attention_supports_fused, flash_attention,
                                           fused_attention, fused_attention_packed,
@@ -529,10 +531,14 @@ class VisitronBert(nn.Module):
                 self.img_layer_norm = FlaxLayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def attend_vocab(self, x):
-        """(..., H) -> (..., vocab) logits against the tied word embeddings,
-        in ``cfg.dtype`` (flax ``Embed.attend``)."""
-        dt = self.cfg.dtype
-        return F.linear(x.to(dt), self.word_embeddings.weight.to(dt))
+        """(..., H) -> (..., vocab8) logits against the tied word embeddings,
+        in ``cfg.dtype`` (flax ``Embed.attend``), at the vocabulary rounded
+        up to a multiple of 8 (:func:`aligned_linear`: BERT's 30,522 and
+        Oscar's 30,525 rows would put the product and its backward on
+        unaligned GEMM kernels).  The first ``vocab`` columns are the
+        logits; the pad columns are zero, and the caller keeps them out of
+        every softmax."""
+        return aligned_linear(x.to(self.cfg.dtype), self.word_embeddings.weight)
 
     def embed_joint(self, input_ids, token_type_ids=None, attention_mask=None,
                     position_ids=None, img_feats=None, img_location_embeddings=None,

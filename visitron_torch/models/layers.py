@@ -71,6 +71,60 @@ class Dense(nn.Module):
         return out
 
 
+class _PadRows(torch.autograd.Function):
+    """``t`` (n, ...) -> (n + pad, ...) in ``dtype``, the pad rows ``value``:
+    one copy, which is also the cast; the backward hands the gradient's
+    first n rows back in ``t``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, t, pad, value, dtype):
+        n = t.shape[0]
+        ctx.n, ctx.dtype = n, t.dtype
+        out = t.new_empty((n + pad, *t.shape[1:]), dtype=dtype)
+        out[:n].copy_(t)
+        out[n:].fill_(value)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[:ctx.n].to(ctx.dtype), None, None, None
+
+
+def pad_to_8(t: torch.Tensor, value: float = 0.0, dtype=None) -> torch.Tensor:
+    """``t`` cast to ``dtype`` (default its own) with its first dimension
+    rounded up to a multiple of 8, the new rows ``value``; ``t.to(dtype)``
+    where the size is a multiple of 8 already.  The pretraining heads' one
+    rule for their widths (:func:`aligned_linear`, ``PretrainModel.heads``)."""
+    dtype = dtype or t.dtype
+    pad = -t.shape[0] % 8
+    return _PadRows.apply(t, pad, value, dtype) if pad else t.to(dtype)
+
+
+def aligned_linear(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``F.linear`` in ``x``'s dtype, run at the output width n rounded up
+    to a multiple of 8 and returned at that width: (..., n8), the pad
+    columns zero.
+
+    A bf16 product whose output width is not a multiple of 8 has rows that
+    start off a 16-byte boundary, and cuBLAS then runs it, and the two
+    products of its backward, on unaligned (``align1``) SM75 CUTLASS
+    kernels at a sixth of the rate it gives aligned widths on an H100.  So
+    the weight's rows (and the bias) are padded with zeros here, in the
+    call and in the one copy that casts them (:func:`pad_to_8`): the
+    parameters keep their shapes, and the pad's backward slices their
+    gradients back to them.  A caller takes the first n columns (a view)
+    where it needs the product itself.  ``.padded`` counts the products run
+    at a padded width."""
+    w = pad_to_8(weight, dtype=x.dtype)
+    if w.shape[0] > weight.shape[0]:
+        aligned_linear.padded += 1
+    return F.linear(x, w, None if bias is None else pad_to_8(bias, dtype=x.dtype))
+
+
+aligned_linear.padded = 0
+
+
 class Embed(nn.Module):
     """Embedding table (num, features) in fp32; rows are cast to ``dtype``."""
 

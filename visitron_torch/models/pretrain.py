@@ -16,9 +16,22 @@ the MLM logits are cast to ``cfg.dtype`` (bf16 product + fp32 bias -> fp32
 (K3, ops/crossentropy.py), whose per-row CE is summed and divided by the
 count of labels != -1; otherwise the logits stay fp32 and the plain
 ``masked_cross_entropy`` runs.
+
+The tied decoder and the region-token head run at their output widths
+rounded up to a multiple of 8 (``layers.aligned_linear``, whose rule,
+``layers.pad_to_8``, also pads the MLM bias: Oscar's vocabulary
+of 30,525 and the detector's 1,601 classes would put their products, forward
+and backward, on unaligned GEMM kernels).  The pad lives only inside the
+step: the parameters keep their shapes, ``mlm_logits`` is a view of the
+first vocab columns, ``token_logits`` a cast of the first classes columns,
+and the MLM bias is padded with -inf, so the padded MLM buffer that K3 reads
+(``mlm_logits_padded``) gives the same CE, lse and (zero-padded) dlogits as
+the logits alone.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +39,7 @@ from torch import nn
 
 from visitron_torch.models.bert import (BertConfig, VisitronBert, _dense,
                                         _layer_norm)
-from visitron_torch.models.layers import DropoutRng
+from visitron_torch.models.layers import DropoutRng, aligned_linear, pad_to_8
 from visitron_torch.ops.crossentropy import fused_masked_softmax_ce
 
 
@@ -80,19 +93,34 @@ class PretrainModel(nn.Module):
         tokens under an sp or cp mesh: the MLM and token logits stay
         token-sharded, as the JAX package's constraints keep them).
         ``pooled`` None: the next-action logits are None (a rank of an sp or
-        cp mesh without the [CLS] token)."""
+        cp mesh without the [CLS] token).
+
+        The decoder and the token head compute at their widths rounded up to
+        a multiple of 8 (``aligned_linear``), so that their products and
+        those of the backward run on aligned GEMMs: ``mlm_logits_padded`` is
+        the contiguous (B, S, vocab8) buffer, its pad columns -inf (the
+        decoder's zero columns plus the MLM bias padded with -inf), which K3
+        reads whole; ``mlm_logits`` (B, S, vocab) is a view of it, and
+        ``token_logits`` (B, S, classes) is cast from a view of the padded
+        product, so the loss's gradient reaches the token head zero-padded."""
+        cfg = self.cfg
         x = F.gelu(self.mlm_transform(seq), approximate="none")
         x = self.mlm_layer_norm(x)
-        logits = self.bert.attend_vocab(x).float() + self.mlm_bias
-        if self.cfg.use_fused_mlm_ce:
+        # The MLM bias padded with -inf to the decoder's width: exp(-inf - lse)
+        # = 0, so the pad columns leave every softmax alone.
+        logits = self.bert.attend_vocab(x).float() + pad_to_8(self.mlm_bias, -math.inf)
+        if cfg.use_fused_mlm_ce:
             # The logits stay in the compute dtype for the fused CE kernel.
-            logits = logits.to(self.cfg.dtype)
+            logits = logits.to(cfg.dtype)
+        head = self.token_head
+        tokens = aligned_linear(seq.to(cfg.dtype), head.weight, head.bias)
         return {
             "sequence_output": seq,
             "pooled_output": pooled,
-            "mlm_logits": logits,
+            "mlm_logits": logits[..., :cfg.vocab_size],
+            "mlm_logits_padded": logits,
             "action_logits": None if pooled is None else self.next_action(pooled).float(),
-            "token_logits": self.token_head(seq).float(),
+            "token_logits": tokens[..., :cfg.detector_classes].float(),
         }
 
 
@@ -105,15 +133,17 @@ def pretrain_loss(outputs: dict, labels, next_action=None, token_labels=None,
     ranks (visitron_tpu/models/pretrain.py:147 divides by the global
     count); None divides by this batch's counts.  Under an sp or cp mesh
     ``labels`` and ``token_labels`` are this rank's columns of the joint
-    sequence (the logits' tokens)."""
+    sequence (the logits' tokens).  The fused MLM loss reads the padded
+    buffer ``outputs["mlm_logits_padded"]`` (MLM labels lie in [0, vocab)
+    or are -1)."""
     counts = counts or {}
     mlm_logits = outputs["mlm_logits"]
     seq_len = mlm_logits.shape[1]
-    vocab = mlm_logits.shape[-1]
     mlm_labels = labels[:, :seq_len]
     if cfg is not None and cfg.use_fused_mlm_ce:
         flat = mlm_labels.reshape(-1)
-        ce = fused_masked_softmax_ce(mlm_logits.reshape(-1, vocab), flat)
+        padded = outputs["mlm_logits_padded"]
+        ce = fused_masked_softmax_ce(padded.reshape(-1, padded.shape[-1]), flat)
         n = counts.get("mlm")
         mask_loss = ce.sum() / torch.clamp(torch.sum(flat != -1) if n is None else n,
                                            min=1)
