@@ -6,12 +6,16 @@ the seed, and the one training object the window then drives; its first
 three steps, through the window's own feed and call, are the ones the
 reference follows, and a step on each further length bucket of the traffic
 warms the rest.  The window counts completed (batch x T) decoder actions.
+In the first step the harness keeps the candidate logits of each decoder
+step, from which each row's loss at each step is read.
 """
 
 from __future__ import annotations
 
+import math
 import time
 
+import numpy as np
 import torch
 
 from h100bench import compare, flops, params, trace as tracing
@@ -49,6 +53,25 @@ def warm_batches(insts, runtime, traffic, seen: set):
 
 
 def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_start: float):
+    rec, judged = drive(cell, seed, seconds, trace, device, t_start)
+    cfg, traffic = cell["config"], cell["traffic"]
+    t_ref = time.perf_counter()
+    world, table, eps, first, *prog = judged
+    ref = reference_steps(cfg, traffic, world, table, eps, first, seed, device)
+    rec.readings = program_readings(cfg, seed, device, *prog, ref)
+    rec.readings["nonfinite_window_losses"] = float(rec.failed)
+    rec.limits = {**traffic["limits"], "nonfinite_window_losses": 0}
+    rec.correct, _ = compare.judge(rec.readings, rec.limits)
+    rec.reference_s = time.perf_counter() - t_ref
+    return rec
+
+
+def drive(cell: dict, seed: int, seconds: float, trace: bool, device, t_start: float):
+    """Set-up, the window and the traced stretch, the program then freed:
+    (record, (world, table, episodes, the compared steps' instance indices,
+    their losses, the first step's row losses, Adam's mu after the first,
+    the parameters after the third)) for :func:`reference_steps` and
+    :func:`program_readings`."""
     from visitron_torch.agents import NavEpisodeBatcher
 
     cfg, traffic = cell["config"], cell["traffic"]
@@ -74,7 +97,13 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_start: flo
     first, losses, seen = [], [], set()
     for i in range(COMPARED_STEPS):
         batch = next(feed)
-        state, loss = step(state, batch)
+        if i == 0:
+            logits = keep_logits(agent)
+            state, loss = step(state, batch)
+            del agent.decode_step
+            rows = row_losses(logits, batch)
+        else:
+            state, loss = step(state, batch)
         first.append(list(batch["inst_idx"]))
         losses.append(loss)
         seen.add(bucket_of(batch["lengths"], bucket, cap))
@@ -130,45 +159,109 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_start: flo
     prog_losses = [float(x) for x in losses]
     del state, step, feed, batcher, agent, runtime, window_losses, losses
     common.free()
-
-    t_ref = time.perf_counter()
-    readings = reference(cfg, traffic, world, table, eps, first, seed, agent_seed, device,
-                         prog_losses, mu1, p3)
-    readings["nonfinite_window_losses"] = float(rec.failed)
-    rec.readings = readings
-    rec.limits = {**traffic["limits"], "nonfinite_window_losses": 0}
-    rec.correct, _ = compare.judge(rec.readings, rec.limits)
-    rec.reference_s = time.perf_counter() - t_ref
-    return rec
+    return rec, (world, table, eps, first, prog_losses, rows, mu1, p3)
 
 
-def reference_steps(cfg, traffic, world, table, eps, first, seed, agent_seed, device):
-    """(losses, first clipped gradient, change after the steps) of the plain
-    fp32 reference over the batches ``first`` (instance indices), from the
-    weights of the seed."""
+def keep_logits(agent) -> list:
+    """The masked candidate logits of each decoder step the agent runs, kept
+    (detached) until ``del agent.decode_step``."""
+    kept, raw = [], agent.decode_step
+
+    def decode_step(*args, **kwargs):
+        out = raw(*args, **kwargs)
+        kept.append(out[0].detach())
+        return out
+
+    agent.decode_step = decode_step
+    return kept
+
+
+def row_losses(logits: list, batch: dict):
+    """(rows, T) float64: each row's cross-entropy at each step of the
+    teacher-forced loss from the kept logits, NaN where it has ended (and
+    on rows that the step left without logits)."""
+    teacher, active = np.asarray(batch["teacher"]), np.asarray(batch["active"], bool)
+    out = np.full(active.shape, np.nan)
+    for t, logit in enumerate(logits):
+        lg, n = logit.double(), logit.shape[0]
+        tgt = torch.as_tensor(np.where(active[:n, t], teacher[:n, t], 0), device=lg.device)
+        ce = (torch.logsumexp(lg, -1) - lg.gather(1, tgt[:, None].long())[:, 0]).cpu().numpy()
+        out[:n, t] = np.where(active[:n, t], ce, np.nan)
+    return out
+
+
+def reference_steps(cfg, traffic, world, table, eps, first, seed, device,
+                    prec: Prec | None = None, drop_half: bool = False):
+    """(losses, first step's row losses, first clipped gradient, change
+    after the steps) of the plain reference over the batches ``first``
+    (instance indices), from the weights and the agent's dropout draws of
+    the seed.  ``prec``: its precision (default fp32); ``drop_half``: each
+    batch's second half left out, a planted fault."""
     set_fp32_math()
+    agent_seed = common.derive(seed, "agent")
     p0 = common.weights(layout.ndh_shapes(cfg), seed, device)
     adam = ref_adam.Adam(p0, {**cfg["optimizer"], "schedule": None})
     cands = ref_ndh.Candidates(world)
     streams = Streams(agent_seed, device)
-    P, losses, g1 = p0, [], None
+    P, losses, rows, g1 = p0, [], None, None
     for idxs in first:
-        loss, grads = ref_ndh.train_loss_grads(
+        if drop_half:
+            idxs = idxs[:len(idxs) // 2]
+        loss, grads, step_rows = ref_ndh.train_loss_grads(
             P, [eps[i] for i in idxs], world, cands, table, traffic["episode_len"], cfg["bert"],
-            cfg["agent"], agent_seed, Prec("fp32"), traffic["reference_block"], streams)
+            cfg["agent"], agent_seed, prec or Prec("fp32"), traffic["reference_block"], streams)
         P, clipped = adam.step(P, grads)
         g1 = clipped if g1 is None else g1
+        rows = step_rows if rows is None else rows
         losses.append(loss)
-    return losses, g1, common.leaves_minus(P, p0)
+    return losses, rows, g1, common.leaves_minus(P, p0)
 
 
-def reference(cfg, traffic, world, table, eps, first, seed, agent_seed, device, prog_losses,
-              mu1, p3) -> dict:
-    """The readings of the program's first three steps (losses, Adam's mu
-    after the first, parameters after the third) against the reference's."""
-    losses, g1, change = reference_steps(cfg, traffic, world, table, eps, first, seed,
-                                         agent_seed, device)
+def program_readings(cfg, seed, device, prog_losses, rows, mu1, p3, ref) -> dict:
+    """The readings of the program's first three steps (losses, the first
+    step's row losses, Adam's mu after the first, parameters after the
+    third) against ``ref``, the reference's (:func:`reference_steps`)."""
+    return readings(program_steps(cfg, seed, device, prog_losses, rows, mu1, p3), ref)
+
+
+def program_steps(cfg, seed, device, prog_losses, rows, mu1, p3) -> tuple:
+    """The program's (losses, row losses, first gradient, change), as
+    :func:`reference_steps` gives the reference's."""
     p0 = common.weights(layout.ndh_shapes(cfg), seed, device)
     prog_grad = {k: v / (1 - ref_adam.B1) for k, v in mu1.items()}
-    return compare.training(prog_losses, losses, prog_grad, g1,
-                            common.leaves_minus(p3, p0), change)
+    return prog_losses, rows, prog_grad, common.leaves_minus(p3, p0)
+
+
+def published_leaves(tree: dict) -> dict:
+    """The leaves as the published BERT has them: each packed
+    ``attention.qkv`` weight and bias split into its query, key and value
+    parts (the key's bias has a gradient of nought under softmax, so its
+    own leaf falls under ``compare.SKIP_BELOW``)."""
+    out = {}
+    for k, v in tree.items():
+        if ".attention.qkv." in k:
+            for part, x in zip(("query", "key", "value"), v.chunk(3, 0)):
+                out[k.replace(".qkv.", f".{part}.")] = x
+        else:
+            out[k] = v
+    return out
+
+
+def readings(got, ref) -> dict:
+    """``compare.training`` of (losses, first gradient, change) ``got``
+    against ``ref`` over the published leaves (:func:`published_leaves`),
+    and beside it: ``first_loss_gap``, the first step's loss alone (the
+    later steps start from parameters that one Adam step has moved by the
+    sign of each gradient, round-off's included); ``row_loss_gap``, the
+    median over the first step's active (row, step) pairs of the gap
+    between the two sides' cross-entropies (infinite where they have not
+    the same rows and steps)."""
+    out = compare.training(got[0], ref[0], published_leaves(got[2]), published_leaves(ref[2]),
+                           published_leaves(got[3]), published_leaves(ref[3]))
+    out["first_loss_gap"] = abs(got[0][0] - ref[0][0]) / max(abs(ref[0][0]), 1e-30)
+    p_rows, r_rows = got[1], ref[1]
+    if p_rows.shape != r_rows.shape or (np.isnan(p_rows) != np.isnan(r_rows)).any():
+        out["row_loss_gap"] = math.inf
+    else:
+        out["row_loss_gap"] = float(np.median(np.abs(p_rows - r_rows)[~np.isnan(r_rows)]))
+    return out

@@ -196,9 +196,11 @@ def dialog(episodes, device, bucket: int = 128):
 
 def train_loss_grads(P, episodes, world, cands, table, steps, cfg, agent, seed, prec: Prec,
                      block: int, streams: Streams | None = None):
-    """(loss, grads) of one teacher-forced step on ``episodes`` with every
-    dropout the program applies (``seed``: the agent's; None: none), the
-    batch in blocks of ``block`` rows; ``P`` {"part/name": fp32 leaf}."""
+    """(loss, grads, row losses) of one teacher-forced step on ``episodes``
+    with every dropout the program applies (``seed``: the agent's; None:
+    none), the batch in blocks of ``block`` rows; ``P`` {"part/name": fp32
+    leaf}; the row losses (rows, steps) float64, each active step's
+    cross-entropy, NaN where the episode has ended."""
     device = table.device
     ids, segs, lengths = dialog(episodes, device)
     b, s = ids.shape
@@ -215,6 +217,7 @@ def train_loss_grads(P, episodes, world, cands, table, steps, cfg, agent, seed, 
     leaves = {k: v.detach().requires_grad_() for k, v in P.items()}
     grads = {k: torch.zeros_like(v) for k, v in P.items()}
     total = 0.0
+    rows_ce = np.full((b, steps), np.nan)
     for lo in range(0, b, block):
         hi = min(b, lo + block)
         ctx, h, c, ctx_mask = encode(leaves, ids[lo:hi], segs[lo:hi], lengths[lo:hi], plan,
@@ -230,6 +233,8 @@ def train_loss_grads(P, episodes, world, cands, table, steps, cfg, agent, seed, 
             act = torch.as_tensor(active[lo:hi, t], device=device)
             tgt = torch.as_tensor(np.where(active[lo:hi, t], slots[lo:hi, t], 0), device=device)
             ce = F.cross_entropy(logit, tgt, reduction="none")
+            rows_ce[lo:hi, t] = np.where(active[lo:hi, t], ce.detach().double().cpu().numpy(),
+                                         np.nan)
             loss = loss + (ce * act).sum() / float(counts[t])
         loss = loss / steps
         used = [k for k in leaves if leaves[k].requires_grad]
@@ -238,17 +243,45 @@ def train_loss_grads(P, episodes, world, cands, table, steps, cfg, agent, seed, 
             if g is not None:
                 grads[k] += g
         total += float(loss.detach())
-    return total, grads
+    return total, grads, rows_ce
+
+
+def walk(world, cands: Candidates, ep, actions, steps: int):
+    """(rows, views, served slots) of the steps that ``ep`` serves when
+    driven along ``actions`` (per step the row moved to, -1 for stop), at
+    most ``steps``; a row that is no neighbour is served as slot -1 and ends
+    the episode."""
+    row, view = int(world.offsets[ep.scan]) + ep.path[0], start_view(ep.heading)
+    rows, views, slots = [], [], []
+    for target in actions[:steps]:
+        n = int(cands.count[row])
+        slot = n if target == -1 else cands.slot(row, target)
+        rows.append(row)
+        views.append(view)
+        slots.append(slot)
+        if target == -1 or slot < 0:
+            break
+        view, row = int(cands.point[row, slot]), target
+    return rows, views, slots
 
 
 @torch.no_grad()
-def rollout_logits(P, episodes, actions, world, cands, table, steps, cfg, agent, prec: Prec,
-                   block: int):
-    """The candidate logits (valid slots only) at each step of each episode
-    driven along ``actions`` (per episode, per step: the row moved to, -1 for
-    stop; a row that is no neighbour ends the episode as a wrong action),
-    with no dropout: a list per episode of (logits,
-    served slot) pairs, the logits a float64 numpy vector."""
+def step_from(P, table, cands: Candidates, rows, views, h, c, ctx, ctx_mask, prec: Prec):
+    """One decoder step without dropout at ``rows`` / ``views`` from the
+    given recurrent state (h, c) and encoder context (``ctx_mask`` True at
+    padding): (candidate logits (B, W + 1), h_tilde, c_new), float32."""
+    a_t, f_t, cand, _ = step_inputs(table, cands, rows, views, table.device)
+    return decode_step(P, a_t, f_t, cand, h.float(), c.float(), ctx.float(), ctx_mask,
+                       (None,) * 4, 0.0, prec)
+
+
+@torch.no_grad()
+def rollout(P, episodes, walks, cands, table, cfg, agent, prec: Prec, block: int):
+    """Each episode driven along its walk (:func:`walk`'s rows and views)
+    from the reference's own encoder and recurrent state, with no dropout:
+    per episode a dict of its served steps' candidate logits (valid slots, a
+    float64 numpy vector each), the states carried into them (``h``,
+    ``c``: (n, H) each), and its encoder context and mask."""
     device = table.device
     ids, segs, lengths = dialog(episodes, device)
     plan = bert_plan(Streams(None, device), ids.shape[0], ids.shape[1], cfg)
@@ -257,27 +290,25 @@ def rollout_logits(P, episodes, actions, world, cands, table, steps, cfg, agent,
         hi = min(len(episodes), lo + block)
         ctx, h, c, ctx_mask = encode(P, ids[lo:hi], segs[lo:hi], lengths[lo:hi], plan, None,
                                      lo, hi, cfg, agent, prec)
-        eps = episodes[lo:hi]
-        rows = [int(world.offsets[e.scan]) + e.path[0] for e in eps]
-        views = [start_view(e.heading) for e in eps]
-        alive = [True] * len(eps)
-        recs = [[] for _ in eps]
-        for t in range(steps):
+        block_walks = walks[lo:hi]
+        recs = [{"logits": [], "h": [], "c": [], "ctx": ctx[i], "ctx_mask": ctx_mask[i]}
+                for i in range(hi - lo)]
+        for t in range(max(len(w[0]) for w in block_walks)):
+            # An episode that has ended repeats its last pose, unrecorded.
+            at = [min(t, len(w[0]) - 1) for w in block_walks]
+            rows = [w[0][k] for w, k in zip(block_walks, at)]
+            views = [w[1][k] for w, k in zip(block_walks, at)]
             a_t, f_t, cand, _ = step_inputs(table, cands, rows, views, device)
-            logit, h, c = decode_step(P, a_t, f_t, cand, h, c, ctx, ctx_mask,
-                                      (None,) * 4, 0.0, prec)
+            logit, h_new, c_new = decode_step(P, a_t, f_t, cand, h, c, ctx, ctx_mask,
+                                              (None,) * 4, 0.0, prec)
             logit = logit.double().cpu().numpy()
-            for i, e in enumerate(eps):
-                if not alive[i]:
-                    continue
-                n = int(cands.count[rows[i]])
-                target = actions[lo + i][t]
-                served = n if target == -1 else cands.slot(rows[i], target)
-                recs[i].append((logit[i, :n + 1], served))
-                if target == -1 or served < 0:
-                    alive[i] = False
-                    continue
-                views[i] = int(cands.point[rows[i], served])
-                rows[i] = target
+            for i, (w, r) in enumerate(zip(block_walks, recs)):
+                if t < len(w[0]):
+                    r["logits"].append(logit[i, :int(cands.count[rows[i]]) + 1])
+                    r["h"].append(h[i])
+                    r["c"].append(c[i])
+            h, c = h_new, c_new
+        for r in recs:
+            r["h"], r["c"] = torch.stack(r["h"]), torch.stack(r["c"])
         out.extend(recs)
     return out

@@ -81,8 +81,18 @@ def test_pretrain_flops_match_the_counter():
     w = common.weights(layout.pretrain_shapes(cfg), 3, dev)
     live = _live(w)
     got = _backward_count(lambda: tr.loss_bundle(live, batch, None)["loss"])
-    assert got == flops.pretrain_flops(traffic["batch"], traffic["text"], traffic["img"],
-                                       cfg["bert"])
+    # The program runs the tied decoder and the region-token head at their
+    # widths rounded up to 8; mfu divides the model's FLOPs, at its widths.
+    bert = cfg["bert"]
+    up8 = {k: -(-bert[k] // 8) * 8 for k in ("vocab_size", "detector_classes")}
+    padded = flops.pretrain_flops(traffic["batch"], traffic["text"], traffic["img"],
+                                  {**bert, **up8})
+    model = flops.pretrain_flops(traffic["batch"], traffic["text"], traffic["img"], bert)
+    assert got == padded
+    # Each pad column: its forward, dX and dW products over every row.
+    rows = traffic["batch"] * (traffic["text"] + traffic["img"])
+    pad = sum(up8[k] - bert[k] for k in up8)
+    assert pad == 3 + 7 and padded - model == 3 * 2 * rows * bert["hidden_size"] * pad
 
 
 def test_launch_counts_by_hand():

@@ -7,6 +7,7 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+import torch
 
 from h100bench import spec, world as inputs
 
@@ -54,3 +55,20 @@ def complete_graphs(monkeypatch, viewpoints: int, cell_: dict) -> None:
     monkeypatch.setattr(inputs, "make_scan", complete)
     cell_["traffic"]["world"]["viewpoints_per_scan"] = viewpoints
     cell_["traffic"]["path_nodes"] = [2, 2]
+
+
+def mend_stop_slot(monkeypatch) -> None:
+    """The program's stop slot (slot ``count``) zeroed, as the published
+    agent's is: the program's mend that the NDH cells wait for, in the test
+    alone."""
+    from visitron_torch.agents import viewpoint
+
+    raw = viewpoint.gather_step_inputs
+
+    def mended(rt, cur_row, view):
+        a_t, f_t, cand, mask = raw(rt, cur_row, view)
+        k = torch.arange(cand.shape[1], device=cand.device)[None, :]
+        stop = (k == rt.count[cur_row][:, None])[..., None]
+        return a_t, f_t, cand.masked_fill(stop, 0), mask
+
+    monkeypatch.setattr(viewpoint, "gather_step_inputs", mended)
